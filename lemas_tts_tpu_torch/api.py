@@ -1,0 +1,189 @@
+"""Top-level ``TTS`` facade (counterpart of ``lemas_tts_tpu/api.py``):
+construction loads the config, vocab, DiT and Vocos vocoder onto one device;
+``infer`` runs zero-shot TTS from a reference audio/text pair.
+
+Differences in this port:
+ - ``device=None`` means ``"cuda"``, and raises when no CUDA device is
+   present; only an explicit ``device="cpu"`` runs on the CPU. An explicit
+   request never silently becomes another device.
+ - The compute dtype is bf16 on CUDA and f32 on the CPU.
+ - ``frontend=None`` (raw strings, byte or custom vocab) is the only text
+   frontend so far: ``"phone"`` and ``"char"`` need ``text/``, not ported
+   yet. Quantization is not ported either.
+ - A missing checkpoint or vocoder gives random weights (seeded), as in the
+   JAX package; reference ``.pt``/``.safetensors`` checkpoints and the
+   published Vocos ``pytorch_model.bin`` load directly (same key names).
+"""
+
+from __future__ import annotations
+
+import os
+import random
+import warnings
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+import torch
+
+from lemas_tts_tpu_torch.config import ModelConfig, SamplerConfig, load_model_config
+from lemas_tts_tpu_torch.utils.vocab import Vocab, get_tokenizer
+
+THIS_FILE = Path(__file__)
+
+
+def find_pretrained_root() -> Path:
+    """``LEMAS_PRETRAINED_ROOT`` if set, else ``<repo>/pretrained_models``."""
+    env = os.environ.get("LEMAS_PRETRAINED_ROOT")
+    if env:
+        return Path(env)
+    return THIS_FILE.parent.parent / "pretrained_models"
+
+
+def select_device(device: Optional[str]) -> torch.device:
+    """``None`` -> CUDA (raises without it); anything else as asked, checked."""
+    dev = torch.device(device or "cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} needs CUDA, but torch.cuda.is_available() is false; "
+            "pass device='cpu' to run on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise RuntimeError(f"device {device!r}: only 'cuda' and 'cpu' are supported")
+    return dev
+
+
+def _seeded_init(build, seed: int):
+    """Build a module with random weights from ``seed`` without touching the
+    global torch RNG."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        return build()
+
+
+class TTS:
+    """Zero-shot multilingual TTS."""
+
+    def __init__(self, model: str = "multilingual", ckpt_file: str = "", vocab_file: str = "",
+                 ode_method: str = "euler", use_ema: bool = False,
+                 vocoder_local_path: Optional[str] = None, device: Optional[str] = None,
+                 frontend: Optional[str] = None, compute_dtype: Optional[str] = None,
+                 quantization: Optional[str] = None):
+        from lemas_tts_tpu_torch.infer.pipeline import Synthesizer
+        from lemas_tts_tpu_torch.models.dit import DiT, cast_matrices
+        from lemas_tts_tpu_torch.models.vocos import Vocos
+        from lemas_tts_tpu_torch.weights import load_reference_state_dict
+
+        if ode_method != "euler":
+            raise NotImplementedError(f"ode_method={ode_method!r}: only euler is ported")
+        if quantization is not None:
+            raise NotImplementedError(f"quantization={quantization!r} is not ported yet")
+        if frontend is not None:
+            raise NotImplementedError(
+                f"frontend={frontend!r} needs the text frontend (text/), not ported yet; "
+                "use frontend=None (raw strings)")
+        self.ode_method = ode_method
+        self.config: ModelConfig = load_model_config(model)
+        if self.config.backbone != "DiT":
+            raise NotImplementedError(f"backbone {self.config.backbone!r} is not ported yet")
+        if self.config.use_prosody_encoder:
+            raise NotImplementedError("the prosody encoder is not ported yet")
+        self.target_sample_rate = self.config.mel_spec.target_sample_rate
+        self.seed: Optional[int] = None
+
+        self.device = select_device(device)
+        if compute_dtype is None:
+            compute_dtype = "bfloat16" if self.device.type == "cuda" else "float32"
+        dtype = torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32
+
+        # ---- vocab / tokenizer (checkpoint contract: custom vocab.txt)
+        if not vocab_file:
+            cand = find_pretrained_root() / "data" / f"{self.config.name}_grl" / "vocab.txt"
+            default_tok = Path(self.config.tokenizer_path)
+            if cand.is_file():
+                vocab_file = str(cand)
+            elif default_tok.is_file():
+                vocab_file = str(default_tok)
+        if vocab_file:
+            self.vocab: Vocab = get_tokenizer(vocab_file, "custom")
+        else:
+            warnings.warn("no vocab file found — using the byte tokenizer")
+            self.vocab = get_tokenizer("", "byte")
+
+        # ---- acoustic model
+        mel = self.config.mel_spec
+        self.dit = _seeded_init(lambda: DiT(self.config.arch, mel_dim=mel.n_mel_channels,
+                                            text_num_embeds=self.vocab.size,
+                                            compute_dtype=dtype), seed=0)
+        if ckpt_file:
+            self.dit.load_state_dict(load_reference_state_dict(ckpt_file, use_ema=use_ema))
+        else:
+            warnings.warn("no checkpoint — random-initializing model weights")
+
+        # ---- vocoder
+        if mel.mel_spec_type != "vocos":
+            raise NotImplementedError(f"vocoder for {mel.mel_spec_type!r} is not ported yet")
+        self.vocoder = _seeded_init(lambda: Vocos(input_channels=mel.n_mel_channels,
+                                                  n_fft=mel.n_fft, hop_length=mel.hop_length,
+                                                  compute_dtype=dtype), seed=1)
+        voc_path = Path(vocoder_local_path if vocoder_local_path is not None
+                        else find_pretrained_root() / "ckpts" / "vocos-mel-24khz")
+        if (voc_path / "pytorch_model.bin").is_file():
+            sd = torch.load(voc_path / "pytorch_model.bin", map_location="cpu",
+                            weights_only=True)
+            keys = set(self.vocoder.state_dict())  # drops the mel extractor, istft window
+            self.vocoder.load_state_dict({k: v for k, v in sd.items() if k in keys})
+        elif vocoder_local_path is not None:
+            raise FileNotFoundError(f"no vocoder weights at {voc_path}")
+        else:
+            warnings.warn(f"no vocoder weights at {voc_path} — random init")
+
+        for m in (self.dit, self.vocoder):
+            cast_matrices(m, dtype).to(self.device).eval()
+        self.synth = Synthesizer(self.dit, self.vocoder, self.vocab, mel, device=self.device)
+
+    def load_weights(self, dit_state: dict, vocoder_state: Optional[dict] = None) -> None:
+        """Replace the weights (e.g. from :mod:`lemas_tts_tpu_torch.weights`);
+        they are stored in the model's compute dtype on its device."""
+        self.dit.load_state_dict(dit_state)
+        if vocoder_state is not None:
+            self.vocoder.load_state_dict(vocoder_state)
+
+    def export_wav(self, wav: np.ndarray, file_wave: str) -> None:
+        from lemas_tts_tpu_torch.utils.audio_io import write_wav
+
+        write_wav(file_wave, np.asarray(wav), self.target_sample_rate)
+
+    def infer(self, ref_file, ref_text: str, gen_text: str, show_info=print,
+              target_rms: float = 0.1, cross_fade_duration: float = 0.15,
+              use_acc_grl: bool = False, ref_ratio: Optional[float] = None,
+              no_ref_audio: bool = False, cfg_strength: float = 2.0, nfe_step: int = 32,
+              speed: float = 1.0, sway_sampling_coef: Optional[float] = 5,
+              cfg_cutoff: Optional[float] = None, fix_duration: Optional[float] = None,
+              file_wave: Optional[str] = None, seed: Optional[int] = None,
+              transcribe_fn=None):
+        """Zero-shot TTS. ``ref_file`` is a WAV path or a ``(wave, sr)``
+        tuple. Returns ``(wav, sample_rate, spec)``."""
+        from lemas_tts_tpu_torch.infer.pipeline import chunk_text
+        from lemas_tts_tpu_torch.infer.preprocess import preprocess_ref_audio_text
+
+        if seed is None:
+            seed = random.randint(0, 2 ** 31 - 1)
+        self.seed = seed
+        wav, sr, ref_text = preprocess_ref_audio_text(ref_file, ref_text, show_info=show_info,
+                                                      transcribe_fn=transcribe_fn)
+        # raw-string path with a byte budget per chunk (api.py:555-562)
+        ref_units = ref_text
+        max_chars = int(len(ref_text.encode("utf-8")) / (wav.shape[-1] / sr)
+                        * (22 - wav.shape[-1] / sr)) if wav.shape[-1] > 0 else 135
+        gen_chunks = chunk_text(gen_text, max_chars=max(1, max_chars))
+        cfg = SamplerConfig(nfe_steps=nfe_step, cfg_strength=cfg_strength,
+                            sway_sampling_coef=sway_sampling_coef, cfg_cutoff=cfg_cutoff,
+                            ode_method=self.ode_method, speed=speed, target_rms=target_rms,
+                            cross_fade_duration=cross_fade_duration, use_acc_grl=use_acc_grl,
+                            ref_ratio=ref_ratio, no_ref_audio=no_ref_audio,
+                            fix_duration=fix_duration)
+        wave, out_sr, spec = self.synth.synthesize_chunks(wav, sr, ref_units, gen_chunks,
+                                                          cfg=cfg, seed=seed)
+        if file_wave is not None:
+            self.export_wav(wave, file_wave)
+        return wave, out_sr, spec

@@ -1,0 +1,402 @@
+"""Synthesis engine: text chunking, batched sampling, vocoding, stitching
+(counterpart of ``lemas_tts_tpu/infer/pipeline.py``).
+
+Text chunks of one request are packed into one batch: one sampler call and
+one masked vocoder decode. Shapes are bucketed (duration, text length,
+batch); every chunk starts from the same seeded noise prefix, so results do
+not depend on how chunks are batched.
+
+Intentional difference from the JAX package: the seeded initial noise comes
+from ``torch.Generator(device).manual_seed(seed)``, not ``jax.random``, so
+the same seed gives different noise in the two packages. Parity checks pin
+the noise with ``noise_override``.
+
+Not ported yet: prosody conditioning, streaming, ``synthesize_requests`` and
+warmup.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from lemas_tts_tpu_torch.cfm.sampler import (
+    DURATION_BUCKETS,
+    SamplerSettings,
+    pick_bucket,
+    sample_mel,
+    sway_time_grid,
+)
+from lemas_tts_tpu_torch.config import MelSpecConfig, SamplerConfig
+from lemas_tts_tpu_torch.ops.mel import MelFrontend
+from lemas_tts_tpu_torch.ops.resample import resample
+from lemas_tts_tpu_torch.utils.vocab import Vocab, pad_text_batch, text_to_ids
+
+TEXT_BUCKETS = (64, 128, 256, 512, 1024, 2048, 4096)
+BATCH_BUCKETS = (1, 2, 4, 8, 16, 32)
+
+
+def _slice_for_vocoder(mel: torch.Tensor, starts: torch.Tensor, lens: torch.Tensor,
+                       n_out: int):
+    """Per-row ``[start, start+len)`` windows of ``mel [B, N, D]`` as one
+    vocoder batch ``[B, D, n_out]`` plus its frame mask ``[B, n_out]``."""
+    B = mel.shape[0]
+    melp = F.pad(mel, (0, 0, 0, n_out))
+    pos = torch.arange(n_out, device=mel.device)
+    sl = melp[torch.arange(B, device=mel.device)[:, None], starts[:, None] + pos[None, :]]
+    mask = pos[None, :] < lens[:, None]
+    sl = torch.where(mask[..., None], sl, 0.0)
+    return sl.transpose(1, 2), mask
+
+
+def chunk_text(text: str, max_chars: int = 135) -> List[str]:
+    """Sentence-boundary chunking with a UTF-8 byte budget (reference
+    ``chunk_text``, ``utils_infer.py:89-116``)."""
+    chunks: List[str] = []
+    current = ""
+    sentences = re.split(r"(?<=[;:,.!?])\s+|(?<=[；：，。！？])", text)
+    for sentence in sentences:
+        piece = (sentence + " " if sentence and len(sentence[-1].encode("utf-8")) == 1
+                 else sentence)
+        if len(current.encode("utf-8")) + len(sentence.encode("utf-8")) <= max_chars:
+            current += piece
+        else:
+            if current:
+                chunks.append(current.strip())
+            current = piece
+    if current:
+        chunks.append(current.strip())
+    return chunks
+
+
+def estimate_duration_frames(ref_frames: int, n_ref_units: int, n_gen_units: int,
+                             speed: float) -> int:
+    """Reference duration heuristic (``utils_infer.py:520-527``): extrapolate
+    the reference's frames-per-unit rate to the new text, scaled by 1/speed."""
+    return ref_frames + int(ref_frames / max(1, n_ref_units) * n_gen_units / max(speed, 1e-6))
+
+
+def cross_fade_concat(waves: Sequence[np.ndarray], sample_rate: int,
+                      cross_fade_duration: float) -> np.ndarray:
+    """Linear cross-fade stitching (reference ``utils_infer.py:586-617``)."""
+    if not waves:
+        return np.zeros(0, dtype=np.float32)
+    if cross_fade_duration <= 0:
+        return np.concatenate(list(waves))
+    final = waves[0]
+    for nxt in waves[1:]:
+        n = min(int(cross_fade_duration * sample_rate), len(final), len(nxt))
+        if n <= 0:
+            final = np.concatenate([final, nxt])
+            continue
+        overlap = final[-n:] * np.linspace(1.0, 0.0, n) + nxt[:n] * np.linspace(0.0, 1.0, n)
+        final = np.concatenate([final[:-n], overlap, nxt[n:]])
+    return final
+
+
+def clip_and_shuffle(mel: np.ndarray, ratio: Optional[float], frames_per_second: int,
+                     rng: np.random.Generator) -> np.ndarray:
+    """Accent-GRL conditioning shuffle (reference ``cfm.py:39-83``): crop a
+    segment, shuffle ~1 s chunks, repeat to the original length. mel [T, D]."""
+    total = mel.shape[0]
+    if total <= 1:
+        return mel
+    seg_len = (int(total * ratio) if ratio else
+               int(rng.integers(int(0.25 * total),
+                                max(int(0.25 * total) + 1, int(0.75 * total) + 1))))
+    seg_len = max(1, seg_len)
+    start = int(rng.integers(0, max(1, total - seg_len + 1)))
+    seg = mel[start: start + seg_len]
+    n_chunks = -(-seg.shape[0] // frames_per_second)
+    chunks = [seg[i * frames_per_second: (i + 1) * frames_per_second] for i in range(n_chunks)]
+    order = rng.permutation(len(chunks))
+    shuffled = np.concatenate([chunks[i] for i in order], axis=0) if chunks else seg
+    while shuffled.shape[0] < total:
+        shuffled = np.concatenate([shuffled, chunks[int(rng.integers(len(chunks)))]], axis=0)
+    return shuffled[:total]
+
+
+class Synthesizer:
+    """Owns the DiT, the vocoder and the vocab on one device."""
+
+    def __init__(self, dit_model, vocoder_model, vocab: Vocab,
+                 mel_cfg: MelSpecConfig = MelSpecConfig(), device="cpu"):
+        self.dit_model = dit_model
+        self.vocoder_model = vocoder_model
+        self.vocab = vocab
+        self.mel_cfg = mel_cfg
+        self.device = torch.device(device)
+        self.mel_frontend = MelFrontend(
+            n_fft=mel_cfg.n_fft, hop_length=mel_cfg.hop_length, win_length=mel_cfg.win_length,
+            n_mel_channels=mel_cfg.n_mel_channels, target_sample_rate=mel_cfg.target_sample_rate,
+            mel_spec_type=mel_cfg.mel_spec_type)
+
+    def estimate_bucket(self, ref_wav, ref_sr: int, ref_units, gen_units,
+                        cfg: SamplerConfig) -> int:
+        """Duration bucket a request lands in; shares
+        :func:`estimate_duration_frames` with the synthesis path."""
+        sr = self.mel_cfg.target_sample_rate
+        hop = self.mel_cfg.hop_length
+        n_samples = int(np.asarray(ref_wav).shape[-1])
+        ref_sr = max(1, int(ref_sr))
+        # ceil-divide: the resampler's output length is ceil(new/orig · T)
+        ref_len = (-(-n_samples * sr // ref_sr)) // hop if ref_sr != sr else n_samples // hop
+        dur = estimate_duration_frames(ref_len, len(ref_units), len(gen_units), cfg.speed)
+        if isinstance(ref_units, str) and self.vocab.char_map is None:
+            n_units = len((ref_units + gen_units).encode("utf-8"))
+        else:
+            n_units = len(ref_units) + len(gen_units)
+        cond_frames = ref_len + 1  # center=True STFT: T//hop + 1 frames
+        dur = max(max(n_units, cond_frames) + 1, dur)
+        dur = min(dur, cfg.max_duration, DURATION_BUCKETS[-1])
+        return pick_bucket(dur, DURATION_BUCKETS)
+
+    @torch.no_grad()
+    def ref_mel(self, wav: np.ndarray) -> np.ndarray:
+        """[T] float wave at the model rate -> [frames, n_mels] log-mel."""
+        x = torch.from_numpy(np.asarray(wav, np.float32)).to(self.device)
+        return self.mel_frontend(x[None, :])[0].T.cpu().numpy()
+
+    # ------------------------------------------------------------ main entry
+    def synthesize_chunks(self, ref_wav: np.ndarray, ref_sr: int,
+                          ref_text_units: Sequence[str] | str,
+                          gen_chunks: Sequence[Sequence[str] | str],
+                          cfg: SamplerConfig = SamplerConfig(), seed: Optional[int] = None,
+                          return_parts: bool = False,
+                          noise_override: Optional[np.ndarray] = None,
+                          duration_override: Optional[Sequence[int]] = None,
+                          ) -> Tuple[np.ndarray, int, np.ndarray]:
+        """Zero-shot TTS over pre-tokenized chunks: RMS normalisation,
+        resampling, per-chunk duration estimate, sampling, vocoding, RMS
+        restore, cross-fade. Returns (wave, sample_rate, mel [n_mels, T]).
+        ``noise_override`` ([T, n_mels], zero-padded/truncated to the bucket)
+        replaces the seeded noise; ``duration_override`` replaces the
+        per-chunk duration estimate."""
+        max_b = BATCH_BUCKETS[-1]
+        if len(gen_chunks) > max_b:
+            waves: List[np.ndarray] = []
+            slices: List[np.ndarray] = []
+            for i in range(0, len(gen_chunks), max_b):
+                w, sr_out, s = self.synthesize_chunks(
+                    ref_wav, ref_sr, ref_text_units, list(gen_chunks[i: i + max_b]), cfg, seed,
+                    return_parts=True, noise_override=noise_override,
+                    duration_override=None if duration_override is None
+                    else list(duration_override[i: i + max_b]))
+                waves += w
+                slices += s
+            if return_parts:
+                return waves, sr_out, slices
+            final = np.clip(cross_fade_concat(waves, sr_out, cfg.cross_fade_duration),
+                            -0.999, 0.999)
+            return final, sr_out, np.concatenate([g.T for g in slices], axis=1)
+
+        if not gen_chunks:
+            sr = self.mel_cfg.target_sample_rate
+            if return_parts:
+                return [], sr, []
+            return (np.zeros(0, np.float32), sr,
+                    np.zeros((self.mel_cfg.n_mel_channels, 0), np.float32))
+
+        pending = self._dispatch_chunks(ref_wav, ref_sr, ref_text_units, gen_chunks, cfg=cfg,
+                                        seed=seed, noise_override=noise_override,
+                                        duration_override=duration_override)
+        return self._finalize_chunks(pending, cfg, return_parts=return_parts)
+
+    def _prepare_ref(self, ref_wav: np.ndarray, ref_sr: int, cfg: SamplerConfig) -> dict:
+        """RMS normalise, resample to the model rate, reference mel."""
+        sr = self.mel_cfg.target_sample_rate
+        hop = self.mel_cfg.hop_length
+        audio = np.asarray(ref_wav, dtype=np.float32)
+        if audio.ndim == 2:
+            audio = audio.mean(axis=0)
+        rms = float(np.sqrt(np.mean(np.square(audio)))) if audio.size else 0.0
+        if 0 < rms < cfg.target_rms:
+            audio = audio * (cfg.target_rms / rms)
+        if ref_sr != sr:
+            x = torch.from_numpy(np.ascontiguousarray(audio)).to(self.device)
+            audio = resample(x, ref_sr, sr).cpu().numpy()
+        return dict(audio=audio, rms=rms, ref_audio_len=audio.shape[-1] // hop,
+                    cond_mel=self.ref_mel(audio))
+
+    @torch.no_grad()
+    def _dispatch_chunks(self, ref_wav, ref_sr, ref_text_units, gen_chunks,
+                         cfg: SamplerConfig = SamplerConfig(), seed: Optional[int] = None,
+                         noise_override: Optional[np.ndarray] = None,
+                         duration_override: Optional[Sequence[int]] = None) -> dict:
+        """Host prep, the sampler call and the vocoder decode of <= one batch
+        bucket of chunks; returns the pending results for _finalize_chunks."""
+        sr = self.mel_cfg.target_sample_rate
+        hop = self.mel_cfg.hop_length
+        D = self.mel_cfg.n_mel_channels
+        dev = self.device
+        ref_prep = self._prepare_ref(ref_wav, ref_sr, cfg)
+        rms, ref_audio_len = ref_prep["rms"], ref_prep["ref_audio_len"]
+        cond_mel = ref_prep["cond_mel"]
+        ref_frames = cond_mel.shape[0]
+
+        if duration_override is not None and len(duration_override) != len(gen_chunks):
+            raise ValueError(f"duration_override has {len(duration_override)} entries for "
+                             f"{len(gen_chunks)} chunks")
+        texts: List[np.ndarray] = []
+        durations: List[int] = []
+        for chunk_idx, gen in enumerate(gen_chunks):
+            if isinstance(ref_text_units, str) != isinstance(gen, str):
+                raise TypeError(
+                    "ref_text_units and gen chunks must both be strings or both token "
+                    f"lists (got {type(ref_text_units).__name__} / {type(gen).__name__})")
+            local_speed = cfg.speed
+            if isinstance(gen, str) and len(gen.encode("utf-8")) < 10:
+                local_speed = 0.3
+            if duration_override is not None:
+                duration = int(duration_override[chunk_idx])
+            elif cfg.fix_duration is not None:
+                duration = int(cfg.fix_duration * sr / hop)
+            else:
+                duration = estimate_duration_frames(ref_audio_len, len(ref_text_units),
+                                                    len(gen), local_speed)
+            full = ref_text_units + gen if isinstance(gen, str) \
+                else list(ref_text_units) + list(gen)
+            ids = text_to_ids(full, self.vocab)
+            # duration >= max(text_len, ref_frames) + 1, <= max cap (cfm.py:300-304)
+            duration = max(max(len(ids), ref_frames) + 1, duration)
+            duration = min(duration, cfg.max_duration, DURATION_BUCKETS[-1])
+            texts.append(ids)
+            durations.append(duration)
+
+        B = len(texts)
+        Bp = pick_bucket(B, BATCH_BUCKETS)
+        N = pick_bucket(max(durations), DURATION_BUCKETS)
+        max_ids = max(len(t) for t in texts)
+        if max_ids > TEXT_BUCKETS[-1]:
+            raise ValueError(f"text length {max_ids} exceeds the largest text bucket "
+                             f"({TEXT_BUCKETS[-1]}); split the text into more chunks")
+        nt = pick_bucket(max_ids, TEXT_BUCKETS)
+        text_ids = pad_text_batch(texts, pad_to=nt)
+        if Bp > B:  # pad the batch with dummy rows (discarded)
+            text_ids = np.concatenate([text_ids, np.full((Bp - B, nt), -1, np.int32)], axis=0)
+        dur_arr = np.asarray(durations + [ref_frames + 1] * (Bp - B), dtype=np.int64)
+
+        ref_frames = min(ref_frames, N)
+        cond_mel = cond_mel[:ref_frames]
+        cond = np.zeros((Bp, N, D), dtype=np.float32)
+        cond[:, :ref_frames] = cond_mel[None]
+        cond_mask = np.zeros((Bp, N), dtype=bool)
+        cond_mask[:, :ref_frames] = True
+        cond_mean = cond_mel.mean(axis=0, keepdims=True)
+        rng = np.random.default_rng(seed if seed is not None else None)
+
+        step_cond = None
+        if cfg.use_acc_grl and cfg.ref_ratio is not None and cfg.ref_ratio < 1:
+            shuffled = clip_and_shuffle(cond_mel, cfg.ref_ratio, int(sr / hop), rng)
+            step_cond = cond.copy()
+            step_cond[:, :ref_frames] = shuffled[None]
+        if cfg.no_ref_audio:  # cfm.py:320-324
+            random_cond = rng.standard_normal(cond.shape).astype(np.float32) * 0.1 + cond_mean
+            cond = random_cond / random_cond.mean(axis=1, keepdims=True) * cond_mean
+
+        # shared seeded noise prefix (cfm.py:430-435 semantics)
+        if noise_override is not None:
+            pad = np.zeros((N, D), np.float32)
+            t = min(len(noise_override), N)
+            pad[:t] = np.asarray(noise_override[:t], np.float32)
+            noise = torch.from_numpy(pad).to(dev)
+        else:
+            noise_seed = seed if seed is not None else int(rng.integers(2 ** 31 - 1))
+            gen = torch.Generator(device=dev).manual_seed(int(noise_seed))
+            noise = torch.randn((N, D), generator=gen, device=dev, dtype=torch.float32)
+        y0 = noise[None].expand(Bp, N, D)
+
+        t_start = 0.0
+        cond_t = torch.from_numpy(cond).to(dev)
+        if cfg.duplicate_test:  # cfm.py:307-309,439-443
+            t_start = cfg.t_inter
+            test_cond = np.zeros_like(cond)
+            dup_end = min(2 * ref_frames, N)
+            test_cond[:, ref_frames:dup_end] = cond_mel[None, : dup_end - ref_frames]
+            y0 = (1.0 - t_start) * y0 + t_start * torch.from_numpy(test_cond).to(dev)
+
+        if cfg.block_cache:
+            raise NotImplementedError("block_cache is not ported yet")
+        settings = SamplerSettings(steps=int(cfg.nfe_steps * (1.0 - t_start)) or 1,
+                                   cfg_strength=cfg.cfg_strength,
+                                   sway_sampling_coef=cfg.sway_sampling_coef,
+                                   method=cfg.ode_method, cfg_cutoff=cfg.cfg_cutoff,
+                                   t_start=t_start)
+        out = sample_mel(
+            self.dit_model, cond=cond_t, cond_mask=torch.from_numpy(cond_mask).to(dev),
+            text_ids=torch.from_numpy(text_ids).to(dev),
+            duration=torch.from_numpy(dur_arr).to(dev), y0=y0,
+            time_grid=sway_time_grid(settings.steps, settings.sway_sampling_coef,
+                                     settings.t_start),
+            settings=settings,
+            step_cond=None if step_cond is None else torch.from_numpy(step_cond).to(dev))
+        pending = dict(B=B, sr=sr, rms=rms, durations=durations, ref_frames=ref_frames,
+                       ref_audio_len=ref_audio_len)
+        if cfg.no_ref_audio:
+            pending.update(kind="no_ref", out=out, cond_mean=cond_mean)
+            return pending
+        # keep >= 1 generated frame when the reference fills the duration
+        starts_l = [min(ref_audio_len, durations[i] - 1) for i in range(B)]
+        lens_l = [durations[i] - starts_l[i] for i in range(B)]
+        n_out = pick_bucket(max(lens_l), DURATION_BUCKETS)
+        starts = torch.tensor(starts_l + [0] * (Bp - B), device=dev)
+        lens = torch.tensor(lens_l + [1] * (Bp - B), device=dev)
+        sliced, vmask = _slice_for_vocoder(out, starts, lens, n_out)
+        pending.update(kind="decode", lens_l=lens_l, sliced=sliced,
+                       waves_dev=self.vocoder_model.decode(sliced, vmask))
+        return pending
+
+    def _finalize_chunks(self, pending: dict, cfg: SamplerConfig, return_parts: bool = False):
+        """Fetch the results, trim, restore the RMS, clip and stitch."""
+        B, sr, rms = pending["B"], pending["sr"], pending["rms"]
+        durations = pending["durations"]
+        hop = self.mel_cfg.hop_length
+        if pending["kind"] == "no_ref":
+            # mean re-alignment of the generated region (cfm.py:464-467)
+            ref_frames, ref_audio_len = pending["ref_frames"], pending["ref_audio_len"]
+            out_np = pending["out"].cpu().numpy().astype(np.float32)
+            gen_region = out_np[:, ref_frames:, :]
+            out_np[:, ref_frames:, :] = gen_region - (
+                gen_region.mean(axis=1, keepdims=True) - pending["cond_mean"][None])
+            gen_slices = [out_np[i, min(ref_audio_len, durations[i] - 1): durations[i], :]
+                          for i in range(B)]
+            waves = self.vocode_batch(gen_slices)
+        else:
+            lens_l = pending["lens_l"]
+            waves_np = pending["waves_dev"].cpu().numpy()
+            mels_np = pending["sliced"].cpu().numpy()
+            # vocos iSTFT head: T frames -> (T-1)·hop samples
+            gen_slices = [mels_np[i, :, : lens_l[i]].T for i in range(B)]
+            waves = [waves_np[i, : (lens_l[i] - 1) * hop] for i in range(B)]
+        if 0 < rms < cfg.target_rms:
+            waves = [w * (rms / cfg.target_rms) for w in waves]
+        if return_parts:
+            return [np.clip(w, -0.999, 0.999) for w in waves], sr, gen_slices
+        final = np.clip(cross_fade_concat(waves, sr, cfg.cross_fade_duration), -0.999, 0.999)
+        return final, sr, np.concatenate([g.T for g in gen_slices], axis=1)
+
+    @torch.no_grad()
+    def vocode_batch(self, mels: Sequence[np.ndarray]) -> List[np.ndarray]:
+        """Decode variable-length [T_i, D] mels as one masked batch call."""
+        max_b = BATCH_BUCKETS[-1]
+        if len(mels) > max_b:
+            out: List[np.ndarray] = []
+            for i in range(0, len(mels), max_b):
+                out += self.vocode_batch(mels[i: i + max_b])
+            return out
+        hop = self.mel_cfg.hop_length
+        lens = [m.shape[0] for m in mels]
+        N = pick_bucket(max(lens), DURATION_BUCKETS)
+        B = pick_bucket(len(mels), BATCH_BUCKETS)
+        batch = np.zeros((B, self.mel_cfg.n_mel_channels, N), dtype=np.float32)
+        mask = np.zeros((B, N), dtype=bool)
+        for i, m in enumerate(mels):
+            batch[i, :, : m.shape[0]] = m.T
+            mask[i, : m.shape[0]] = True
+        waves = self.vocoder_model.decode(torch.from_numpy(batch).to(self.device),
+                                          torch.from_numpy(mask).to(self.device)).cpu().numpy()
+        return [waves[i, : (lens[i] - 1) * hop] for i in range(len(mels))]

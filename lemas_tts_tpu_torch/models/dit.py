@@ -1,0 +1,140 @@
+"""DiT backbone, the flagship CFM transformer (counterpart of
+``lemas_tts_tpu/models/dit.py``).
+
+The blocks are an ``nn.ModuleList`` run in a Python loop. Text embedding is
+a separate method so the sampler computes it once per utterance;
+``embed_inputs`` and ``head`` split the forward around the block stack. The
+long skip connection, the prosody projection and sequence parallelism are
+not ported: a config that asks for them raises.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from lemas_tts_tpu_torch.config import DiTArch
+from lemas_tts_tpu_torch.models.modules import (
+    AdaLayerNormFinal,
+    ConvNeXtV2Block,
+    ConvPositionEmbedding,
+    DiTBlock,
+    TimestepEmbedding,
+    dense,
+)
+from lemas_tts_tpu_torch.ops.rope import abs_pos_embedding, rope_angles
+
+
+class TextEmbedding(nn.Module):
+    """Token embed + absolute sinus pos + masked ConvNeXtV2 stack. ids are
+    -1-padded; the +1 shift maps padding to the filler token 0."""
+
+    def __init__(self, text_num_embeds: int, text_dim: int, mask_padding: bool = True,
+                 conv_layers: int = 4, conv_mult: int = 2, precompute_max_pos: int = 4096):
+        super().__init__()
+        self.mask_padding = mask_padding
+        self.max_pos = precompute_max_pos
+        self.text_embed = nn.Embedding(text_num_embeds + 1, text_dim)
+        self.text_blocks = nn.Sequential(
+            *[ConvNeXtV2Block(text_dim, text_dim * conv_mult) for _ in range(conv_layers)])
+        self.register_buffer(
+            "freqs_cis", torch.from_numpy(abs_pos_embedding(text_dim, precompute_max_pos)),
+            persistent=False)
+
+    def forward(self, text_ids: torch.Tensor, seq_len: int, drop_text: bool = False,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        ids = (text_ids.long() + 1)[:, :seq_len]
+        if ids.shape[1] < seq_len:
+            ids = nn.functional.pad(ids, (0, seq_len - ids.shape[1]))
+        pad_mask = (ids == 0)[..., None]  # filler / batch-pad positions
+        if drop_text:
+            ids = torch.zeros_like(ids)
+        emb = self.text_embed.weight.to(dtype)[ids]
+        if len(self.text_blocks):
+            pos = torch.clamp(torch.arange(seq_len, device=ids.device), max=self.max_pos - 1)
+            emb = emb + self.freqs_cis[pos][None].to(emb.dtype)
+            for blk in self.text_blocks:
+                if self.mask_padding:
+                    emb = torch.where(pad_mask, 0.0, emb)
+                emb = blk(emb)
+            if self.mask_padding:
+                emb = torch.where(pad_mask, 0.0, emb)
+        return emb
+
+
+class InputEmbedding(nn.Module):
+    """concat(noised x, cond mel, text emb) -> proj -> + conv pos embed."""
+
+    def __init__(self, mel_dim: int, text_dim: int, out_dim: int):
+        super().__init__()
+        self.proj = nn.Linear(mel_dim * 2 + text_dim, out_dim)
+        self.conv_pos_embed = ConvPositionEmbedding(out_dim)
+
+    def forward(self, x, cond, text_embed):
+        h = dense(torch.cat([x, cond, text_embed], dim=-1), self.proj)
+        return self.conv_pos_embed(h) + h
+
+
+class DiT(nn.Module):
+    """CFM velocity transformer: v = DiT(x_t, cond, text, t)."""
+
+    def __init__(self, arch: DiTArch, mel_dim: int = 100, text_num_embeds: int = 256,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if arch.long_skip_connection:
+            raise NotImplementedError("long_skip_connection is not ported yet")
+        self.arch = arch
+        self.mel_dim = mel_dim
+        self.compute_dtype = compute_dtype
+        text_dim = arch.text_dim if arch.text_dim is not None else mel_dim
+        self.time_embed = TimestepEmbedding(arch.dim)
+        self.text_embed = TextEmbedding(text_num_embeds, text_dim,
+                                        mask_padding=arch.text_mask_padding,
+                                        conv_layers=arch.conv_layers,
+                                        conv_mult=arch.conv_mult)
+        self.input_embed = InputEmbedding(mel_dim, text_dim, arch.dim)
+        self.transformer_blocks = nn.ModuleList([
+            DiTBlock(arch.dim, arch.heads, arch.dim_head, arch.ff_mult, arch.qk_norm,
+                     arch.pe_attn_head) for _ in range(arch.depth)])
+        self.norm_out = AdaLayerNormFinal(arch.dim)
+        self.proj_out = nn.Linear(arch.dim, mel_dim)
+
+    def embed_text(self, text_ids: torch.Tensor, seq_len: int, drop_text: bool = False):
+        """Text embedding [B, seq_len, text_dim], computed once per utterance."""
+        return self.text_embed(text_ids, seq_len, drop_text=drop_text, dtype=self.compute_dtype)
+
+    def embed_inputs(self, x, cond, text_ids, time, drop_text: bool = False, text_embed=None):
+        """Everything before the block stack: returns ``(h, t_emb, angles)``."""
+        B, N, _ = x.shape
+        if time.ndim == 0:
+            time = time.expand(B)
+        t_emb = self.time_embed(time, self.compute_dtype)
+        if text_embed is None:
+            text_embed = self.embed_text(text_ids, N, drop_text=drop_text)
+        h = self.input_embed(x.to(self.compute_dtype), cond.to(self.compute_dtype), text_embed)
+        return h, t_emb, rope_angles(N, self.arch.dim_head, device=x.device)
+
+    def head(self, h: torch.Tensor, t_emb: torch.Tensor) -> torch.Tensor:
+        """Final AdaLN and mel projection; returns f32 [B, N, mel_dim]."""
+        return dense(self.norm_out(h, t_emb), self.proj_out).float()
+
+    def forward(self, x, cond, text_ids, time, mask=None, drop_text: bool = False,
+                text_embed=None):
+        """Velocity [B, N, mel_dim] (f32); ``mask`` [B, N] marks the valid
+        frames (keys)."""
+        h, t_emb, angles = self.embed_inputs(x, cond, text_ids, time, drop_text=drop_text,
+                                             text_embed=text_embed)
+        for blk in self.transformer_blocks:
+            h = blk(h, t_emb, mask=mask, angles=angles)
+        return self.head(h, t_emb)
+
+
+def cast_matrices(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Store the Linear, Conv1d and Embedding parameters of ``module`` in
+    ``dtype`` (the compute dtype), once, instead of casting them at every
+    use. LayerNorm, GRN and layer-scale parameters keep f32, as the JAX
+    package's do. Numerically the same as casting at use."""
+    for m in module.modules():
+        if isinstance(m, (nn.Linear, nn.Conv1d, nn.Embedding)):
+            m.to(dtype)
+    return module

@@ -1,0 +1,278 @@
+"""Building blocks of the DiT backbone (counterpart of
+``lemas_tts_tpu/models/modules.py``).
+
+Numerics follow the JAX modules: erf-GELU in ConvNeXtV2, tanh-GELU in
+FeedForward, AdaLN chunks in the reference order, GRN over the sequence axis,
+the interleaved-pair rope. Parameters keep the reference torch key names
+(``tests/torch_ref/dit_torch.py``), so reference checkpoints load directly.
+Layers run in the dtype of their input (the compute dtype): weights are cast
+to it at use, as flax's ``dtype=`` does; LayerNorms compute in f32.
+
+On CUDA, ``DiTBlock`` runs the fused path: ``qkv_block`` (K1), the flat
+``vmem_attention_nhd`` (K3), ``to_out`` and the gate, then ``ffn_block``
+(K2). On the CPU the same chain runs through the plain versions of those
+kernels when the head geometry is one the kernels take, and through the
+unfused split-head chain otherwise.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from lemas_tts_tpu_torch.ops.attention import nhd_supported, sdpa, vmem_attention_nhd
+from lemas_tts_tpu_torch.ops.ffn import (ffn_block, ffn_block_supported, qkv_block,
+                                         qkv_block_supported)
+from lemas_tts_tpu_torch.ops.rope import apply_rope
+
+
+def dense(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+    """flax ``nn.Dense(dtype=x.dtype)``: product in x's dtype, then + bias."""
+    y = torch.matmul(x, lin.weight.to(x.dtype).t())
+    return y if lin.bias is None else y + lin.bias.to(x.dtype)
+
+
+def conv1d(x: torch.Tensor, conv: nn.Conv1d, padding) -> torch.Tensor:
+    """Channel-last ``[B, N, C]`` 1-D convolution in x's dtype; ``padding``
+    is ``(left, right)``."""
+    h = F.pad(x.transpose(1, 2), padding)
+    w = conv.weight.to(x.dtype)
+    b = None if conv.bias is None else conv.bias.to(x.dtype)
+    return F.conv1d(h, w, b, dilation=conv.dilation, groups=conv.groups).transpose(1, 2)
+
+
+def layer_norm_f32(x: torch.Tensor, norm: Optional[nn.LayerNorm] = None,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """flax ``nn.LayerNorm(dtype=float32)``: fast variance clipped at 0,
+    optional affine; returns f32."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mu * mu, min=0.0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    if norm is not None and norm.weight is not None:
+        y = y * norm.weight.float() + norm.bias.float()
+    return y
+
+
+def sinus_position_embedding(x: torch.Tensor, dim: int, scale: float = 1000.0) -> torch.Tensor:
+    """[B] scalar positions -> [B, dim] sin/cos features."""
+    half = dim // 2
+    freqs = torch.exp(torch.arange(half, dtype=torch.float32, device=x.device)
+                      * (-math.log(10000.0) / (half - 1)))
+    args = scale * x.float()[:, None] * freqs[None, :]
+    return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
+
+
+class TimestepEmbedding(nn.Module):
+    """Sinusoidal(256) -> Linear -> SiLU -> Linear."""
+
+    def __init__(self, dim: int, freq_embed_dim: int = 256):
+        super().__init__()
+        self.freq_embed_dim = freq_embed_dim
+        self.time_mlp = nn.Sequential(nn.Linear(freq_embed_dim, dim), nn.SiLU(),
+                                      nn.Linear(dim, dim))
+
+    def forward(self, t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        h = sinus_position_embedding(t, self.freq_embed_dim).to(dtype)
+        return dense(F.silu(dense(h, self.time_mlp[0])), self.time_mlp[2])
+
+
+class ConvPositionEmbedding(nn.Module):
+    """Two grouped k=31 convs with Mish. The JAX package lowers them as
+    shifted taps on the TPU; here each is one grouped ``conv1d``, padded
+    ``(K-1)//2`` on the left and ``K//2`` on the right (flax SAME)."""
+
+    def __init__(self, dim: int, kernel_size: int = 31, groups: int = 16):
+        super().__init__()
+        self.conv1d = nn.Sequential(
+            nn.Conv1d(dim, dim, kernel_size, groups=groups), nn.Mish(),
+            nn.Conv1d(dim, dim, kernel_size, groups=groups), nn.Mish())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k = self.conv1d[0].kernel_size[0]
+        pad = ((k - 1) // 2, k // 2)
+        h = F.mish(conv1d(x, self.conv1d[0], pad))
+        return F.mish(conv1d(h, self.conv1d[2], pad))
+
+
+class GRN(nn.Module):
+    """Global response norm over the sequence axis."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.zeros(1, 1, dim))
+        self.beta = nn.Parameter(torch.zeros(1, 1, dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        gx = torch.sqrt(torch.sum(x.float() ** 2, dim=1, keepdim=True))
+        nx = gx / (gx.mean(dim=-1, keepdim=True) + 1e-6)
+        return (self.gamma * (x * nx.to(x.dtype)) + self.beta + x).to(x.dtype)
+
+
+class ConvNeXtV2Block(nn.Module):
+    """Depthwise k=7 conv -> LN -> pw expand -> GELU(erf) -> GRN -> pw back,
+    residual."""
+
+    def __init__(self, dim: int, intermediate_dim: int, dilation: int = 1):
+        super().__init__()
+        self.dwconv = nn.Conv1d(dim, dim, 7, groups=dim, dilation=dilation)
+        self.norm = nn.LayerNorm(dim, eps=1e-6)
+        self.pwconv1 = nn.Linear(dim, intermediate_dim)
+        self.grn = GRN(intermediate_dim)
+        self.pwconv2 = nn.Linear(intermediate_dim, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        pad = self.dwconv.dilation[0] * 3
+        h = conv1d(x, self.dwconv, (pad, pad))
+        h = layer_norm_f32(h, self.norm).to(x.dtype)
+        h = F.gelu(dense(h, self.pwconv1))
+        h = self.grn(h)
+        return x + dense(h, self.pwconv2)
+
+
+class RMSNorm(nn.Module):
+    """Per-head qk RMSNorm option."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        y = xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + self.eps)
+        return (y * self.weight).to(x.dtype)
+
+
+class FeedForward(nn.Module):
+    """Linear -> GELU(tanh) -> Linear (reference keys ``ff.0.0``, ``ff.2``)."""
+
+    def __init__(self, dim: int, mult: int = 4):
+        super().__init__()
+        inner = int(dim * mult)
+        self.ff = nn.Sequential(nn.Sequential(nn.Linear(dim, inner), nn.GELU(approximate="tanh")),
+                                nn.Dropout(0.0), nn.Linear(inner, dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dense(F.gelu(dense(x, self.ff[0][0]), approximate="tanh"), self.ff[2])
+
+
+class Attention(nn.Module):
+    """Multi-head self-attention with rope (reference projection layout)."""
+
+    def __init__(self, dim: int, heads: int = 8, dim_head: int = 64,
+                 qk_norm: Optional[str] = None, pe_attn_head: Optional[int] = None):
+        super().__init__()
+        if qk_norm not in (None, "rms_norm"):
+            raise ValueError(f"unknown qk_norm: {qk_norm!r}")
+        self.heads, self.dim_head, self.pe_attn_head = heads, dim_head, pe_attn_head
+        inner = heads * dim_head
+        self.to_q = nn.Linear(dim, inner)
+        self.to_k = nn.Linear(dim, inner)
+        self.to_v = nn.Linear(dim, inner)
+        self.to_out = nn.ModuleList([nn.Linear(inner, dim), nn.Dropout(0.0)])
+        if qk_norm is not None:
+            self.q_norm = RMSNorm(dim_head)
+            self.k_norm = RMSNorm(dim_head)
+        else:
+            self.q_norm = self.k_norm = None
+
+    def forward(self, x, mask=None, angles=None):
+        """Unfused chain: x is the modulated, normalised residual stream."""
+        B, N, _ = x.shape
+
+        def split(t):
+            return t.view(B, N, self.heads, self.dim_head).transpose(1, 2)
+
+        q, k, v = (split(dense(x, lin)) for lin in (self.to_q, self.to_k, self.to_v))
+        if self.q_norm is not None:
+            q, k = self.q_norm(q), self.k_norm(k)
+        if angles is not None:
+            pn = self.heads if self.pe_attn_head is None else self.pe_attn_head
+            q = torch.cat([apply_rope(q[:, :pn], angles), q[:, pn:]], dim=1)
+            k = torch.cat([apply_rope(k[:, :pn], angles), k[:, pn:]], dim=1)
+        out = sdpa(q, k, v, mask).transpose(1, 2).reshape(B, N, -1)
+        return self.project_out(out, mask)
+
+    def project_out(self, out, mask):
+        out = dense(out, self.to_out[0])
+        if mask is not None:
+            out = torch.where(mask[..., None], out, 0.0)  # zero padded queries
+        return out
+
+
+class AdaLayerNorm(nn.Module):
+    """AdaLN-zero: 6 modulation chunks, shift/scale/gate (msa) then
+    shift/scale/gate (mlp)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.linear = nn.Linear(dim, dim * 6)
+
+    def forward(self, emb: torch.Tensor):
+        return dense(F.silu(emb), self.linear).chunk(6, dim=-1)
+
+
+class AdaLayerNormFinal(nn.Module):
+    """Final AdaLN: 2 chunks in scale-then-shift order."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.linear = nn.Linear(dim, dim * 2)
+
+    def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+        scale, shift = dense(F.silu(emb), self.linear).chunk(2, dim=-1)
+        normed = layer_norm_f32(x).to(x.dtype)
+        return normed * (1 + scale[:, None]) + shift[:, None]
+
+
+class DiTBlock(nn.Module):
+    """AdaLN -> attention -> gate, LN-modulate -> FF -> gate."""
+
+    def __init__(self, dim: int, heads: int, dim_head: int, ff_mult: int = 4,
+                 qk_norm: Optional[str] = None, pe_attn_head: Optional[int] = None):
+        super().__init__()
+        self.attn_norm = AdaLayerNorm(dim)
+        self.attn = Attention(dim, heads, dim_head, qk_norm, pe_attn_head)
+        self.ff = FeedForward(dim, ff_mult)
+        self.qk_norm = qk_norm
+
+    def fused_ok(self, n: int) -> bool:
+        """Whether the kernels take this block at sequence length ``n``."""
+        a = self.attn
+        inner = a.heads * a.dim_head
+        dim = a.to_q.in_features
+        return (nhd_supported(a.heads, a.dim_head, n, self.qk_norm, a.pe_attn_head)
+                and qkv_block_supported(n, dim, inner)
+                and ffn_block_supported(n, dim, self.ff.ff[2].in_features))
+
+    def forward(self, x, t_emb, mask=None, angles=None):
+        sh_a, sc_a, g_a, sh_m, sc_m, g_m = self.attn_norm(t_emb)
+        fused = angles is not None and self.fused_ok(x.shape[1])
+        if x.device.type != "cpu" and not fused:
+            a = self.attn
+            raise NotImplementedError(
+                f"the CUDA kernels do not take this block (heads={a.heads}, "
+                f"dim_head={a.dim_head}, N={x.shape[1]}, qk_norm={self.qk_norm}, "
+                f"pe_attn_head={a.pe_attn_head}); the split-head kernel is not ported yet")
+        if fused:
+            a, ff = self.attn, self.ff.ff
+            cdt = x.dtype
+            x = x.contiguous()  # the conv position embedding leaves a transposed layout
+            q, k, v = qkv_block(
+                x, sc_a.contiguous(), sh_a.contiguous(),
+                *(t for lin in (a.to_q, a.to_k, a.to_v)
+                  for t in (lin.weight.to(cdt), lin.bias.to(cdt))))
+            out = vmem_attention_nhd(q, k, v, mask, angles, a.heads)
+            x = x + g_a[:, None] * a.project_out(out, mask)
+            return ffn_block(x, sc_m.contiguous(), sh_m.contiguous(), g_m.contiguous(),
+                             ff[0][0].weight.to(cdt), ff[0][0].bias.to(cdt),
+                             ff[2].weight.to(cdt), ff[2].bias.to(cdt))
+        normed = layer_norm_f32(x).to(x.dtype) * (1 + sc_a[:, None]) + sh_a[:, None]
+        x = x + g_a[:, None] * self.attn(normed, mask=mask, angles=angles)
+        normed = layer_norm_f32(x).to(x.dtype) * (1 + sc_m[:, None]) + sh_m[:, None]
+        return x + g_m[:, None] * self.ff(normed)

@@ -1,0 +1,140 @@
+"""Fused DiT block halves: ``qkv_block`` (K1) and ``ffn_block`` (K2).
+
+Counterpart of ``lemas_tts_tpu/ops/ffn.py``. Each function is a CUDA kernel
+(``csrc/qkv_block.cu``, ``csrc/ffn_block.cu``) with a plain PyTorch version
+beside it that rounds at the same points as the Pallas kernels:
+
+- LayerNorm statistics in f32 with the fast variance ``E[x^2] - mu^2`` and
+  eps 1e-6, no affine;
+- ``normed`` rounded to the compute dtype *before* ``* (1 + scale) + shift``,
+  which runs in the compute dtype;
+- products accumulate in f32, are rounded to the compute dtype, and only then
+  get ``+ bias``.
+
+Dispatch is by the tensors' device: CPU tensors take the plain version, CUDA
+tensors launch the kernel or raise. Weights are in torch ``Linear`` layout
+``[out, in]``. Each wrapper counts its kernel launches in ``.launches``.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from lemas_tts_tpu_torch.ops import _cuda
+
+LN_EPS = 1e-6
+ROW_TILE = 64  # rows per kernel block (csrc/ln_mod_gemm.cuh BM)
+COL_TILE = 128  # output columns per kernel block (BN)
+K_TILE = 32  # reduction depth per stage (BK)
+
+
+def ln_modulate(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+    """``T(LN(x)) * (1 + scale) + shift`` with the kernels' rounding points;
+    x [B, N, D], scale/shift [B, D]."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf * xf).mean(-1, keepdim=True) - mu * mu
+    normed = ((xf - mu) * torch.rsqrt(var + LN_EPS)).to(x.dtype)
+    return normed * (1 + scale[:, None]) + shift[:, None]
+
+
+def _dense(m: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    # f32-accumulated product rounded to the compute dtype, then + bias
+    return torch.matmul(m, w.to(m.dtype).t()) + b.to(m.dtype)
+
+
+def qkv_block_plain(x, scale, shift, wq, bq, wk, bk, wv, bv):
+    m = ln_modulate(x, scale.to(x.dtype), shift.to(x.dtype))
+    return _dense(m, wq, bq), _dense(m, wk, bk), _dense(m, wv, bv)
+
+
+def ffn_block_plain(x, scale, shift, gate, w1, b1, w2, b2):
+    cdt = x.dtype
+    m = ln_modulate(x, scale.to(cdt), shift.to(cdt))
+    h = F.gelu(_dense(m, w1, b1), approximate="tanh")
+    return x + gate.to(cdt)[:, None] * _dense(h, w2, b2)
+
+
+def qkv_block_supported(n: int, d: int, inner: int) -> bool:
+    """Shapes the CUDA kernel takes: whole row tiles inside each batch row
+    (N % 64), whole reduction stages (D % 32) and whole column tiles inside
+    each of q, k, v (inner % 128)."""
+    return n % ROW_TILE == 0 and d % K_TILE == 0 and inner % COL_TILE == 0
+
+
+def ffn_block_supported(n: int, d: int, inner: int) -> bool:
+    """Shapes the CUDA kernel takes: N % 64, and D and the hidden width
+    multiples of 128 (each is a column tile width of one launch and the
+    reduction depth of the other)."""
+    return n % ROW_TILE == 0 and d % COL_TILE == 0 and inner % COL_TILE == 0
+
+
+def _check_cuda(x: torch.Tensor, *others: torch.Tensor) -> None:
+    _cuda.require(x.dim() == 3, f"x must be [B, N, D], got {tuple(x.shape)}")
+    for t in (x, *others):
+        _cuda.require(t.device == x.device, "all operands must be on one device")
+        _cuda.require(t.dtype == x.dtype,
+                      f"operand dtype {t.dtype} differs from x's {x.dtype}")
+        _cuda.require(t.is_contiguous(), "operands must be contiguous")
+
+
+def qkv_block(x, scale, shift, wq, bq, wk, bk, wv, bv):
+    """LN -> AdaLN modulate -> q/k/v projections. x [B, N, D]; scale, shift
+    [B, D]; w* [I, D]; b* [I]. Returns q, k, v, each [B, N, I]."""
+    if x.device.type == "cpu":
+        return qkv_block_plain(x, scale, shift, wq, bq, wk, bk, wv, bv)
+    _cuda.require(x.device.type == "cuda", f"no kernel for device {x.device}")
+    _check_cuda(x, scale, shift, wq, bq, wk, bk, wv, bv)
+    B, N, D = x.shape
+    inner = wq.shape[0]
+    _cuda.require(qkv_block_supported(N, D, inner),
+                  f"qkv_block kernel does not take N={N}, D={D}, I={inner}")
+    for w, b in ((wq, bq), (wk, bk), (wv, bv)):
+        _cuda.require(tuple(w.shape) == (inner, D) and tuple(b.shape) == (inner,),
+                      "q/k/v weights must be [I, D] with biases [I]")
+    _cuda.require(tuple(scale.shape) == (B, D) and tuple(shift.shape) == (B, D),
+                  "scale and shift must be [B, D]")
+    q, k, v = (torch.empty(B, N, inner, device=x.device, dtype=x.dtype) for _ in range(3))
+    err = _cuda.library("qkv_block")(
+        x.device.index, _cuda.dtype_code(x), x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+        wq.data_ptr(), bq.data_ptr(), wk.data_ptr(), bk.data_ptr(), wv.data_ptr(), bv.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), B * N, N, D, inner,
+        _cuda.stream_ptr(x.device))
+    _cuda.check(err, "qkv_block")
+    qkv_block.launches += 1
+    return q, k, v
+
+
+qkv_block.launches = 0
+
+
+def ffn_block(x, scale, shift, gate, w1, b1, w2, b2):
+    """x + gate * FF(LN(x) * (1 + scale) + shift). x [B, N, D]; scale,
+    shift, gate [B, D]; w1 [F, D], b1 [F], w2 [D, F], b2 [D]. Returns
+    [B, N, D]."""
+    if x.device.type == "cpu":
+        return ffn_block_plain(x, scale, shift, gate, w1, b1, w2, b2)
+    _cuda.require(x.device.type == "cuda", f"no kernel for device {x.device}")
+    _check_cuda(x, scale, shift, gate, w1, b1, w2, b2)
+    B, N, D = x.shape
+    Fh = w1.shape[0]
+    _cuda.require(ffn_block_supported(N, D, Fh),
+                  f"ffn_block kernel does not take N={N}, D={D}, F={Fh}")
+    _cuda.require(tuple(w1.shape) == (Fh, D) and tuple(b1.shape) == (Fh,)
+                  and tuple(w2.shape) == (D, Fh) and tuple(b2.shape) == (D,),
+                  "w1 must be [F, D], w2 [D, F]")
+    for t in (scale, shift, gate):
+        _cuda.require(tuple(t.shape) == (B, D), "scale, shift and gate must be [B, D]")
+    h = torch.empty(B, N, Fh, device=x.device, dtype=x.dtype)
+    out = torch.empty_like(x)
+    err = _cuda.library("ffn_block")(
+        x.device.index, _cuda.dtype_code(x), x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+        gate.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+        h.data_ptr(), out.data_ptr(), B * N, N, D, Fh, _cuda.stream_ptr(x.device))
+    _cuda.check(err, "ffn_block")
+    ffn_block.launches += 1
+    return out
+
+
+ffn_block.launches = 0

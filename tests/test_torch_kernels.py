@@ -1,0 +1,152 @@
+"""The port's K1-K3 (qkv_block, ffn_block, vmem_attention_nhd) against the
+JAX Pallas kernels run in interpret mode, on the CPU.
+
+On the CPU the port's wrappers take their plain PyTorch versions, which
+round at the same points as the CUDA kernels; the kernels themselves are held
+against these plain versions on the card by ``chip_smoke.py``. Tolerances:
+f32 2e-5 (summation order only), bf16 3e-2 (one bf16 ulp at |x| ~ 4, where
+the two frameworks round a product or a sum at different places).
+"""
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from lemas_tts_tpu.ops import attention as jattn
+from lemas_tts_tpu.ops import ffn as jffn
+from lemas_tts_tpu.ops.rope import rope_angles as jrope_angles
+from lemas_tts_tpu_torch.ops import attention as tattn
+from lemas_tts_tpu_torch.ops import ffn as tffn
+
+TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _t(a, dtype):
+    return torch.from_numpy(np.asarray(a, np.float32)).to(dtype)
+
+
+def _ffn_inputs(seed, B, N, D, F):
+    rng = np.random.default_rng(seed)
+    return dict(
+        x=rng.standard_normal((B, N, D)), scale=rng.standard_normal((B, D)) * 0.1,
+        shift=rng.standard_normal((B, D)) * 0.1, gate=rng.standard_normal((B, D)),
+        w1=rng.standard_normal((D, F)) * 0.05, b1=rng.standard_normal(F) * 0.1,
+        w2=rng.standard_normal((F, D)) * 0.05, b2=rng.standard_normal(D) * 0.1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,N,D,F", [(2, 256, 128, 256), (1, 512, 128, 128)])
+def test_ffn_block_matches_pallas(dtype, B, N, D, F):
+    jdt, tdt = DTYPES[dtype]
+    p = _ffn_inputs(0, B, N, D, F)
+    act = {k: p[k].astype(np.float32) for k in ("x", "scale", "shift", "gate")}
+    ref = jffn.ffn_block(*(jnp.asarray(act[k], jdt) for k in ("x", "scale", "shift", "gate")),
+                         *(jnp.asarray(p[k], jnp.float32) for k in ("w1", "b1", "w2", "b2")),
+                         interpret=True)
+    got = tffn.ffn_block(*(_t(act[k], tdt) for k in ("x", "scale", "shift", "gate")),
+                         _t(p["w1"].T, torch.float32), _t(p["b1"], torch.float32),
+                         _t(p["w2"].T, torch.float32), _t(p["b2"], torch.float32))
+    assert got.dtype == tdt
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(ref, np.float32),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_qkv_block_matches_pallas(dtype):
+    jdt, tdt = DTYPES[dtype]
+    rng = np.random.default_rng(3)
+    B, N, D, I = 2, 256, 128, 128
+    x = rng.standard_normal((B, N, D)).astype(np.float32)
+    scale, shift = (rng.standard_normal((B, D)).astype(np.float32) * 0.1 for _ in range(2))
+    ws = [rng.standard_normal((D, I)) * 0.05 for _ in range(3)]
+    bs = [rng.standard_normal(I) * 0.1 for _ in range(3)]
+    ref = jffn.qkv_block(jnp.asarray(x, jdt), jnp.asarray(scale, jdt), jnp.asarray(shift, jdt),
+                         *(jnp.asarray(a, jnp.float32) for w, b in zip(ws, bs) for a in (w, b)),
+                         interpret=True)
+    got = tffn.qkv_block(_t(x, tdt), _t(scale, tdt), _t(shift, tdt),
+                         *(_t(a, torch.float32) for w, b in zip(ws, bs) for a in (w.T, b)))
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.float().numpy(), np.asarray(r, np.float32),
+                                   rtol=TOL[dtype], atol=TOL[dtype])
+
+
+# Every query row keeps at least one valid key: for a row whose keys are ALL
+# masked the JAX one-shot path returns the mean of v and the port returns 0
+# (as the JAX chunked path does); callers zero such rows anyway.
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("heads,dim_head,N,block_kv", [
+    (2, 64, 128, None),   # d64 pairs, one-shot softmax
+    (4, 64, 256, None),
+    (2, 64, 256, 128),    # d64 pairs, kv-chunked online softmax
+    (2, 128, 128, None),  # d128 single heads
+    (3, 128, 256, None),  # an odd head count is legal at d128
+    (2, 128, 256, 128),   # d128, kv-chunked
+])
+def test_attention_nhd_matches_pallas(dtype, heads, dim_head, N, block_kv):
+    jdt, tdt = DTYPES[dtype]
+    rng = np.random.default_rng(7)
+    B = 2
+    q, k, v = (rng.standard_normal((B, N, heads * dim_head)).astype(np.float32)
+               for _ in range(3))
+    mask = np.arange(N)[None, :] < np.asarray([N - 48, N])[:, None]
+    angles = np.array(jrope_angles(N, dim_head))
+    ref = jattn.vmem_attention_nhd(
+        jnp.asarray(q, jdt), jnp.asarray(k, jdt), jnp.asarray(v, jdt), jnp.asarray(mask),
+        jnp.asarray(angles), heads=heads, interpret=True, block_kv=block_kv)
+    got = tattn.vmem_attention_nhd(_t(q, tdt), _t(k, tdt), _t(v, tdt), torch.from_numpy(mask),
+                                   torch.from_numpy(angles), heads)
+    assert got.dtype == tdt and got.shape == (B, N, heads * dim_head)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(ref, np.float32),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def test_attention_nhd_all_masked_row_is_zero():
+    """The documented delta: a row with no valid key gives 0, not NaN."""
+    rng = np.random.default_rng(1)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 64, 128)).astype(np.float32))
+               for _ in range(3))
+    mask = torch.ones(2, 64, dtype=torch.bool)
+    mask[1] = False
+    out = tattn.vmem_attention_nhd(q, k, v, mask, torch.from_numpy(
+        np.array(jrope_angles(64, 64))), heads=2)
+    assert torch.isfinite(out).all() and (out[1] == 0).all()
+
+
+def test_sdpa_matches_jax():
+    rng = np.random.default_rng(5)
+    q, k, v = (rng.standard_normal((2, 3, 40, 16)).astype(np.float32) for _ in range(3))
+    mask = np.arange(40)[None, :] < np.asarray([29, 40])[:, None]
+    ref = jattn.sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(mask))
+    got = tattn.sdpa(*(torch.from_numpy(a) for a in (q, k, v)), torch.from_numpy(mask))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-5, atol=2e-5)
+
+
+def test_cpu_calls_leave_launch_counters_at_zero():
+    """Plain versions on the CPU are not kernel launches."""
+    counters = (tffn.qkv_block, tffn.ffn_block, tattn.vmem_attention_nhd)
+    before = [f.launches for f in counters]
+    x = torch.randn(1, 64, 128)
+    z = torch.zeros(1, 128)
+    w, b = torch.randn(128, 128) * 0.05, torch.zeros(128)
+    q, k, v = tffn.qkv_block(x, z, z, w, b, w, b, w, b)
+    tffn.ffn_block(x, z, z, z, w, b, w, b)
+    tattn.vmem_attention_nhd(q, k, v, None, torch.zeros(64, 32), heads=2)
+    assert [f.launches for f in counters] == before == [0, 0, 0]
+
+
+def test_wrappers_refuse_other_devices():
+    """A tensor that is neither on the CPU nor on CUDA never reaches a plain
+    version: the wrapper raises."""
+    x = torch.empty(1, 64, 128, device="meta")
+    z = torch.empty(1, 128, device="meta")
+    w, b = torch.empty(128, 128, device="meta"), torch.empty(128, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        tffn.qkv_block(x, z, z, w, b, w, b, w, b)
+    with pytest.raises(ValueError, match="no kernel"):
+        tffn.ffn_block(x, z, z, z, w, b, w, b)
+    with pytest.raises(ValueError, match="no kernel"):
+        tattn.vmem_attention_nhd(x, x, x, None, torch.empty(64, 32, device="meta"), heads=2)
