@@ -3,13 +3,22 @@
 
 Phases, in order (any failure raises; the exit code is then non-zero):
   1. card: CUDA present, name and power limit from nvidia-smi, TF32 off;
-  2. build: the kernels of ``lemas_tts_tpu_torch/csrc`` with nvcc (sm_90a);
-  3. kernels: each kernel against its plain PyTorch version on the card, at
-     the flagship widths, with times, the bound and the library yardstick;
-  4. DiT: a depth-2 flagship-width DiT on the card (kernels) against the same
-     weights on the CPU (plain path), in f32 and bf16;
-  5. slice: ``TTS.infer`` at the flagship ``multilingual`` config with random
-     weights, three requests (one warm, two timed), counting kernel launches.
+  2. build: the kernels of ``lemas_tts_tpu_torch/csrc`` with nvcc (sm_90a),
+     one nvcc per source, all started together;
+  3. kernels: each kernel (K1-K5) against its plain PyTorch version on the
+     card, at the shapes of the paths below, with times, the bound and the
+     library yardstick; K4 also against K3 (bit for bit);
+  4. DiT: depth-2 models at full width on the card (kernels) against the same
+     weights on the CPU (plain versions), in f32 and bf16, each counting its
+     launches: the flagship DiT (K1-K3), the flagship under
+     ``LEMAS_ATTN_PACK=1`` (K4 in place of K3), the F5-TTS v0 ``f5tts_base``
+     DiT (K5 and K2) and the MMDiT at the flagship's arch (K5);
+  5. slice: ``TTS.infer`` at full depth with random weights, launches counted
+     per path (counts set to 0 just before a path, read just after): the
+     flagship ``multilingual`` config (one warm-up, two timed requests, then
+     one request under ``LEMAS_ATTN_PACK=1``), ``f5tts_base`` and an MMDiT
+     built from the flagship config (one warm-up and one timed request each);
+     one more request per path under ``torch.profiler``.
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Needs only torch, numpy and the CUDA
 toolkit: no JAX, no yaml.
@@ -17,7 +26,9 @@ toolkit: no JAX, no yaml.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -91,7 +102,7 @@ def phase_build() -> None:
     took = _cuda.build()
     print(f"[build] {len(took)} libraries in {time.perf_counter() - t0:.1f} s wall "
           f"({', '.join(f'{k} {v:.1f} s' for k, v in took.items()) or 'cached'})", flush=True)
-    for name in _cuda.SIGNATURES:
+    for name in _cuda.ENTRY_POINTS:
         log = _cuda.BUILD / f"{name}.ptxas.txt"
         if log.is_file():
             for line in log.read_text().splitlines():
@@ -121,10 +132,34 @@ def _kernel_inputs(torch, rows, n, d, f, heads, dim_head, dtype, seed):
         v=rn(rows, n, inner), mask=mask, angles=torch.outer(pos, inv).contiguous())
 
 
-def phase_kernels() -> list:
-    """Each kernel against its plain version on the card. Returns the
-    records of the main-path shape (rows 2, N 1024, bf16) for the kernels
-    line."""
+def _report(results, tag: str, shape: str, peak: float, records: dict = None) -> None:
+    """Time each kernel of ``results`` (tuples: name, (rel-L2, max-abs),
+    kernel calls, plain call, library call or None, bytes, FLOP, source,
+    replaced TPU kernel), print it, fail if over tolerance; with
+    ``records``, keep its record for the kernels line."""
+    for name, (rl2, mab), kern, plain, library, nbytes, flops, src, rep in results:
+        ms = time_ms(kern)
+        plain_ms = time_ms(plain, iters=3)
+        lib_ms = time_ms([library]) if library is not None else None
+        bms, by = bound_ms(nbytes, flops, peak)
+        ok = rl2 <= TOL_REL_L2[tag]
+        print(f"[kernels] {name:23s} {tag:4s} {shape}: "
+              f"rel-L2 {rl2:.3e} max-abs {mab:.3e} (tol {TOL_REL_L2[tag]:.0e}) "
+              f"ms {ms:.4f} plain {plain_ms:.4f} "
+              f"library {'-' if lib_ms is None else f'{lib_ms:.4f}'} "
+              f"bound {bms:.4f} ({by}) {'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"{name} {tag} {shape}: rel-L2 {rl2:.3e} over tolerance")
+        if records is not None:
+            records[name] = {"name": name, "route": "cuda", "source": src, "replaces": rep,
+                             "launches": 0, "max_abs_err": mab, "ms": ms,
+                             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                             "library_ms": lib_ms}
+
+
+def phase_kernels() -> dict:
+    """K1-K4 against their plain versions on the card (K4 also against K3).
+    Returns the records of the flagship path's shape (rows 2, N 1024, bf16)
+    for the kernels line."""
     import torch
     import torch.nn.functional as F
 
@@ -192,26 +227,122 @@ def phase_kernels() -> list:
                         [lambda: attention.vmem_attention_nhd_plain(*a_sets[0])], lib, nbytes,
                         flops, "lemas_tts_tpu_torch/csrc/attention_nhd.cu",
                         "lemas_tts_tpu/ops/attention.py:561"))
-        for name, (rl2, mab), kern, plain, library, nbytes, flops, src, rep in results:
-            ms = time_ms(kern)
-            plain_ms = time_ms(plain, iters=3)
-            lib_ms = time_ms([library]) if library is not None else None
-            bms, by = bound_ms(nbytes, flops, peak)
-            ok = rl2 <= TOL_REL_L2[tag]
-            print(f"[kernels] {name:18s} {tag:4s} rows {rows:2d} N {n:4d} heads {heads}x{dh}: "
-                  f"rel-L2 {rl2:.3e} max-abs {mab:.3e} (tol {TOL_REL_L2[tag]:.0e}) "
-                  f"ms {ms:.4f} plain {plain_ms:.4f} "
-                  f"library {'-' if lib_ms is None else f'{lib_ms:.4f}'} "
-                  f"bound {bms:.4f} ({by}) {'ok' if ok else 'FAIL'}", flush=True)
-            check(ok, f"{name} {tag} rows {rows} N {n}: rel-L2 {rl2:.3e} over tolerance")
-            if main_shape:
-                records[name] = {"name": name, "route": "cuda", "source": src, "replaces": rep,
-                                 "launches": 0, "max_abs_err": mab, "ms": ms,
-                                 "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-                                 "library_ms": lib_ms}
+        if dh == 64 and rows == 2 and n == 1024:  # K4 at the flagship shape
+            got4 = attention.vmem_attention_nhd_pack(*a_sets[0])
+            k4_k3 = max_abs(got4, got)
+            print(f"[kernels] vmem_attention_nhd_pack {tag} vs vmem_attention_nhd: max-abs "
+                  f"{k4_k3:.3e} (the same arithmetic on the same staged values: 0)", flush=True)
+            check(torch.equal(got4, got), f"K4 differs from K3 ({tag}): max-abs {k4_k3:.3e}")
+            results.append(("vmem_attention_nhd_pack", (rel_l2(got4, ref), max_abs(got4, ref)),
+                            [lambda a=a: attention.vmem_attention_nhd_pack(*a) for a in a_sets],
+                            [lambda: attention.vmem_attention_nhd_plain(*a_sets[0])], lib,
+                            nbytes, flops, "lemas_tts_tpu_torch/csrc/attention_nhd.cu",
+                            "lemas_tts_tpu/ops/attention.py:528"))
+        _report(results, tag, f"rows {rows:2d} N {n:4d} heads {heads}x{dh}", peak,
+                records if main_shape else None)
         del sets, a_sets, t
         torch.cuda.empty_cache()
-    return [records[k] for k in ("qkv_block", "vmem_attention_nhd", "ffn_block")]
+    return records
+
+
+def phase_split_attention() -> dict:
+    """K5 against its plain version on the card, with sdpa as its yardstick:
+    the v0 path's shape (rows 2, 16 x 64, N 1024), the MMDiT's joint length
+    (1024 frames + 256 text), a ragged N, d128 heads, and a batch row whose
+    keys are all masked (which must give the mean of v). Returns the record
+    of the v0 shape in bf16."""
+    import torch
+    import torch.nn.functional as F
+
+    from lemas_tts_tpu_torch.ops import attention
+
+    records = {}
+    shapes = [(1024, 16, 64, False), (1280, 16, 64, False), (1088, 16, 64, False),
+              (1024, 8, 128, False), (1024, 16, 64, True)]
+    for tag, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+        for n, heads, dh, masked_row in shapes:
+            main_shape = tag == "bf16" and n == 1024 and dh == 64 and not masked_row
+            rows = 2
+            g = torch.Generator(device="cuda").manual_seed(n + dh)
+            sets = []
+            for _ in range(3 if main_shape else 1):
+                q, k, v = (torch.randn(rows, heads, n, dh, generator=g, device="cuda").to(dtype)
+                           for _ in range(3))
+                valid = torch.tensor([n - 37, n], device="cuda")
+                mask = torch.arange(n, device="cuda")[None, :] < valid[:, None]
+                if masked_row:
+                    mask[1] = False
+                sets.append((q, k, v, mask))
+            q, k, v, mask = sets[0]
+            got = attention.vmem_attention(*sets[0])
+            ref = attention.vmem_attention_plain(*sets[0])
+            shape = f"rows {rows:2d} N {n:4d} heads {heads}x{dh}"
+            if masked_row:
+                mean_v = v[1].float().mean(dim=1, keepdim=True).expand(heads, n, dh)
+                row_err = rel_l2(got[1], mean_v)
+                print(f"[kernels] vmem_attention {tag} {shape}, row 1 all masked: rel-L2 "
+                      f"{row_err:.3e} against the mean of v (tol {TOL_REL_L2[tag]:.0e})",
+                      flush=True)
+                check(row_err <= TOL_REL_L2[tag], f"K5 {tag}: all-masked row is not mean(v)")
+                shape += ", row 1 all masked"
+            esz = q.element_size()
+            nbytes = 4 * rows * heads * n * dh * esz + rows * n
+            flops = 4.0 * heads * dh * n * float(mask.sum())
+            am = mask[:, None, None, :]
+            lib = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am)
+            _report([("vmem_attention", (rel_l2(got, ref), max_abs(got, ref)),
+                      [lambda a=a: attention.vmem_attention(*a) for a in sets],
+                      [lambda: attention.vmem_attention_plain(*sets[0])], lib, nbytes, flops,
+                      "lemas_tts_tpu_torch/csrc/attention_bhnd.cu",
+                      "lemas_tts_tpu/ops/attention.py:162")],
+                    tag, shape, peak, records if main_shape else None)
+            del sets, q, k, v, got, ref
+            torch.cuda.empty_cache()
+    return records
+
+
+def kernel_counters() -> dict:
+    """The launch counter of every kernel wrapper, by kernel name."""
+    from lemas_tts_tpu_torch.ops import attention, ffn
+
+    return {"qkv_block": ffn.qkv_block, "vmem_attention_nhd": attention.vmem_attention_nhd,
+            "vmem_attention_nhd_pack": attention.vmem_attention_nhd_pack,
+            "vmem_attention": attention.vmem_attention, "ffn_block": ffn.ffn_block}
+
+
+def reset_counters() -> None:
+    for f in kernel_counters().values():
+        f.launches = 0
+
+
+def read_counters() -> dict:
+    return {k: f.launches for k, f in kernel_counters().items()}
+
+
+@contextlib.contextmanager
+def attn_pack(on: bool):
+    """``LEMAS_ATTN_PACK=1`` (the head-pair kernel K4) inside, when ``on``;
+    unset otherwise."""
+    old = os.environ.pop("LEMAS_ATTN_PACK", None)
+    if on:
+        os.environ["LEMAS_ATTN_PACK"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("LEMAS_ATTN_PACK", None)
+        if old is not None:
+            os.environ["LEMAS_ATTN_PACK"] = old
+
+
+def expected_launches(kernels, per_call: int) -> dict:
+    return {k: (per_call if k in kernels else 0) for k in kernel_counters()}
+
+
+FLAGSHIP_KERNELS = ("qkv_block", "vmem_attention_nhd", "ffn_block")
+PACK_KERNELS = ("qkv_block", "vmem_attention_nhd_pack", "ffn_block")
+V0_KERNELS = ("vmem_attention", "ffn_block")
+MMDIT_KERNELS = ("vmem_attention",)
 
 
 def _dit_inputs(torch, B, N, mel, vocab, seed):
@@ -227,36 +358,47 @@ def _dit_inputs(torch, B, N, mel, vocab, seed):
 
 
 def phase_dit() -> None:
-    """A depth-2 DiT at the flagship width on the card (K1-K3) against the
-    same weights on the CPU (plain versions), in f32 and bf16."""
+    """Depth-2 models at full width on the card (kernels) against the same
+    weights on the CPU (plain versions), in f32 and bf16; each card forward
+    must launch its path's kernels once per block and no other."""
     import dataclasses
 
     import torch
 
     from lemas_tts_tpu_torch.config import load_model_config
     from lemas_tts_tpu_torch.models.dit import DiT, cast_matrices
+    from lemas_tts_tpu_torch.models.mmdit import MMDiT
 
-    cfg = load_model_config("multilingual")
-    arch = dataclasses.replace(cfg.arch, depth=2)
-    mel, vocab = cfg.mel_spec.n_mel_channels, 64
-    torch.manual_seed(0)
-    state = DiT(arch, mel_dim=mel, text_num_embeds=vocab).state_dict()
+    flagship, v0 = load_model_config("multilingual"), load_model_config("f5tts_base")
+    cases = [("flagship DiT", DiT, flagship, False, FLAGSHIP_KERNELS),
+             ("flagship DiT, LEMAS_ATTN_PACK=1", DiT, flagship, True, PACK_KERNELS),
+             ("f5tts_base DiT (v0)", DiT, v0, False, V0_KERNELS),
+             ("MMDiT, flagship arch, text 256", MMDiT, flagship, False, MMDIT_KERNELS)]
+    mel, vocab = flagship.mel_spec.n_mel_channels, 64
     inputs = _dit_inputs(torch, 1, 1024, mel, vocab, seed=0)
-    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-        outs = []
-        for dev in ("cpu", "cuda"):
-            dit = DiT(arch, mel_dim=mel, text_num_embeds=vocab, compute_dtype=dtype)
-            dit.load_state_dict(state)
-            dit = cast_matrices(dit, dtype).to(dev).eval()
-            with torch.no_grad():
-                outs.append(dit(*(t.to(dev) for t in inputs)).float().cpu())
-        got, ref = outs[1], outs[0]
-        rl2 = rel_l2(got, ref)
-        print(f"[dit] flagship width, depth 2, rows 2, N 1024, {tag}: card (kernels) vs CPU "
-              f"(plain) rel-L2 {rl2:.3e} max-abs {max_abs(got, ref):.3e} "
-              f"(tol {TOL_REL_L2[tag]:.0e})", flush=True)
-        check(bool(torch.isfinite(got).all()), f"DiT {tag} output not finite")
-        check(rl2 <= TOL_REL_L2[tag], f"DiT {tag}: rel-L2 {rl2:.3e} over tolerance")
+    for label, cls, cfg, pack, kernels in cases:
+        arch = dataclasses.replace(cfg.arch, depth=2)
+        torch.manual_seed(0)
+        state = cls(arch, mel_dim=mel, text_num_embeds=vocab).state_dict()
+        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            outs = []
+            for dev in ("cpu", "cuda"):
+                model = cls(arch, mel_dim=mel, text_num_embeds=vocab, compute_dtype=dtype)
+                model.load_state_dict(state)
+                model = cast_matrices(model, dtype).to(dev).eval()
+                reset_counters()
+                with attn_pack(pack), torch.no_grad():
+                    outs.append(model(*(t.to(dev) for t in inputs)).float().cpu())
+                launches = read_counters()
+            got, ref = outs[1], outs[0]
+            rl2 = rel_l2(got, ref)
+            print(f"[dit] {label}, depth 2, rows 2, N 1024, {tag}: card (kernels) vs CPU "
+                  f"(plain) rel-L2 {rl2:.3e} max-abs {max_abs(got, ref):.3e} "
+                  f"(tol {TOL_REL_L2[tag]:.0e}); card launches {launches}", flush=True)
+            check(bool(torch.isfinite(got).all()), f"{label} {tag} output not finite")
+            check(rl2 <= TOL_REL_L2[tag], f"{label} {tag}: rel-L2 {rl2:.3e} over tolerance")
+            want = expected_launches(kernels, arch.depth)
+            check(launches == want, f"{label} {tag}: launches {launches}, expected {want}")
 
 
 def _reference_wave(sr: int, seconds: float, seed: int):
@@ -273,20 +415,62 @@ def _reference_wave(sr: int, seconds: float, seed: int):
     return (0.15 * env * tone + 0.01 * rng.standard_normal(t.size)).astype(np.float32)
 
 
-def phase_slice(dev: dict) -> dict:
-    """Three TTS.infer requests at the flagship config on the card; returns
-    the kernel launch counts of the run."""
+def run_requests(tts, label: str, n: int, kernels, dev: dict, ref_path: str, ref_text: str,
+                 gen_text: str) -> tuple:
+    """``n`` TTS.infer requests (the first a warm-up) with the launch counts
+    set to 0 just before and read just after; every request must launch each
+    kernel of ``kernels`` depth x 32 times and no other kernel. Returns the
+    counts and the (audio seconds, wall seconds) of the timed requests."""
     import numpy as np
     import torch
 
-    from lemas_tts_tpu_torch import TTS
-    from lemas_tts_tpu_torch.config import SamplerConfig
-    from lemas_tts_tpu_torch.infer.preprocess import preprocess_ref_audio_text
-    from lemas_tts_tpu_torch.ops import attention, ffn
-    from lemas_tts_tpu_torch.utils.audio_io import write_wav
+    want = expected_launches(kernels, tts.config.arch.depth * 32)
+    reset_counters()
+    timed = []
+    for i in range(n):
+        before = read_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wave, out_sr, spec = tts.infer(ref_path, ref_text, gen_text, seed=i,
+                                       show_info=lambda *_: None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        grew = {k: v - before[k] for k, v in read_counters().items()}
+        audio_s = len(wave) / out_sr
+        print(f"[slice] {label} request {i} ({'warm-up' if i == 0 and n > 1 else 'timed'}): "
+              f"{audio_s:.3f} audio-s in {wall:.3f} s = {audio_s / wall:.2f} audio-s/s "
+              f"on {dev['card']}; launches {grew}", flush=True)
+        check(out_sr == 24000, f"sample rate {out_sr}")
+        check(wave.ndim == 1 and wave.size > 0 and bool(np.isfinite(wave).all()),
+              "wave empty or not finite")
+        check(spec.shape[0] == 100 and bool(np.isfinite(spec).all()), "mel bad")
+        check(grew == want, f"{label}: launches per request {grew}, expected {want}")
+        if i or n == 1:
+            timed.append((audio_s, wall))
+    launches = read_counters()
+    audio = sum(a for a, _ in timed)
+    wall = sum(w for _, w in timed)
+    print(f"[slice] {label} timed: {audio:.3f} audio-s in {wall:.3f} s wall = "
+          f"{audio / wall:.2f} audio-s/s (NFE 32, CFG 2, B 1, bucket 1024) on {dev['card']}",
+          flush=True)
+    return launches, timed
 
-    counters = {"qkv_block": ffn.qkv_block, "vmem_attention_nhd": attention.vmem_attention_nhd,
-                "ffn_block": ffn.ffn_block}
+
+def phase_slice(dev: dict) -> dict:
+    """TTS.infer at full depth on the card along each path: the flagship
+    config (then the same model under LEMAS_ATTN_PACK=1), F5-TTS v0
+    ``f5tts_base``, and the MMDiT backbone at the flagship's arch. Returns the
+    launch counts summed over the paths' counted runs."""
+    import torch
+
+    from lemas_tts_tpu_torch import TTS
+    from lemas_tts_tpu_torch.config import CONFIG_DIR, SamplerConfig
+    from lemas_tts_tpu_torch.infer.pipeline import TEXT_BUCKETS, pick_bucket
+    from lemas_tts_tpu_torch.infer.preprocess import preprocess_ref_audio_text
+    from lemas_tts_tpu_torch.utils.audio_io import write_wav
+    from lemas_tts_tpu_torch.utils.vocab import text_to_ids
+
+    totals = dict.fromkeys(kernel_counters(), 0)
     with tempfile.TemporaryDirectory() as d:
         vocab = Path(d) / "vocab.txt"
         vocab.write_text("\n".join([" "] + list("abcdefghijklmnopqrstuvwxyz0123456789")
@@ -296,53 +480,44 @@ def phase_slice(dev: dict) -> dict:
         ref_text = "some call me nature, others call me mother nature."
         gen_text = ("i have been a silent spectator, watching species evolve, "
                     "empires rise and fall, and always remember i am mighty.")
-        t0 = time.perf_counter()
-        tts = TTS(model="multilingual", vocab_file=str(vocab))  # device None: the card
-        check(tts.device.type == "cuda" and next(tts.dit.parameters()).is_cuda,
-              "TTS() did not place the model on the card")
-        print(f"[slice] TTS(multilingual) built on {tts.device} in "
-              f"{time.perf_counter() - t0:.1f} s (random weights, depth "
-              f"{tts.config.arch.depth}, dim {tts.config.arch.dim})", flush=True)
-        wav, sr, rtext = preprocess_ref_audio_text(ref_path, ref_text, show_info=lambda *_: None)
-        bucket = tts.synth.estimate_bucket(wav, sr, rtext, gen_text, SamplerConfig())
-        check(bucket == 1024, f"request lands in bucket {bucket}, not 1024")
-        per_request = tts.config.arch.depth * 32
-        for f in counters.values():
-            f.launches = 0
-        timed = []
-        for i in range(3):
-            before = {k: f.launches for k, f in counters.items()}
-            torch.cuda.synchronize()
+        # no public MMDiT config: the flagship's arch under the MMDiT backbone
+        mmdit_cfg = json.loads((CONFIG_DIR / "multilingual.json").read_text())
+        mmdit_cfg["model"]["backbone"] = "MMDiT"
+        mmdit_path = Path(d) / "multilingual_mmdit.json"
+        mmdit_path.write_text(json.dumps(mmdit_cfg))
+        paths = [("multilingual", [("flagship", 3, False, FLAGSHIP_KERNELS),
+                                   ("flagship LEMAS_ATTN_PACK=1", 1, True, PACK_KERNELS)]),
+                 ("f5tts_base", [("v0 f5tts_base", 2, False, V0_KERNELS)]),
+                 (str(mmdit_path), [("MMDiT", 2, False, MMDIT_KERNELS)])]
+        for model, runs in paths:
             t0 = time.perf_counter()
-            wave, out_sr, spec = tts.infer(ref_path, ref_text, gen_text, seed=i,
-                                           show_info=lambda *_: None)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            grew = {k: f.launches - before[k] for k, f in counters.items()}
-            audio_s = len(wave) / out_sr
-            print(f"[slice] request {i} ({'warm-up' if i == 0 else 'timed'}): "
-                  f"{audio_s:.3f} audio-s in {wall:.3f} s = {audio_s / wall:.2f} audio-s/s "
-                  f"on {dev['card']}; launches {grew}", flush=True)
-            check(out_sr == 24000, f"sample rate {out_sr}")
-            check(wave.ndim == 1 and wave.size > 0 and bool(np.isfinite(wave).all()),
-                  "wave empty or not finite")
-            check(spec.shape[0] == 100 and bool(np.isfinite(spec).all()), "mel bad")
-            check(all(v == per_request for v in grew.values()),
-                  f"launches per request {grew}, expected {per_request} each")
-            if i:
-                timed.append((audio_s, wall))
-        launches = {k: f.launches for k, f in counters.items()}
-        profile_request(tts, ref_path, ref_text, gen_text)
-    audio = sum(a for a, _ in timed)
-    wall = sum(w for _, w in timed)
-    print(f"[slice] timed: {audio:.3f} audio-s in {wall:.3f} s wall = "
-          f"{audio / wall:.2f} audio-s/s (NFE 32, CFG 2, B 1, bucket 1024) on {dev['card']}",
-          flush=True)
-    return launches
+            tts = TTS(model=model, vocab_file=str(vocab))  # device None: the card
+            check(tts.device.type == "cuda" and next(tts.dit.parameters()).is_cuda,
+                  "TTS() did not place the model on the card")
+            a = tts.config.arch
+            wav, sr, rtext = preprocess_ref_audio_text(ref_path, ref_text,
+                                                       show_info=lambda *_: None)
+            bucket = tts.synth.estimate_bucket(wav, sr, rtext, gen_text, SamplerConfig())
+            nt = pick_bucket(len(text_to_ids(rtext + gen_text, tts.vocab)), TEXT_BUCKETS)
+            print(f"[slice] TTS({Path(model).stem}) built on {tts.device} in "
+                  f"{time.perf_counter() - t0:.1f} s ({tts.config.backbone}, random weights, "
+                  f"depth {a.depth}, dim {a.dim}, {a.heads}x{a.dim_head} heads, pe_attn_head "
+                  f"{a.pe_attn_head}); duration bucket {bucket}, text bucket {nt}", flush=True)
+            check(bucket == 1024, f"request lands in bucket {bucket}, not 1024")
+            for label, n, pack, kernels in runs:
+                with attn_pack(pack):
+                    launches, _ = run_requests(tts, label, n, kernels, dev, ref_path, ref_text,
+                                               gen_text)
+                totals = {k: totals[k] + launches[k] for k in totals}
+            with attn_pack(False):
+                profile_request(tts, ref_path, ref_text, gen_text)
+            del tts
+            torch.cuda.empty_cache()
+    return totals
 
 
 def profile_request(tts, ref_path: str, ref_text: str, gen_text: str) -> None:
-    """One more request (after the counted run) under torch.profiler: the
+    """One more request (after the counted runs) under torch.profiler: the
     card's busy time by kernel, and its idle share of the request."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -381,11 +556,14 @@ def main() -> int:
         return 1
     dev = phase_card()
     phase_build()
-    kernels = phase_kernels()
+    records = {**phase_kernels(), **phase_split_attention()}
     phase_dit()
     launches = phase_slice(dev)
+    kernels = [records[k] for k in ("qkv_block", "vmem_attention_nhd", "ffn_block",
+                                     "vmem_attention_nhd_pack", "vmem_attention")]
     for rec in kernels:
         rec["launches"] = launches[rec["name"]]
+        check(rec["launches"] > 0, f"{rec['name']} was not launched on the slice's paths")
     print(dev["card"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],

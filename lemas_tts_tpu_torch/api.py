@@ -1,5 +1,7 @@
 """Top-level ``TTS`` facade (counterpart of ``lemas_tts_tpu/api.py``):
-construction loads the config, vocab, DiT and Vocos vocoder onto one device;
+construction loads the config, vocab, acoustic model (the config's
+``backbone``: DiT or MMDiT; UNetT is not ported yet) and Vocos vocoder onto
+one device;
 ``infer`` runs zero-shot TTS from a reference audio/text pair.
 
 Differences in this port:
@@ -70,6 +72,7 @@ class TTS:
                  quantization: Optional[str] = None):
         from lemas_tts_tpu_torch.infer.pipeline import Synthesizer
         from lemas_tts_tpu_torch.models.dit import DiT, cast_matrices
+        from lemas_tts_tpu_torch.models.mmdit import MMDiT
         from lemas_tts_tpu_torch.models.vocos import Vocos
         from lemas_tts_tpu_torch.weights import load_reference_state_dict
 
@@ -83,7 +86,8 @@ class TTS:
                 "use frontend=None (raw strings)")
         self.ode_method = ode_method
         self.config: ModelConfig = load_model_config(model)
-        if self.config.backbone != "DiT":
+        backbones = {"DiT": DiT, "MMDiT": MMDiT}
+        if self.config.backbone not in backbones:
             raise NotImplementedError(f"backbone {self.config.backbone!r} is not ported yet")
         if self.config.use_prosody_encoder:
             raise NotImplementedError("the prosody encoder is not ported yet")
@@ -109,11 +113,12 @@ class TTS:
             warnings.warn("no vocab file found — using the byte tokenizer")
             self.vocab = get_tokenizer("", "byte")
 
-        # ---- acoustic model
+        # ---- acoustic model (the config's backbone)
         mel = self.config.mel_spec
-        self.dit = _seeded_init(lambda: DiT(self.config.arch, mel_dim=mel.n_mel_channels,
-                                            text_num_embeds=self.vocab.size,
-                                            compute_dtype=dtype), seed=0)
+        backbone = backbones[self.config.backbone]
+        self.dit = _seeded_init(lambda: backbone(self.config.arch, mel_dim=mel.n_mel_channels,
+                                                 text_num_embeds=self.vocab.size,
+                                                 compute_dtype=dtype), seed=0)
         if ckpt_file:
             self.dit.load_state_dict(load_reference_state_dict(ckpt_file, use_ema=use_ema))
         else:

@@ -1,7 +1,8 @@
 """Typed configuration: the dataclasses of ``lemas_tts_tpu/config.py``.
 
-The flagship ``multilingual`` config ships as JSON (``configs/``) so that the
-port needs no ``yaml`` at run time; ``yaml`` is imported only when a
+The bundled configs ship as JSON (``configs/``: the flagship
+``multilingual`` and F5-TTS v0 ``f5tts_base``) so that the port needs no
+``yaml`` at run time; ``yaml`` is imported only when a
 ``.yaml``/``.yml`` path is given.
 """
 

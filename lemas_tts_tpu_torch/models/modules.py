@@ -8,23 +8,29 @@ the interleaved-pair rope. Parameters keep the reference torch key names
 Layers run in the dtype of their input (the compute dtype): weights are cast
 to it at use, as flax's ``dtype=`` does; LayerNorms compute in f32.
 
-On CUDA, ``DiTBlock`` runs the fused path: ``qkv_block`` (K1), the flat
-``vmem_attention_nhd`` (K3), ``to_out`` and the gate, then ``ffn_block``
-(K2). On the CPU the same chain runs through the plain versions of those
-kernels when the head geometry is one the kernels take, and through the
-unfused split-head chain otherwise.
+``DiTBlock`` chooses its kernels by shape alone, as the JAX block does on
+its TPU path, on either device (the CPU runs each kernel's plain version):
+
+- attention side: ``qkv_block`` (K1) and the flat ``vmem_attention_nhd`` (K3;
+  K4 under ``LEMAS_ATTN_PACK=1``) when both take the geometry; otherwise
+  AdaLN in PyTorch and ``Attention``: K3 when the flat kernel takes the heads,
+  else split heads, qk RMSNorm, rope on the first ``pe_attn_head`` heads and
+  the split-head ``attention`` (K5);
+- FF side: ``ffn_block`` (K2) whenever it takes the widths, else the
+  unfused chain.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from lemas_tts_tpu_torch.ops.attention import nhd_supported, sdpa, vmem_attention_nhd
+from lemas_tts_tpu_torch.ops.attention import attention, nhd_supported, vmem_attention_nhd
 from lemas_tts_tpu_torch.ops.ffn import (ffn_block, ffn_block_supported, qkv_block,
                                          qkv_block_supported)
 from lemas_tts_tpu_torch.ops.rope import apply_rope
@@ -56,6 +62,12 @@ def layer_norm_f32(x: torch.Tensor, norm: Optional[nn.LayerNorm] = None,
     if norm is not None and norm.weight is not None:
         y = y * norm.weight.float() + norm.bias.float()
     return y
+
+
+def adaln_modulate(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+    """``T(LN(x)) * (1 + scale) + shift`` (LN without affine, f32 stats);
+    x [B, N, D], scale/shift [B, D]."""
+    return layer_norm_f32(x).to(x.dtype) * (1 + scale[:, None]) + shift[:, None]
 
 
 def sinus_position_embedding(x: torch.Tensor, dim: int, scale: float = 1000.0) -> torch.Tensor:
@@ -169,7 +181,8 @@ class Attention(nn.Module):
         super().__init__()
         if qk_norm not in (None, "rms_norm"):
             raise ValueError(f"unknown qk_norm: {qk_norm!r}")
-        self.heads, self.dim_head, self.pe_attn_head = heads, dim_head, pe_attn_head
+        self.heads, self.dim_head = heads, dim_head
+        self.qk_norm, self.pe_attn_head = qk_norm, pe_attn_head
         inner = heads * dim_head
         self.to_q = nn.Linear(dim, inner)
         self.to_k = nn.Linear(dim, inner)
@@ -184,18 +197,22 @@ class Attention(nn.Module):
     def forward(self, x, mask=None, angles=None):
         """Unfused chain: x is the modulated, normalised residual stream."""
         B, N, _ = x.shape
+        q, k, v = (dense(x, lin) for lin in (self.to_q, self.to_k, self.to_v))
+        if angles is not None and nhd_supported(self.heads, self.dim_head, N, self.qk_norm,
+                                                self.pe_attn_head):
+            return self.project_out(vmem_attention_nhd(q, k, v, mask, angles, self.heads), mask)
 
         def split(t):
             return t.view(B, N, self.heads, self.dim_head).transpose(1, 2)
 
-        q, k, v = (split(dense(x, lin)) for lin in (self.to_q, self.to_k, self.to_v))
+        q, k, v = split(q), split(k), split(v)
         if self.q_norm is not None:
             q, k = self.q_norm(q), self.k_norm(k)
         if angles is not None:
             pn = self.heads if self.pe_attn_head is None else self.pe_attn_head
             q = torch.cat([apply_rope(q[:, :pn], angles), q[:, pn:]], dim=1)
             k = torch.cat([apply_rope(k[:, :pn], angles), k[:, pn:]], dim=1)
-        out = sdpa(q, k, v, mask).transpose(1, 2).reshape(B, N, -1)
+        out = attention(q, k, v, mask).transpose(1, 2).reshape(B, N, -1)
         return self.project_out(out, mask)
 
     def project_out(self, out, mask):
@@ -226,8 +243,7 @@ class AdaLayerNormFinal(nn.Module):
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
         scale, shift = dense(F.silu(emb), self.linear).chunk(2, dim=-1)
-        normed = layer_norm_f32(x).to(x.dtype)
-        return normed * (1 + scale[:, None]) + shift[:, None]
+        return adaln_modulate(x, scale, shift)
 
 
 class DiTBlock(nn.Module):
@@ -239,40 +255,37 @@ class DiTBlock(nn.Module):
         self.attn_norm = AdaLayerNorm(dim)
         self.attn = Attention(dim, heads, dim_head, qk_norm, pe_attn_head)
         self.ff = FeedForward(dim, ff_mult)
-        self.qk_norm = qk_norm
 
-    def fused_ok(self, n: int) -> bool:
-        """Whether the kernels take this block at sequence length ``n``."""
+    def fused_attn_ok(self, n: int) -> bool:
+        """Whether K1 + K3 take the attention side at sequence length ``n``."""
         a = self.attn
-        inner = a.heads * a.dim_head
-        dim = a.to_q.in_features
-        return (nhd_supported(a.heads, a.dim_head, n, self.qk_norm, a.pe_attn_head)
-                and qkv_block_supported(n, dim, inner)
-                and ffn_block_supported(n, dim, self.ff.ff[2].in_features))
+        return (nhd_supported(a.heads, a.dim_head, n, a.qk_norm, a.pe_attn_head)
+                and qkv_block_supported(n, a.to_q.in_features, a.heads * a.dim_head))
+
+    def fused_ff_ok(self, n: int) -> bool:
+        """Whether K2 takes the FF side at sequence length ``n``."""
+        return ffn_block_supported(n, self.ff.ff[2].out_features, self.ff.ff[2].in_features)
 
     def forward(self, x, t_emb, mask=None, angles=None):
         sh_a, sc_a, g_a, sh_m, sc_m, g_m = self.attn_norm(t_emb)
-        fused = angles is not None and self.fused_ok(x.shape[1])
-        if x.device.type != "cpu" and not fused:
+        n, cdt = x.shape[1], x.dtype
+        x = x.contiguous()  # the conv position embedding leaves a transposed layout
+        if angles is not None and self.fused_attn_ok(n):
             a = self.attn
-            raise NotImplementedError(
-                f"the CUDA kernels do not take this block (heads={a.heads}, "
-                f"dim_head={a.dim_head}, N={x.shape[1]}, qk_norm={self.qk_norm}, "
-                f"pe_attn_head={a.pe_attn_head}); the split-head kernel is not ported yet")
-        if fused:
-            a, ff = self.attn, self.ff.ff
-            cdt = x.dtype
-            x = x.contiguous()  # the conv position embedding leaves a transposed layout
             q, k, v = qkv_block(
                 x, sc_a.contiguous(), sh_a.contiguous(),
                 *(t for lin in (a.to_q, a.to_k, a.to_v)
                   for t in (lin.weight.to(cdt), lin.bias.to(cdt))))
-            out = vmem_attention_nhd(q, k, v, mask, angles, a.heads)
-            x = x + g_a[:, None] * a.project_out(out, mask)
+            # the JAX package's probe switch for the head-pair kernel (K4); never a default
+            out = vmem_attention_nhd(q, k, v, mask, angles, a.heads,
+                                     pack_pair=os.environ.get("LEMAS_ATTN_PACK", "") == "1")
+            attn_out = a.project_out(out, mask)
+        else:
+            attn_out = self.attn(adaln_modulate(x, sc_a, sh_a), mask=mask, angles=angles)
+        x = x + g_a[:, None] * attn_out
+        if self.fused_ff_ok(n):
+            ff = self.ff.ff
             return ffn_block(x, sc_m.contiguous(), sh_m.contiguous(), g_m.contiguous(),
                              ff[0][0].weight.to(cdt), ff[0][0].bias.to(cdt),
                              ff[2].weight.to(cdt), ff[2].bias.to(cdt))
-        normed = layer_norm_f32(x).to(x.dtype) * (1 + sc_a[:, None]) + sh_a[:, None]
-        x = x + g_a[:, None] * self.attn(normed, mask=mask, angles=angles)
-        normed = layer_norm_f32(x).to(x.dtype) * (1 + sc_m[:, None]) + sh_m[:, None]
-        return x + g_m[:, None] * self.ff(normed)
+        return x + g_m[:, None] * self.ff(adaln_modulate(x, sc_m, sh_m))

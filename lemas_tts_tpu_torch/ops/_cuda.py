@@ -5,7 +5,8 @@ shared library with a plain C interface, at first use, into
 ``lemas_tts_tpu_torch/build/``; the file name carries a hash of the sources
 and flags, so an edited kernel is rebuilt and a current one is reused. The
 libraries are loaded with ``ctypes``: every pointer and the CUDA stream go as
-``c_void_p``. Nothing here runs at import time.
+``c_void_p``; a library's entry points are attributes of what ``library``
+returns. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -28,11 +29,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C signature (argtypes) of each library's entry point
-SIGNATURES = {
-    "qkv_block": ("lemas_qkv_block", [I, I] + [P] * 12 + [I] * 4 + [P]),
-    "ffn_block": ("lemas_ffn_block", [I, I] + [P] * 10 + [I] * 4 + [P]),
-    "attention_nhd": ("lemas_attention_nhd", [I, I, I] + [P] * 6 + [I] * 3 + [F, P]),
+_NHD = [I, I, I] + [P] * 6 + [I] * 3 + [F, P]
+# C entry points of each library csrc/<library>.cu, with their argtypes
+ENTRY_POINTS = {
+    "qkv_block": {"lemas_qkv_block": [I, I] + [P] * 12 + [I] * 4 + [P]},
+    "ffn_block": {"lemas_ffn_block": [I, I] + [P] * 10 + [I] * 4 + [P]},
+    "attention_nhd": {"lemas_attention_nhd": _NHD, "lemas_attention_nhd_pack": _NHD},
+    "attention_bhnd": {"lemas_attention_bhnd": [I, I, I] + [P] * 5 + [I] * 3 + [F, P]},
 }
 
 _lock = threading.Lock()
@@ -56,7 +59,7 @@ def library_path(name: str) -> Path:
     return BUILD / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, float]:
+def build(names: Iterable[str] = tuple(ENTRY_POINTS)) -> Dict[str, float]:
     """Compile every library in ``names`` that is missing, all ``nvcc``
     processes started together. Returns {name: seconds} for the ones built;
     raises with the compiler's output if any build fails."""
@@ -86,8 +89,9 @@ def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, float]:
     return took
 
 
-def library(name: str):
-    """The loaded entry point of kernel library ``name`` (built if needed)."""
+def library(name: str) -> ctypes.CDLL:
+    """Kernel library ``name``, loaded (and built if needed), its entry
+    points typed."""
     lib = _loaded.get(name)
     if lib is None:
         with _lock:
@@ -95,12 +99,12 @@ def library(name: str):
             if lib is None:
                 build([name])
                 lib = ctypes.CDLL(str(library_path(name)))
-                fn_name, argtypes = SIGNATURES[name]
-                fn = getattr(lib, fn_name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                for fn_name, argtypes in ENTRY_POINTS[name].items():
+                    fn = getattr(lib, fn_name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
                 _loaded[name] = lib
-    return getattr(lib, SIGNATURES[name][0])
+    return lib
 
 
 def check(err: int, name: str) -> None:

@@ -1,19 +1,29 @@
-"""Self-attention for the DiT blocks.
+"""Self-attention for the DiT and MMDiT blocks.
 
 Counterpart of ``lemas_tts_tpu/ops/attention.py``:
 
-- ``sdpa``: plain split-head attention ``[B, H, N, D]`` with an f32 softmax
-  and a key-padding mask (the JAX ``sdpa``);
+- ``vmem_attention`` (K5): split-head ``[B, H, N, D]`` attention with a key
+  mask, ``1/sqrt(D)`` applied to the f32 scores after the product, the
+  unnormalised p rounded to the compute dtype before the PV product and
+  ``/ l`` last. CUDA tensors launch ``csrc/attention_bhnd.cu`` (d64, d128,
+  any N) or raise. ``attention`` is the split-head entry the models call;
 - ``vmem_attention_nhd`` (K3): flat-layout ``[B, N, H*D]`` attention with the
   interleaved-pair rope applied to q and k inside the kernel and ``1/sqrt(D)``
-  folded into q. CPU tensors take ``vmem_attention_nhd_plain``; CUDA tensors
-  launch ``csrc/attention_nhd.cu`` or raise. ``.launches`` counts the
-  launches.
+  folded into q; ``pack_pair=True`` is the head-pair-packed variant (K4,
+  d64 pairs), the same function. CUDA tensors launch
+  ``csrc/attention_nhd.cu`` or raise.
 
-Known difference from the JAX one-shot path (N <= 2048): a query row whose
-keys are *all* masked gets the mean of v there, 0 here (as in the JAX chunked
-path). Callers zero padded query rows after the output projection, so the
-value never reaches the model's output.
+CPU tensors take the ``*_plain`` versions. Each kernel wrapper counts its
+launches in ``.launches``.
+
+Known differences from the JAX package:
+- K3/K4 (N <= 2048): a query row whose keys are *all* masked gets the mean of
+  v in the JAX one-shot path, 0 here (as in the JAX chunked path). Callers
+  zero padded query rows after the output projection, so the value never
+  reaches the model's output. K5 gives the mean of v, as JAX does.
+- K5 at N % 128 != 0: the JAX ``vmem_attention`` hands such shapes to its
+  XLA ``sdpa`` (softmax normalised before the PV product); the port runs the
+  same kernel at every N. The two differ only at bf16 rounding points.
 """
 
 from __future__ import annotations
@@ -25,19 +35,66 @@ import torch
 from lemas_tts_tpu_torch.ops import _cuda
 
 NEG_INF = -1e30  # score of a padded key
-M_FLOOR = -1e29  # online-softmax running-max floor
-Q_TILE = 64  # query rows per kernel block (csrc/attention_nhd.cu BQ = BKV)
+M_FLOOR = -1e29  # K3/K4 online-softmax running-max floor
+Q_TILE = 64  # query rows per kernel block (csrc/attention.cuh BQ = BKV)
 
 
-def sdpa(q, k, v, mask=None):
-    """q, k, v [B, H, N, D]; mask [B, N] (True = keep). f32 softmax."""
-    dtype = q.dtype
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+def _f32_scale(d: int) -> float:
+    """1/sqrt(d) rounded to f32, as the kernels receive it."""
+    return float(torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32))
+
+
+def vmem_attention_plain(q, k, v, mask=None):
+    """K5's arithmetic in PyTorch, at the Pallas kernel's rounding points."""
+    B, H, N, D = q.shape
+    cdt = q.dtype
+    scale = _f32_scale(D)
+    outs = []
+    for b in range(B):  # one batch row at a time bounds the [H, N, N] f32 scores
+        s = torch.matmul(q[b].float(), k[b].float().transpose(-1, -2)) * scale
+        if mask is not None:
+            s = s.masked_fill(~mask[b, None, None, :], NEG_INF)
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        l = p.sum(-1, keepdim=True)
+        outs.append((torch.matmul(p.to(cdt).float(), v[b].float()) / l).to(cdt))
+    return torch.stack(outs)
+
+
+def vmem_attention(q, k, v, mask=None):
+    """q, k, v [B, H, N, D]; mask [B, N] bool (True = keep) or None.
+    Returns [B, H, N, D] in q's dtype."""
+    if q.device.type == "cpu":
+        return vmem_attention_plain(q, k, v, mask)
+    _cuda.require(q.device.type == "cuda", f"no kernel for device {q.device}")
+    _cuda.require(q.dim() == 4, f"q must be [B, H, N, D], got {tuple(q.shape)}")
+    B, H, N, D = q.shape
+    _cuda.require(D in (64, 128),
+                  f"split-head attention kernel takes dim_head 64 or 128, not {D}")
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    for t in (k, v):
+        _cuda.require(t.device == q.device and t.dtype == q.dtype and t.shape == q.shape,
+                      "q, k, v must match in shape, dtype, device")
     if mask is not None:
-        logits = logits.masked_fill(~mask[:, None, None, :], NEG_INF)
-    probs = torch.softmax(logits, dim=-1)
-    return torch.matmul(probs.to(dtype).float(), v.float()).to(dtype)
+        _cuda.require(mask.dtype == torch.bool and mask.is_contiguous()
+                      and tuple(mask.shape) == (B, N) and mask.device == q.device,
+                      "mask must be contiguous bool [B, N] on q's device")
+    out = torch.empty_like(q)
+    err = _cuda.library("attention_bhnd").lemas_attention_bhnd(
+        q.device.index, _cuda.dtype_code(q), D, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if mask is None else mask.data_ptr(), out.data_ptr(), B, N, H, _f32_scale(D),
+        _cuda.stream_ptr(q.device))
+    _cuda.check(err, "attention_bhnd")
+    vmem_attention.launches += 1
+    return out
+
+
+vmem_attention.launches = 0
+
+
+def attention(q, k, v, mask=None):
+    """Split-head attention as the models call it (the JAX
+    ``attention(..., backend="vmem")``): K5."""
+    return vmem_attention(q, k, v, mask)
 
 
 def nhd_supported(heads: int, dim_head: int, n: int, qk_norm=None, pe_attn_head=None,
@@ -66,7 +123,7 @@ def vmem_attention_nhd_plain(q, k, v, mask, angles, heads):
     cdt = q.dtype
     cos = torch.cos(angles).repeat_interleave(2, dim=-1)[None, :, None, :]  # [1, N, 1, D]
     sin = torch.sin(angles).repeat_interleave(2, dim=-1)[None, :, None, :]
-    scale = torch.tensor(1.0 / math.sqrt(D), dtype=torch.float32)
+    scale = torch.tensor(_f32_scale(D), dtype=torch.float32)
     qr = _rope(q.view(B, N, heads, D), cos, sin, scale).transpose(1, 2)  # [B, H, N, D]
     kr = _rope(k.view(B, N, heads, D), cos, sin).transpose(1, 2)
     vh = v.view(B, N, heads, D).transpose(1, 2)
@@ -83,11 +140,7 @@ def vmem_attention_nhd_plain(q, k, v, mask, angles, heads):
     return torch.stack(outs)
 
 
-def vmem_attention_nhd(q, k, v, mask, angles, heads: int):
-    """q, k, v [B, N, H*D] (heads not split); mask [B, N] bool or None;
-    angles [N, D/2] f32 rope angles. Returns [B, N, H*D]."""
-    if q.device.type == "cpu":
-        return vmem_attention_nhd_plain(q, k, v, mask, angles, heads)
+def _launch_nhd(entry: str, q, k, v, mask, angles, heads: int):
     _cuda.require(q.device.type == "cuda", f"no kernel for device {q.device}")
     B, N, inner = q.shape
     D = inner // heads
@@ -104,14 +157,41 @@ def vmem_attention_nhd(q, k, v, mask, angles, heads: int):
                       and tuple(mask.shape) == (B, N) and mask.device == q.device,
                       "mask must be contiguous bool [B, N] on q's device")
     out = torch.empty_like(q)
-    err = _cuda.library("attention_nhd")(
+    err = getattr(_cuda.library("attention_nhd"), entry)(
         q.device.index, _cuda.dtype_code(q), D, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if mask is None else mask.data_ptr(), angles.data_ptr(), out.data_ptr(),
-        B, N, heads, float(torch.tensor(1.0 / math.sqrt(D), dtype=torch.float32)),
-        _cuda.stream_ptr(q.device))
-    _cuda.check(err, "attention_nhd")
+        B, N, heads, _f32_scale(D), _cuda.stream_ptr(q.device))
+    _cuda.check(err, entry)
+    return out
+
+
+def vmem_attention_nhd(q, k, v, mask, angles, heads: int, pack_pair: bool = False):
+    """q, k, v [B, N, H*D] (heads not split); mask [B, N] bool or None;
+    angles [N, D/2] f32 rope angles. Returns [B, N, H*D]. ``pack_pair``
+    takes the head-pair-packed kernel (``vmem_attention_nhd_pack``)."""
+    if q.device.type == "cpu":
+        return vmem_attention_nhd_plain(q, k, v, mask, angles, heads)
+    if pack_pair:
+        return vmem_attention_nhd_pack(q, k, v, mask, angles, heads)
+    out = _launch_nhd("lemas_attention_nhd", q, k, v, mask, angles, heads)
     vmem_attention_nhd.launches += 1
     return out
 
 
 vmem_attention_nhd.launches = 0
+
+
+def vmem_attention_nhd_pack(q, k, v, mask, angles, heads: int):
+    """K4: ``vmem_attention_nhd`` for d64 head pairs, one kernel block per
+    head pair (the same function as K3, bit for bit)."""
+    if q.device.type == "cpu":
+        return vmem_attention_nhd_plain(q, k, v, mask, angles, heads)
+    _cuda.require(q.shape[-1] == heads * 64 and heads % 2 == 0,
+                  f"the head-pair kernel takes d64 heads in pairs, not {heads} heads of "
+                  f"{q.shape[-1] / heads:g}")
+    out = _launch_nhd("lemas_attention_nhd_pack", q, k, v, mask, angles, heads)
+    vmem_attention_nhd_pack.launches += 1
+    return out
+
+
+vmem_attention_nhd_pack.launches = 0

@@ -96,7 +96,7 @@ def qkv_block(x, scale, shift, wq, bq, wk, bk, wv, bv):
     _cuda.require(tuple(scale.shape) == (B, D) and tuple(shift.shape) == (B, D),
                   "scale and shift must be [B, D]")
     q, k, v = (torch.empty(B, N, inner, device=x.device, dtype=x.dtype) for _ in range(3))
-    err = _cuda.library("qkv_block")(
+    err = _cuda.library("qkv_block").lemas_qkv_block(
         x.device.index, _cuda.dtype_code(x), x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
         wq.data_ptr(), bq.data_ptr(), wk.data_ptr(), bk.data_ptr(), wv.data_ptr(), bv.data_ptr(),
         q.data_ptr(), k.data_ptr(), v.data_ptr(), B * N, N, D, inner,
@@ -128,7 +128,7 @@ def ffn_block(x, scale, shift, gate, w1, b1, w2, b2):
         _cuda.require(tuple(t.shape) == (B, D), "scale, shift and gate must be [B, D]")
     h = torch.empty(B, N, Fh, device=x.device, dtype=x.dtype)
     out = torch.empty_like(x)
-    err = _cuda.library("ffn_block")(
+    err = _cuda.library("ffn_block").lemas_ffn_block(
         x.device.index, _cuda.dtype_code(x), x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
         gate.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
         h.data_ptr(), out.data_ptr(), B * N, N, D, Fh, _cuda.stream_ptr(x.device))

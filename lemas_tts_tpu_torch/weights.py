@@ -8,8 +8,8 @@ and the inverse of ``lemas_tts_tpu/models/vocos.py:convert_vocos`` apply:
 Dense kernels ``[in, out]`` become Linear weights ``[out, in]``; Conv kernels
 ``[K, Cin/g, Cout]`` become ``[Cout, Cin/g, K]``; LayerNorm ``scale``/``bias``
 become ``weight``/``bias``; the DiT's scan-stacked ``blocks`` (leading depth
-axis) become ``transformer_blocks.{i}``. Inputs are nested dicts of numpy
-arrays (anything ``np.asarray`` takes).
+axis) and the MMDiT's ``block_{i}`` become ``transformer_blocks.{i}``. Inputs
+are nested dicts of numpy arrays (anything ``np.asarray`` takes).
 """
 
 from __future__ import annotations
@@ -45,18 +45,32 @@ class _StateDict(dict):
         self[f"{key}.weight"] = _tensor(node["scale"])
         self[f"{key}.bias"] = _tensor(node["bias"])
 
+    def embeddings(self, p: Mapping[str, Any], conv_pos_key: str, conv_pos: Mapping[str, Any]):
+        """The time MLP, the conv position embedding, the final AdaLN and
+        the mel projection: the parts DiT and MMDiT share."""
+        self.linear("time_embed.time_mlp.0", p["time_embed"]["mlp_in"])
+        self.linear("time_embed.time_mlp.2", p["time_embed"]["mlp_out"])
+        self.conv(f"{conv_pos_key}.conv1d.0", conv_pos["conv1"])
+        self.conv(f"{conv_pos_key}.conv1d.2", conv_pos["conv2"])
+        self.linear("norm_out.linear", p["norm_out"]["mod"])
+        self.linear("proj_out", p["proj_out"])
+
+    def feed_forward(self, key: str, node: Mapping[str, Any]) -> None:
+        self.linear(f"{key}.ff.0.0", node["in_proj"])
+        self.linear(f"{key}.ff.2", node["out_proj"])
+
+    def qk_norms(self, key: str, node: Mapping[str, Any], names) -> None:
+        for name in names:
+            if name in node:
+                self[f"{key}.{name}.weight"] = _tensor(node[name]["weight"])
+
 
 def dit_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX ``DiT`` params -> ``lemas_tts_tpu_torch.models.dit.DiT`` state dict."""
     p = _params(params)
     sd = _StateDict()
-    sd.linear("time_embed.time_mlp.0", p["time_embed"]["mlp_in"])
-    sd.linear("time_embed.time_mlp.2", p["time_embed"]["mlp_out"])
+    sd.embeddings(p, "input_embed.conv_pos_embed", p["input_embed"]["conv_pos"])
     sd.linear("input_embed.proj", p["input_embed"]["proj"])
-    sd.conv("input_embed.conv_pos_embed.conv1d.0", p["input_embed"]["conv_pos"]["conv1"])
-    sd.conv("input_embed.conv_pos_embed.conv1d.2", p["input_embed"]["conv_pos"]["conv2"])
-    sd.linear("norm_out.linear", p["norm_out"]["mod"])
-    sd.linear("proj_out", p["proj_out"])
 
     te = p["text_embed"]
     sd["text_embed.text_embed.weight"] = _tensor(te["embed"]["embedding"])
@@ -96,11 +110,35 @@ def dit_block_state_from_jax(blk: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     for proj in ("to_q", "to_k", "to_v"):
         sd.linear(f"attn.{proj}", blk["attn"][proj])
     sd.linear("attn.to_out.0", blk["attn"]["to_out"])
-    sd.linear("ff.ff.0.0", blk["ff"]["in_proj"])
-    sd.linear("ff.ff.2", blk["ff"]["out_proj"])
-    if "q_norm" in blk["attn"]:
-        sd["attn.q_norm.weight"] = _tensor(blk["attn"]["q_norm"]["weight"])
-        sd["attn.k_norm.weight"] = _tensor(blk["attn"]["k_norm"]["weight"])
+    sd.feed_forward("ff", blk["ff"])
+    sd.qk_norms("attn", blk["attn"], ("q_norm", "k_norm"))
+    return dict(sd)
+
+
+def mmdit_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``MMDiT`` params -> ``lemas_tts_tpu_torch.models.mmdit.MMDiT``
+    state dict (the reference F5-TTS ``mmdit.py`` key names)."""
+    p = _params(params)
+    sd = _StateDict()
+    sd.embeddings(p, "audio_embed.conv_pos_embed", p["audio_embed"]["conv_pos"])
+    sd.linear("audio_embed.linear", p["audio_embed"]["linear"])
+    sd["text_embed.text_embed.weight"] = _tensor(p["text_embed"]["embed"]["embedding"])
+    i = 0
+    while f"block_{i}" in p:
+        blk, key = p[f"block_{i}"], f"transformer_blocks.{i}"
+        sd.linear(f"{key}.attn_norm_x.linear", blk["attn_norm_x"]["mod"])
+        sd.linear(f"{key}.attn_norm_c.linear", blk["attn_norm_c"]["mod"])
+        attn = blk["attn"]
+        for proj in ("to_q", "to_k", "to_v", "to_q_c", "to_k_c", "to_v_c"):
+            sd.linear(f"{key}.attn.{proj}", attn[proj])
+        sd.linear(f"{key}.attn.to_out.0", attn["to_out"])
+        if "to_out_c" in attn:  # absent from the context-pre-only last block
+            sd.linear(f"{key}.attn.to_out_c", attn["to_out_c"])
+        sd.qk_norms(f"{key}.attn", attn, ("q_norm", "k_norm", "c_q_norm", "c_k_norm"))
+        for ff in ("ff_x", "ff_c"):
+            if ff in blk:
+                sd.feed_forward(f"{key}.{ff}", blk[ff])
+        i += 1
     return dict(sd)
 
 

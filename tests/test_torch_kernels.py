@@ -1,5 +1,6 @@
 """The port's K1-K3 (qkv_block, ffn_block, vmem_attention_nhd) against the
-JAX Pallas kernels run in interpret mode, on the CPU.
+JAX Pallas kernels run in interpret mode, on the CPU, and what every kernel
+wrapper (K1-K5) does on the CPU and on other devices.
 
 On the CPU the port's wrappers take their plain PyTorch versions, which
 round at the same points as the CUDA kernels; the kernels themselves are held
@@ -117,25 +118,34 @@ def test_attention_nhd_all_masked_row_is_zero():
 
 
 def test_sdpa_matches_jax():
+    """The split-head entry the models call (K5's plain version on the CPU,
+    any head width) against the JAX XLA sdpa, with and without a key mask."""
     rng = np.random.default_rng(5)
     q, k, v = (rng.standard_normal((2, 3, 40, 16)).astype(np.float32) for _ in range(3))
     mask = np.arange(40)[None, :] < np.asarray([29, 40])[:, None]
-    ref = jattn.sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(mask))
-    got = tattn.sdpa(*(torch.from_numpy(a) for a in (q, k, v)), torch.from_numpy(mask))
-    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-5, atol=2e-5)
+    for m in (mask, None):
+        ref = jattn.sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                         None if m is None else jnp.asarray(m))
+        got = tattn.attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                              None if m is None else torch.from_numpy(m))
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-5, atol=2e-5)
 
 
 def test_cpu_calls_leave_launch_counters_at_zero():
     """Plain versions on the CPU are not kernel launches."""
-    counters = (tffn.qkv_block, tffn.ffn_block, tattn.vmem_attention_nhd)
+    counters = (tffn.qkv_block, tffn.ffn_block, tattn.vmem_attention_nhd,
+                tattn.vmem_attention_nhd_pack, tattn.vmem_attention)
     before = [f.launches for f in counters]
     x = torch.randn(1, 64, 128)
     z = torch.zeros(1, 128)
     w, b = torch.randn(128, 128) * 0.05, torch.zeros(128)
     q, k, v = tffn.qkv_block(x, z, z, w, b, w, b, w, b)
     tffn.ffn_block(x, z, z, z, w, b, w, b)
-    tattn.vmem_attention_nhd(q, k, v, None, torch.zeros(64, 32), heads=2)
-    assert [f.launches for f in counters] == before == [0, 0, 0]
+    for pack_pair in (False, True):
+        tattn.vmem_attention_nhd(q, k, v, None, torch.zeros(64, 32), heads=2,
+                                 pack_pair=pack_pair)
+    tattn.vmem_attention(*(t.view(1, 64, 2, 64).transpose(1, 2) for t in (q, k, v)))
+    assert [f.launches for f in counters] == before == [0] * 5
 
 
 def test_wrappers_refuse_other_devices():
@@ -148,5 +158,9 @@ def test_wrappers_refuse_other_devices():
         tffn.qkv_block(x, z, z, w, b, w, b, w, b)
     with pytest.raises(ValueError, match="no kernel"):
         tffn.ffn_block(x, z, z, z, w, b, w, b)
+    for pack_pair in (False, True):
+        with pytest.raises(ValueError, match="no kernel"):
+            tattn.vmem_attention_nhd(x, x, x, None, torch.empty(64, 32, device="meta"), heads=2,
+                                     pack_pair=pack_pair)
     with pytest.raises(ValueError, match="no kernel"):
-        tattn.vmem_attention_nhd(x, x, x, None, torch.empty(64, 32, device="meta"), heads=2)
+        tattn.vmem_attention(*(x.view(1, 64, 2, 64),) * 3)

@@ -70,9 +70,41 @@ def test_unported_options_raise(option):
         TTS(model="tests/data/tiny.yaml", device="cpu", **option)
 
 
-@pytest.mark.parametrize("name", ["multilingual", "tests/data/tiny.yaml"])
+@pytest.mark.parametrize("name", ["multilingual", "tests/data/tiny.yaml",
+                                  "lemas_tts_tpu_torch/configs/f5tts_base.json"])
 def test_config_matches_jax(name):
-    """The bundled JSON flagship config and a YAML config load to the same
-    fields as the JAX package's YAML loader gives."""
+    """The bundled JSON configs and a YAML config load to the same fields as
+    the JAX package's YAML loader gives (JSON is YAML)."""
     got, ref = load_model_config(name), jload_model_config(name)
     assert dataclasses.asdict(got) == dataclasses.asdict(ref)
+
+
+def test_f5tts_base_config_is_the_published_v0_arch():
+    """F5-TTS v0 ``F5TTS_Base``: the flagship's widths, rope on the first
+    head only, text padding not masked, Vocos 24 kHz mels."""
+    cfg = load_model_config("f5tts_base")
+    assert cfg == load_model_config(PKG / "configs" / "f5tts_base.json")
+    a, m = cfg.arch, cfg.mel_spec
+    assert (cfg.backbone, a.dim, a.depth, a.heads, a.dim_head, a.ff_mult, a.text_dim,
+            a.conv_layers) == ("DiT", 1024, 22, 16, 64, 2, 512, 4)
+    assert a.pe_attn_head == 1 and a.text_mask_padding is False and a.qk_norm is None
+    assert (m.mel_spec_type, m.target_sample_rate, m.n_mel_channels, m.hop_length,
+            m.win_length, m.n_fft) == ("vocos", 24000, 100, 256, 1024, 1024)
+
+
+@pytest.mark.parametrize("backbone", ["MMDiT", "UNetT"])
+def test_backbones(backbone, tmp_path):
+    """MMDiT is ported; UNetT (which runs no TPU kernel) is not yet."""
+    from lemas_tts_tpu_torch import TTS
+    from lemas_tts_tpu_torch.models.mmdit import MMDiT
+
+    cfg = tmp_path / "cfg.yaml"
+    cfg.write_text((REPO / "tests/data/tiny.yaml").read_text()
+                   .replace("backbone: DiT", f"backbone: {backbone}"))
+    if backbone == "UNetT":
+        with pytest.raises(NotImplementedError, match="UNetT"):
+            TTS(model=str(cfg), device="cpu")
+        return
+    with pytest.warns(UserWarning):
+        tts = TTS(model=str(cfg), device="cpu")
+    assert isinstance(tts.dit, MMDiT) and len(tts.dit.transformer_blocks) == 2
