@@ -4,10 +4,12 @@
 Phases, in order (any failure raises; the exit code is then non-zero):
   1. card: CUDA present, name and power limit from nvidia-smi, TF32 off;
   2. build: the kernels of ``lemas_tts_tpu_torch/csrc`` with nvcc (sm_90a),
-     one nvcc per source, all started together;
+     one nvcc per source, all started together; the bf16 K3/K4 library must
+     hold wgmma (HGMMA) and TMA-load (UTMALDG) instructions in its SASS;
   3. kernels: each kernel (K1-K5) against its plain PyTorch version on the
      card, at the shapes of the paths below, with times, the bound and the
-     library yardstick; K4 also against K3 (bit for bit);
+     library yardstick; K4 also against K3 (bit for bit); K3, K4 and K5 with
+     a batch row whose keys are all masked (the value the JAX kernels give);
   4. DiT: depth-2 models at full width on the card (kernels) against the same
      weights on the CPU (plain versions), in f32 and bf16, each counting its
      launches: the flagship DiT (K1-K3), the flagship under
@@ -108,6 +110,14 @@ def phase_build() -> None:
             for line in log.read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"[build] {name}: {line.strip()}")
+    # the bf16 K3/K4 must run on wgmma and TMA: count their SASS instructions
+    cuobjdump = Path(_cuda.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_cuda.library_path("attention_nhd"))],
+                          capture_output=True, text=True, timeout=300).stdout
+    counts = {op: sum(op in line for line in sass.splitlines()) for op in ("HGMMA", "UTMALDG")}
+    print(f"[build] attention_nhd SASS: {counts['HGMMA']} HGMMA (wgmma), "
+          f"{counts['UTMALDG']} UTMALDG (TMA loads)", flush=True)
+    check(all(counts.values()), f"attention_nhd has no wgmma or no TMA load in its SASS: {counts}")
 
 
 def _kernel_inputs(torch, rows, n, d, f, heads, dim_head, dtype, seed):
@@ -208,7 +218,9 @@ def phase_kernels() -> dict:
                            s["v"][..., :inner].contiguous(), s["mask"], s["angles"], heads)
         a_sets = [aargs(s) for s in sets]
         got = attention.vmem_attention_nhd(*a_sets[0])
-        ref = attention.vmem_attention_nhd_plain(*a_sets[0])
+        k3_plain = lambda a: attention.vmem_attention_nhd_plain(
+            *a, start_max=attention.nhd_start_max(n))
+        ref = k3_plain(a_sets[0])
         err = (rel_l2(got, ref), max_abs(got, ref))
         q, k, v, mask = a_sets[0][:4]
         # library yardstick: sdpa on pre-roped split-head q/k/v (the port never calls it)
@@ -224,7 +236,7 @@ def phase_kernels() -> dict:
         flops = 4.0 * heads * dh * n * valid_keys
         results.append(("vmem_attention_nhd", err,
                         [lambda a=a: attention.vmem_attention_nhd(*a) for a in a_sets],
-                        [lambda: attention.vmem_attention_nhd_plain(*a_sets[0])], lib, nbytes,
+                        [lambda: k3_plain(a_sets[0])], lib, nbytes,
                         flops, "lemas_tts_tpu_torch/csrc/attention_nhd.cu",
                         "lemas_tts_tpu/ops/attention.py:561"))
         if dh == 64 and rows == 2 and n == 1024:  # K4 at the flagship shape
@@ -235,14 +247,51 @@ def phase_kernels() -> dict:
             check(torch.equal(got4, got), f"K4 differs from K3 ({tag}): max-abs {k4_k3:.3e}")
             results.append(("vmem_attention_nhd_pack", (rel_l2(got4, ref), max_abs(got4, ref)),
                             [lambda a=a: attention.vmem_attention_nhd_pack(*a) for a in a_sets],
-                            [lambda: attention.vmem_attention_nhd_plain(*a_sets[0])], lib,
+                            [lambda: attention.vmem_attention_nhd_plain(
+                                *a_sets[0], start_max=attention.nhd_start_max(n, True))], lib,
                             nbytes, flops, "lemas_tts_tpu_torch/csrc/attention_nhd.cu",
                             "lemas_tts_tpu/ops/attention.py:528"))
         _report(results, tag, f"rows {rows:2d} N {n:4d} heads {heads}x{dh}", peak,
                 records if main_shape else None)
+        if dh == 64 and rows == 2:
+            _nhd_masked_row(torch, tag, a_sets[0], n)
         del sets, a_sets, t
         torch.cuda.empty_cache()
     return records
+
+
+def _nhd_masked_row(torch, tag: str, args, n: int) -> None:
+    """K3 and K4 with batch row 1's keys all masked, against their plain
+    versions and against what the JAX kernels give such a row: the mean of v,
+    or 0 from K3 where its softmax is chunked (N > 2048, N % 512 == 0). At
+    N 1024 K4 must still equal K3 bit for bit."""
+    from lemas_tts_tpu_torch.ops import attention
+
+    q, k, v, mask, angles, heads = args
+    mask = mask.clone()
+    mask[1] = False
+    a = (q, k, v, mask, angles, heads)
+    mean_v = v[1].float().mean(0).expand(n, -1)
+    outs = {}
+    for name, pack in (("vmem_attention_nhd", False), ("vmem_attention_nhd_pack", True)):
+        start = attention.nhd_start_max(n, pack)
+        got = attention.vmem_attention_nhd(*a, pack_pair=pack)
+        err = rel_l2(got, attention.vmem_attention_nhd_plain(*a, start_max=start))
+        if start == attention.M_FLOOR:
+            want, row_err = "0", max_abs(got[1], torch.zeros_like(mean_v))
+            ok = row_err == 0.0
+        else:
+            want, row_err = "the mean of v", rel_l2(got[1], mean_v)
+            ok = row_err <= TOL_REL_L2[tag]
+        print(f"[kernels] {name:23s} {tag:4s} rows  2 N {n:4d}, row 1 all masked: rel-L2 "
+              f"{err:.3e} against the plain version; row 1 against {want}: "
+              f"{row_err:.3e} {'ok' if ok and err <= TOL_REL_L2[tag] else 'FAIL'}", flush=True)
+        check(err <= TOL_REL_L2[tag], f"{name} {tag} N {n}, row all masked: rel-L2 {err:.3e}")
+        check(ok, f"{name} {tag} N {n}: an all-masked row is not {want} ({row_err:.3e})")
+        outs[name] = got
+    if n == 1024:
+        check(torch.equal(outs["vmem_attention_nhd_pack"], outs["vmem_attention_nhd"]),
+              f"K4 differs from K3 ({tag}) with a row all masked")
 
 
 def phase_split_attention() -> dict:

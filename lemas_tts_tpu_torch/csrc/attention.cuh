@@ -14,7 +14,7 @@
 namespace attn {
 constexpr int BQ = 64, BKV = 64, PAD = 8;
 constexpr float kMasked = -1e30f;  // score of a padded key
-constexpr float kMFloor = -1e29f;  // K3/K4 running-max floor (attention.py:220)
+constexpr float kMFloor = -1e29f;  // K3's running-max floor when chunked (attention.py:220)
 // flag of each key of a staged tile
 constexpr float kKeep = 1.f, kPadKey = 0.f, kBeyond = -1.f;
 }  // namespace attn

@@ -11,16 +11,14 @@ Counterpart of ``lemas_tts_tpu/ops/attention.py``:
   interleaved-pair rope applied to q and k inside the kernel and ``1/sqrt(D)``
   folded into q; ``pack_pair=True`` is the head-pair-packed variant (K4,
   d64 pairs), the same function. CUDA tensors launch
-  ``csrc/attention_nhd.cu`` or raise.
+  ``csrc/attention_nhd.cu`` or raise. The running max starts where the JAX
+  kernels start it (``nhd_start_max``), so a query row whose keys are all
+  masked gets what JAX gives: the mean of v, or 0 from K3's chunked regime.
 
 CPU tensors take the ``*_plain`` versions. Each kernel wrapper counts its
 launches in ``.launches``.
 
-Known differences from the JAX package:
-- K3/K4 (N <= 2048): a query row whose keys are *all* masked gets the mean of
-  v in the JAX one-shot path, 0 here (as in the JAX chunked path). Callers
-  zero padded query rows after the output projection, so the value never
-  reaches the model's output. K5 gives the mean of v, as JAX does.
+Known difference from the JAX package:
 - K5 at N % 128 != 0: the JAX ``vmem_attention`` hands such shapes to its
   XLA ``sdpa`` (softmax normalised before the PV product); the port runs the
   same kernel at every N. The two differ only at bf16 rounding points.
@@ -35,8 +33,8 @@ import torch
 from lemas_tts_tpu_torch.ops import _cuda
 
 NEG_INF = -1e30  # score of a padded key
-M_FLOOR = -1e29  # K3/K4 online-softmax running-max floor
-Q_TILE = 64  # query rows per kernel block (csrc/attention.cuh BQ = BKV)
+M_FLOOR = -1e29  # K3's running-max floor in its chunked regime
+Q_TILE = 64  # the flat kernels take N in whole 64-row tiles of q and of keys
 
 
 def _f32_scale(d: int) -> float:
@@ -117,7 +115,20 @@ def _rope(x, cos, sin, scale=None):
     return out.to(x.dtype)
 
 
-def vmem_attention_nhd_plain(q, k, v, mask, angles, heads):
+def nhd_start_max(n: int, pack_pair: bool = False) -> float:
+    """Where the K3/K4 softmax starts its running max, as the JAX kernels do:
+    K3 is one-shot (no floor: -inf) unless N > 2048 and N % 512 == 0, where it
+    runs chunked from M_FLOOR; K4 is one-shot at every N. A row whose keys
+    are all masked then gets the mean of v, or 0 from a chunked K3
+    (``csrc/attention_nhd.cu:k3_start_max`` is the same rule)."""
+    if not pack_pair and n > 2048 and n % 512 == 0:
+        return M_FLOOR
+    return -math.inf
+
+
+def vmem_attention_nhd_plain(q, k, v, mask, angles, heads, *, start_max: float):
+    """K3's (and K4's) arithmetic in PyTorch, at the kernels' rounding points;
+    ``start_max`` is ``nhd_start_max`` of the kernel it stands for."""
     B, N, inner = q.shape
     D = inner // heads
     cdt = q.dtype
@@ -132,7 +143,7 @@ def vmem_attention_nhd_plain(q, k, v, mask, angles, heads):
         s = torch.matmul(qr[b].float(), kr[b].float().transpose(-1, -2))
         if mask is not None:
             s = s.masked_fill(~mask[b, None, None, :], NEG_INF)
-        m = s.amax(-1, keepdim=True).clamp_min(M_FLOOR)
+        m = s.amax(-1, keepdim=True).clamp_min(start_max)
         p = torch.exp(s - m)
         l = p.sum(-1, keepdim=True)
         o = torch.matmul(p.to(cdt).float(), vh[b].float()) / l.clamp_min(1e-30)
@@ -169,10 +180,11 @@ def vmem_attention_nhd(q, k, v, mask, angles, heads: int, pack_pair: bool = Fals
     """q, k, v [B, N, H*D] (heads not split); mask [B, N] bool or None;
     angles [N, D/2] f32 rope angles. Returns [B, N, H*D]. ``pack_pair``
     takes the head-pair-packed kernel (``vmem_attention_nhd_pack``)."""
-    if q.device.type == "cpu":
-        return vmem_attention_nhd_plain(q, k, v, mask, angles, heads)
     if pack_pair:
         return vmem_attention_nhd_pack(q, k, v, mask, angles, heads)
+    if q.device.type == "cpu":
+        return vmem_attention_nhd_plain(q, k, v, mask, angles, heads,
+                                        start_max=nhd_start_max(q.shape[1]))
     out = _launch_nhd("lemas_attention_nhd", q, k, v, mask, angles, heads)
     vmem_attention_nhd.launches += 1
     return out
@@ -185,7 +197,8 @@ def vmem_attention_nhd_pack(q, k, v, mask, angles, heads: int):
     """K4: ``vmem_attention_nhd`` for d64 head pairs, one kernel block per
     head pair (the same function as K3, bit for bit)."""
     if q.device.type == "cpu":
-        return vmem_attention_nhd_plain(q, k, v, mask, angles, heads)
+        return vmem_attention_nhd_plain(q, k, v, mask, angles, heads,
+                                        start_max=nhd_start_max(q.shape[1], pack_pair=True))
     _cuda.require(q.shape[-1] == heads * 64 and heads % 2 == 0,
                   f"the head-pair kernel takes d64 heads in pairs, not {heads} heads of "
                   f"{q.shape[-1] / heads:g}")

@@ -75,9 +75,7 @@ def test_qkv_block_matches_pallas(dtype):
                                    rtol=TOL[dtype], atol=TOL[dtype])
 
 
-# Every query row keeps at least one valid key: for a row whose keys are ALL
-# masked the JAX one-shot path returns the mean of v and the port returns 0
-# (as the JAX chunked path does); callers zero such rows anyway.
+# Every query row keeps at least one valid key (fully masked rows: below).
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("heads,dim_head,N,block_kv", [
     (2, 64, 128, None),   # d64 pairs, one-shot softmax
@@ -105,16 +103,39 @@ def test_attention_nhd_matches_pallas(dtype, heads, dim_head, N, block_kv):
                                rtol=TOL[dtype], atol=TOL[dtype])
 
 
-def test_attention_nhd_all_masked_row_is_zero():
-    """The documented delta: a row with no valid key gives 0, not NaN."""
+# Batch row 1 has no valid key. The JAX K3 runs its softmax one-shot unless
+# N > 2048 and N % 512 == 0 (no running-max floor: the row gets the mean of
+# v) and chunked from the floor -1e29 at N 2560 (the row gets 0); the JAX K4
+# is one-shot at every N.
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("N,pack_pair,row", [
+    (256, False, "mean of v"),
+    (256, True, "mean of v"),
+    (2560, False, "zero"),
+    (2560, True, "mean of v"),
+])
+def test_attention_nhd_all_masked_row_matches_pallas(dtype, N, pack_pair, row):
+    jdt, tdt = DTYPES[dtype]
     rng = np.random.default_rng(1)
-    q, k, v = (torch.from_numpy(rng.standard_normal((2, 64, 128)).astype(np.float32))
+    B, heads, dim_head = 2, 2, 64
+    q, k, v = (rng.standard_normal((B, N, heads * dim_head)).astype(np.float32)
                for _ in range(3))
-    mask = torch.ones(2, 64, dtype=torch.bool)
+    mask = np.ones((B, N), bool)
+    mask[0, N - 40:] = False
     mask[1] = False
-    out = tattn.vmem_attention_nhd(q, k, v, mask, torch.from_numpy(
-        np.array(jrope_angles(64, 64))), heads=2)
-    assert torch.isfinite(out).all() and (out[1] == 0).all()
+    angles = np.array(jrope_angles(N, dim_head))
+    ref = jattn.vmem_attention_nhd(
+        jnp.asarray(q, jdt), jnp.asarray(k, jdt), jnp.asarray(v, jdt), jnp.asarray(mask),
+        jnp.asarray(angles), heads=heads, interpret=True, pack_pair=pack_pair)
+    tv = _t(v, tdt)
+    got = tattn.vmem_attention_nhd(_t(q, tdt), _t(k, tdt), tv, torch.from_numpy(mask),
+                                   torch.from_numpy(angles), heads, pack_pair=pack_pair)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(ref, np.float32),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+    want = (torch.zeros(N, heads * dim_head) if row == "zero"
+            else tv[1].float().mean(0).expand(N, -1))
+    np.testing.assert_allclose(got[1].float().numpy(), want.numpy(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
 
 
 def test_sdpa_matches_jax():
