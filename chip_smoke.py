@@ -4,12 +4,15 @@
 Phases, in order (any failure raises; the exit code is then non-zero):
   1. card: CUDA present, name and power limit from nvidia-smi, TF32 off;
   2. build: the kernels of ``lemas_tts_tpu_torch/csrc`` with nvcc (sm_90a),
-     one nvcc per source, all started together; the bf16 K3/K4 library must
-     hold wgmma (HGMMA) and TMA-load (UTMALDG) instructions in its SASS;
+     one nvcc per source, all started together; the bf16 K5 (attention_bhnd),
+     K2 (ffn_block) and K3/K4 (attention_nhd) libraries must each hold wgmma
+     (HGMMA) and TMA-load (UTMALDG) instructions in their SASS;
   3. kernels: each kernel (K1-K5) against its plain PyTorch version on the
-     card, at the shapes of the paths below, with times, the bound and the
-     library yardstick; K4 also against K3 (bit for bit); K3, K4 and K5 with
-     a batch row whose keys are all masked (the value the JAX kernels give);
+     card, at the shapes of the paths below (K5 also at N 1000 and 1025), with
+     times, the bound and the library yardstick (sdpa for K3-K5, the cuBLAS
+     products alone for K1 and K2); K4 also against K3 (bit for bit); K3, K4
+     and K5 with a batch row whose keys are all masked (the value the JAX
+     kernels give);
   4. DiT: depth-2 models at full width on the card (kernels) against the same
      weights on the CPU (plain versions), in f32 and bf16, each counting its
      launches: the flagship DiT (K1-K3), the flagship under
@@ -76,6 +79,27 @@ def time_ms(fns, iters: int = 20) -> float:
     return a.elapsed_time(b) / iters
 
 
+def device_ms(fns, iters: int = 20) -> float:
+    """Card time per call over ``iters`` calls cycling through ``fns``, after
+    one warm-up round: the card first spins for ~10 ms (``torch.cuda._sleep``)
+    while the host queues the events and the calls behind it, so the events
+    time the calls back to back on the card and leave out the host's issue
+    time, which ``time_ms`` of a ~40 us kernel counts."""
+    import torch
+
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)  # clock cycles
+    a.record()
+    for i in range(iters):
+        fns[i % len(fns)]()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
+
+
 def bound_ms(nbytes: float, flops: float, peak: float) -> tuple:
     t_bytes, t_ops = nbytes / H100_BYTES * 1e3, flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -110,14 +134,17 @@ def phase_build() -> None:
             for line in log.read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"[build] {name}: {line.strip()}")
-    # the bf16 K3/K4 must run on wgmma and TMA: count their SASS instructions
+    # the bf16 K5, K2 and K3/K4 must run on wgmma and TMA: count their SASS
+    # instructions (0 would mean a fallback to mma.sync or to plain loads)
     cuobjdump = Path(_cuda.nvcc_path()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(_cuda.library_path("attention_nhd"))],
-                          capture_output=True, text=True, timeout=300).stdout
-    counts = {op: sum(op in line for line in sass.splitlines()) for op in ("HGMMA", "UTMALDG")}
-    print(f"[build] attention_nhd SASS: {counts['HGMMA']} HGMMA (wgmma), "
-          f"{counts['UTMALDG']} UTMALDG (TMA loads)", flush=True)
-    check(all(counts.values()), f"attention_nhd has no wgmma or no TMA load in its SASS: {counts}")
+    for name in ("attention_bhnd", "ffn_block", "attention_nhd"):
+        sass = subprocess.run([str(cuobjdump), "-sass", str(_cuda.library_path(name))],
+                              capture_output=True, text=True, timeout=300).stdout
+        counts = {op: sum(op in line for line in sass.splitlines())
+                  for op in ("HGMMA", "UTMALDG")}
+        print(f"[build] {name} SASS: {counts['HGMMA']} HGMMA (wgmma), "
+              f"{counts['UTMALDG']} UTMALDG (TMA loads)", flush=True)
+        check(all(counts.values()), f"{name} has no wgmma or no TMA load in its SASS: {counts}")
 
 
 def _kernel_inputs(torch, rows, n, d, f, heads, dim_head, dtype, seed):
@@ -144,19 +171,24 @@ def _kernel_inputs(torch, rows, n, d, f, heads, dim_head, dtype, seed):
 
 def _report(results, tag: str, shape: str, peak: float, records: dict = None) -> None:
     """Time each kernel of ``results`` (tuples: name, (rel-L2, max-abs),
-    kernel calls, plain call, library call or None, bytes, FLOP, source,
-    replaced TPU kernel), print it, fail if over tolerance; with
-    ``records``, keep its record for the kernels line."""
+    kernel calls, plain call, (library name, library call) or None, bytes,
+    FLOP, source, replaced TPU kernel), print it, fail if over tolerance;
+    with ``records``, keep its record for the kernels line. ms, plain and
+    library are card time (``device_ms``); wall is ``time_ms`` of the kernel
+    calls, host issue included."""
     for name, (rl2, mab), kern, plain, library, nbytes, flops, src, rep in results:
-        ms = time_ms(kern)
-        plain_ms = time_ms(plain, iters=3)
-        lib_ms = time_ms([library]) if library is not None else None
+        wall = time_ms(kern)
+        ms = device_ms(kern)
+        plain_ms = device_ms(plain, iters=3)
+        lib_name, lib_ms = "-", None
+        if library is not None:
+            lib_name, lib_ms = library[0], device_ms([library[1]])
         bms, by = bound_ms(nbytes, flops, peak)
         ok = rl2 <= TOL_REL_L2[tag]
         print(f"[kernels] {name:23s} {tag:4s} {shape}: "
               f"rel-L2 {rl2:.3e} max-abs {mab:.3e} (tol {TOL_REL_L2[tag]:.0e}) "
-              f"ms {ms:.4f} plain {plain_ms:.4f} "
-              f"library {'-' if lib_ms is None else f'{lib_ms:.4f}'} "
+              f"ms {ms:.4f} (wall {wall:.4f}) plain {plain_ms:.4f} "
+              f"library {lib_name} {'-' if lib_ms is None else f'{lib_ms:.4f}'} "
               f"bound {bms:.4f} ({by}) {'ok' if ok else 'FAIL'}", flush=True)
         check(ok, f"{name} {tag} {shape}: rel-L2 {rl2:.3e} over tolerance")
         if records is not None:
@@ -199,8 +231,13 @@ def phase_kernels() -> dict:
             nbytes = (rows * n * D + 2 * rows * D + 3 * inner * D + 3 * inner
                       + 3 * rows * n * inner) * esz
             flops = 2.0 * rows * n * D * 3 * inner
+            # yardstick: the cuBLAS product alone, against the [3I, D] concatenated
+            # weight, on a pre-made m (no LN, modulation or bias)
+            m = ffn.ln_modulate(t["x"], t["scale"], t["shift"])
+            wqkv = torch.cat([t["wq"], t["wk"], t["wv"]])
+            k1_lib = ("cuBLAS products alone", lambda: torch.matmul(m, wqkv.t()))
             results.append(("qkv_block", err, [lambda s=s: ffn.qkv_block(*args(s)) for s in sets],
-                            [lambda: ffn.qkv_block_plain(*args(t))], None, nbytes, flops,
+                            [lambda: ffn.qkv_block_plain(*args(t))], k1_lib, nbytes, flops,
                             "lemas_tts_tpu_torch/csrc/qkv_block.cu",
                             "lemas_tts_tpu/ops/ffn.py:128"))
             fargs = lambda s: (s["x"], s["scale"], s["shift"], s["gate"], s["w1"], s["b1"],
@@ -210,8 +247,13 @@ def phase_kernels() -> dict:
             err = (rel_l2(got, ref), max_abs(got, ref))
             nbytes = (2 * rows * n * D + 3 * rows * D + 2 * FF * D + FF + D) * esz
             flops = 4.0 * rows * n * D * FF
+            # yardstick: the two cuBLAS products alone, on pre-made m and h (no
+            # LN, GELU, bias or residual)
+            h = F.gelu(torch.matmul(m, t["w1"].t()), approximate="tanh")
+            k2_lib = ("cuBLAS products alone", lambda: (torch.matmul(m, t["w1"].t()),
+                                                        torch.matmul(h, t["w2"].t())))
             results.append(("ffn_block", err, [lambda s=s: ffn.ffn_block(*fargs(s)) for s in sets],
-                            [lambda: ffn.ffn_block_plain(*fargs(t))], None, nbytes, flops,
+                            [lambda: ffn.ffn_block_plain(*fargs(t))], k2_lib, nbytes, flops,
                             "lemas_tts_tpu_torch/csrc/ffn_block.cu",
                             "lemas_tts_tpu/ops/ffn.py:203"))
         aargs = lambda s: (s["q"][..., :inner].contiguous(), s["k"][..., :inner].contiguous(),
@@ -230,7 +272,7 @@ def phase_kernels() -> dict:
         ks = attention._rope(k.view(rows, n, heads, dh), cos, sin).transpose(1, 2).contiguous()
         vs = v.view(rows, n, heads, dh).transpose(1, 2).contiguous()
         am = mask[:, None, None, :]
-        lib = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=am)
+        lib = ("sdpa", lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=am))
         valid_keys = float(mask.sum())
         nbytes = 4 * rows * n * inner * esz + rows * n + n * dh // 2 * 4
         flops = 4.0 * heads * dh * n * valid_keys
@@ -297,9 +339,10 @@ def _nhd_masked_row(torch, tag: str, args, n: int) -> None:
 def phase_split_attention() -> dict:
     """K5 against its plain version on the card, with sdpa as its yardstick:
     the v0 path's shape (rows 2, 16 x 64, N 1024), the MMDiT's joint length
-    (1024 frames + 256 text), a ragged N, d128 heads, and a batch row whose
-    keys are all masked (which must give the mean of v). Returns the record
-    of the v0 shape in bf16."""
+    (1024 frames + 256 text), ragged N (1088; 1000 and 1025, off the 64-key
+    tiles and off the 16-byte rows a TMA map of the mask would need), d128
+    heads, and a batch row whose keys are all masked (which must give the mean
+    of v), at N 1024 and 1025. Returns the record of the v0 shape in bf16."""
     import torch
     import torch.nn.functional as F
 
@@ -307,7 +350,8 @@ def phase_split_attention() -> dict:
 
     records = {}
     shapes = [(1024, 16, 64, False), (1280, 16, 64, False), (1088, 16, 64, False),
-              (1024, 8, 128, False), (1024, 16, 64, True)]
+              (1000, 16, 64, False), (1025, 16, 64, False), (1024, 8, 128, False),
+              (1024, 16, 64, True), (1025, 16, 64, True)]
     for tag, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
         peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
         for n, heads, dh, masked_row in shapes:
@@ -339,7 +383,7 @@ def phase_split_attention() -> dict:
             nbytes = 4 * rows * heads * n * dh * esz + rows * n
             flops = 4.0 * heads * dh * n * float(mask.sum())
             am = mask[:, None, None, :]
-            lib = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am)
+            lib = ("sdpa", lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am))
             _report([("vmem_attention", (rel_l2(got, ref), max_abs(got, ref)),
                       [lambda a=a: attention.vmem_attention(*a) for a in sets],
                       [lambda: attention.vmem_attention_plain(*sets[0])], lib, nbytes, flops,

@@ -1,7 +1,7 @@
-// Shared pieces of the flash-style attention kernels (K3 and K4 in
-// attention_nhd.cu, K5 in attention_bhnd.cu): staging of q/k/v tiles and key
-// flags into shared memory, and one warp's online-softmax step over one
-// staged 64-key tile.
+// Shared pieces of the f32 flash-style attention kernels (K3 and K4 in
+// attention_nhd.cu, K5 in attention_bhnd.cu; bf16 runs attention_sm90.cuh):
+// staging of q/k/v tiles and key flags into shared memory, and one warp's
+// online-softmax step over one staged 64-key tile.
 //
 // Work split: a block owns a 64-query tile of one head (K3, K5) or of one
 // head pair (K4). Each warp owns 16 query rows of one head; its scores live

@@ -111,6 +111,12 @@ __device__ __forceinline__ void load_b_kn(FragB<T>& f, const T* s, int ld, int k
     f.x[i] = s[(k0 + 2 * t + (i & 1) + 8 * (i >> 1)) * ld + n0 + g];
 }
 
+// GELU with the tanh approximation, in f32 (the K2 kernels' hidden layer).
+__device__ __forceinline__ float gelu_tanh(float h) {
+  const float k0 = 0.7978845608028654f;  // sqrt(2 / pi)
+  return 0.5f * h * (1.f + tanhf(k0 * (h + 0.044715f * h * h * h)));
+}
+
 // 16-byte vector of T: the unit of every global load and store below.
 template <typename T> struct alignas(16) Vec {
   static constexpr int N = 16 / sizeof(T);

@@ -1,5 +1,6 @@
-// Tiled GEMM  out = epilogue(prologue(A) . W^T)  shared by qkv_block (K1)
-// and the two launches of ffn_block (K2).
+// Tiled GEMM  out = epilogue(prologue(A) . W^T)  on mma.sync: qkv_block (K1)
+// in both types and the two launches of ffn_block (K2) in f32 (the bf16 K2
+// runs on gemm_sm90.cuh).
 //
 // prologue (kLnMod): A is the raw residual stream x [rows, K]; the block
 //   computes the LayerNorm statistics of its rows in f32 (fast variance
@@ -40,11 +41,6 @@ constexpr int PAD = 8;             // elements; keeps rows 16-byte aligned
 constexpr int LDS = BK + PAD;
 constexpr float kLnEps = 1e-6f;
 }  // namespace gemm
-
-__device__ __forceinline__ float gelu_tanh(float h) {
-  const float k0 = 0.7978845608028654f;  // sqrt(2 / pi)
-  return 0.5f * h * (1.f + tanhf(k0 * (h + 0.044715f * h * h * h)));
-}
 
 template <typename T, bool kLnMod, int kEpi>
 __global__ void __launch_bounds__(gemm::THREADS) ln_mod_gemm_kernel(GemmArgs p) {

@@ -18,10 +18,12 @@ Counterpart of ``lemas_tts_tpu/ops/attention.py``:
 CPU tensors take the ``*_plain`` versions. Each kernel wrapper counts its
 launches in ``.launches``.
 
-Known difference from the JAX package:
-- K5 at N % 128 != 0: the JAX ``vmem_attention`` hands such shapes to its
-  XLA ``sdpa`` (softmax normalised before the PV product); the port runs the
-  same kernel at every N. The two differ only at bf16 rounding points.
+A rounding-point difference within tolerance (not a fault): at
+N % 128 != 0 the JAX ``vmem_attention`` hands the call to its XLA ``sdpa``,
+which normalises p before rounding it for the PV product; the port runs K5 at
+every N (p rounded unnormalised, ``/ l`` last). In f32 the two agree to
+~4e-7; in bf16 both roundings have the same relative precision, and JAX's own
+two routes differ by the same amount.
 """
 
 from __future__ import annotations

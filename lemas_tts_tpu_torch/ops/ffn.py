@@ -12,8 +12,11 @@ beside it that rounds at the same points as the Pallas kernels:
   get ``+ bias``.
 
 Dispatch is by the tensors' device: CPU tensors take the plain version, CUDA
-tensors launch the kernel or raise. Weights are in torch ``Linear`` layout
-``[out, in]``. Each wrapper counts its kernel launches in ``.launches``.
+tensors launch the kernel or raise. The bf16 ``ffn_block`` kernel (wgmma and
+TMA, ``csrc/gemm_sm90.cuh``) takes a ``[B*N, 2]`` f32 scratch for the
+LayerNorm mean and rstd from its wrapper; f32 and ``qkv_block`` run the
+``mma.sync`` GEMM (``csrc/ln_mod_gemm.cuh``). Weights are in torch ``Linear``
+layout ``[out, in]``. Each wrapper counts its kernel launches in ``.launches``.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ LN_EPS = 1e-6
 ROW_TILE = 64  # rows per kernel block (csrc/ln_mod_gemm.cuh BM)
 COL_TILE = 128  # output columns per kernel block (BN)
 K_TILE = 32  # reduction depth per stage (BK)
+# The bf16 ffn_block (csrc/gemm_sm90.cuh) runs 128-row tiles, rows past B*N
+# masked, and 64-deep stages: it takes every shape ffn_block_supported does.
 
 
 def ln_modulate(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
@@ -127,11 +132,15 @@ def ffn_block(x, scale, shift, gate, w1, b1, w2, b2):
     for t in (scale, shift, gate):
         _cuda.require(tuple(t.shape) == (B, D), "scale, shift and gate must be [B, D]")
     h = torch.empty(B, N, Fh, device=x.device, dtype=x.dtype)
+    # the bf16 kernel's LayerNorm (mean, rstd) per row; f32 computes its own
+    stats = (torch.empty(B * N, 2, device=x.device, dtype=torch.float32)
+             if x.dtype == torch.bfloat16 else None)
     out = torch.empty_like(x)
     err = _cuda.library("ffn_block").lemas_ffn_block(
         x.device.index, _cuda.dtype_code(x), x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
         gate.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        h.data_ptr(), out.data_ptr(), B * N, N, D, Fh, _cuda.stream_ptr(x.device))
+        h.data_ptr(), None if stats is None else stats.data_ptr(), out.data_ptr(), B * N, N, D,
+        Fh, _cuda.stream_ptr(x.device))
     _cuda.check(err, "ffn_block")
     ffn_block.launches += 1
     return out

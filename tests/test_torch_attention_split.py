@@ -68,12 +68,19 @@ def test_vmem_attention_matches_pallas(dtype, N, D, masked_rows):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("N", [100, 200])
-def test_vmem_attention_ragged_n_matches_jax_sdpa(dtype, N):
+@pytest.mark.parametrize("masked_rows", [(), (1,)], ids=["ragged", "row_all_masked"])
+def test_vmem_attention_ragged_n_matches_jax_sdpa(dtype, N, masked_rows):
     """N % 128 != 0: the JAX package runs its XLA sdpa there, the port the
-    same kernel as at every N (the documented rounding delta)."""
-    qkv, mask = _split_inputs(1, 2, 3, N, 64, dtype, ())
+    same kernel as at every N (p rounded before it is normalised: a rounding
+    point within tolerance). A batch row whose keys are all masked gets the
+    mean of v from both, with no key of the ragged tail in that mean."""
+    qkv, mask = _split_inputs(1, 2, 3, N, 64, dtype, masked_rows)
     got, ref = _run_both(qkv, mask, dtype, jattn.sdpa)
     assert _rel_l2(got, ref) <= REL_L2[dtype]
+    if masked_rows:
+        mean_v = qkv[2][1].mean(axis=1)  # [H, D] over the N keys
+        np.testing.assert_allclose(got[1], np.broadcast_to(mean_v[:, None], got[1].shape),
+                                   rtol=REL_L2[dtype], atol=REL_L2[dtype])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

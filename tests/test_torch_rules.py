@@ -51,6 +51,33 @@ def test_sources_name_no_jax_module():
                 assert name.split(".")[0] not in ("jax", "flax", "lemas_tts_tpu"), (path, name)
 
 
+def test_entry_points_match_c_sources():
+    """Every ``extern "C" int lemas_*(...)`` of ``csrc/<library>.cu`` is in
+    ``ops/_cuda.py:ENTRY_POINTS[<library>]`` with one argtype per parameter
+    of the same kind (pointer, int, float), and nothing else is: a changed
+    signature fails here, not only on the card."""
+    import ctypes
+    import re
+
+    from lemas_tts_tpu_torch.ops import _cuda
+
+    kinds = {ctypes.c_void_p: "pointer", ctypes.c_int: "int", ctypes.c_float: "float"}
+    found = {}
+    for src in sorted((PKG / "csrc").glob("*.cu")):
+        text = re.sub(r"//[^\n]*", "", src.read_text())
+        for name, params in re.findall(r'extern\s+"C"\s+int\s+(lemas_\w+)\s*\(([^)]*)\)', text):
+            got = []
+            for param in params.split(","):
+                decl = " ".join(param.split())
+                got.append("pointer" if "*" in decl else decl.rsplit(" ", 1)[0].split()[-1])
+            found.setdefault(src.stem, {})[name] = got
+    assert found and set(found) == set(_cuda.ENTRY_POINTS)
+    for lib, entries in found.items():
+        want = {name: [kinds[t] for t in argtypes]
+                for name, argtypes in _cuda.ENTRY_POINTS[lib].items()}
+        assert entries == want, lib
+
+
 def test_tts_without_cuda_raises():
     from lemas_tts_tpu_torch import TTS
 
