@@ -4,15 +4,18 @@
 Phases, in order (any failure raises; the exit code is then non-zero):
   1. card: CUDA present, name and power limit from nvidia-smi, TF32 off;
   2. build: the kernels of ``lemas_tts_tpu_torch/csrc`` with nvcc (sm_90a),
-     one nvcc per source, all started together; the bf16 K5 (attention_bhnd),
-     K2 (ffn_block) and K3/K4 (attention_nhd) libraries must each hold wgmma
-     (HGMMA) and TMA-load (UTMALDG) instructions in their SASS;
+     one nvcc per source, all started together; the bf16 K1 (qkv_block), K5
+     (attention_bhnd), K2 (ffn_block) and K3/K4 (attention_nhd) libraries
+     must each hold wgmma (HGMMA) and TMA-load (UTMALDG) instructions in their
+     SASS;
   3. kernels: each kernel (K1-K5) against its plain PyTorch version on the
-     card, at the shapes of the paths below (K5 also at N 1000 and 1025), with
+     card, at the shapes of the paths below (K5 also at N 1000 and 1025, K1
+     also at rows 3, N 1088, where 128-row tiles straddle batch rows), with
      times, the bound and the library yardstick (sdpa for K3-K5, the cuBLAS
-     products alone for K1 and K2); K4 also against K3 (bit for bit); K3, K4
-     and K5 with a batch row whose keys are all masked (the value the JAX
-     kernels give);
+     products alone for K1 and K2); every design of the bf16 K1 timed (both
+     LN-modulate forms, bit for bit equal, at each tile width); K4 also
+     against K3 (bit for bit); K3, K4 and K5 with a batch row whose keys are
+     all masked (the value the JAX kernels give);
   4. DiT: depth-2 models at full width on the card (kernels) against the same
      weights on the CPU (plain versions), in f32 and bf16, each counting its
      launches: the flagship DiT (K1-K3), the flagship under
@@ -131,13 +134,19 @@ def phase_build() -> None:
     for name in _cuda.ENTRY_POINTS:
         log = _cuda.BUILD / f"{name}.ptxas.txt"
         if log.is_file():
-            for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"[build] {name}: {line.strip()}")
-    # the bf16 K5, K2 and K3/K4 must run on wgmma and TMA: count their SASS
-    # instructions (0 would mean a fallback to mma.sync or to plain loads)
+            # one line a kernel: its (mangled) name, registers and spills
+            entry, facts = "?", []
+            for line in log.read_text().splitlines() + ["Compiling entry function 'end'"]:
+                if "Compiling entry function" in line:
+                    if facts:
+                        print(f"[build] {name} {entry}: {'; '.join(facts)}")
+                    entry, facts = line.split("'")[1], []
+                elif "registers" in line or "spill" in line:
+                    facts.append(line.replace("ptxas info    :", "").strip())
+    # the bf16 K1, K5, K2 and K3/K4 must run on wgmma and TMA: count their
+    # SASS instructions (0 would mean a fallback to mma.sync or to plain loads)
     cuobjdump = Path(_cuda.nvcc_path()).with_name("cuobjdump")
-    for name in ("attention_bhnd", "ffn_block", "attention_nhd"):
+    for name in ("qkv_block", "attention_bhnd", "ffn_block", "attention_nhd"):
         sass = subprocess.run([str(cuobjdump), "-sass", str(_cuda.library_path(name))],
                               capture_output=True, text=True, timeout=300).stdout
         counts = {op: sum(op in line for line in sass.splitlines())
@@ -198,6 +207,59 @@ def _report(results, tag: str, shape: str, peak: float, records: dict = None) ->
                              "library_ms": lib_ms}
 
 
+def _qkv_args(s) -> tuple:
+    return (s["x"], s["scale"], s["shift"], s["wq"], s["bq"], s["wk"], s["bk"], s["wv"],
+            s["bv"])
+
+
+def _qkv_designs(sets) -> None:
+    """Card time of both LN-modulate forms of the bf16 K1 on ``sets`` (the
+    flagship shape): the pass that writes m once and the GEMM's prologue,
+    each against the plain version; the two must agree bit for bit."""
+    import re
+
+    from lemas_tts_tpu_torch.ops import _cuda, ffn
+
+    ref = ffn.qkv_block_plain(*_qkv_args(sets[0]))
+    times, outs = {}, {}
+    for ln_pass in (True, False):
+        outs[ln_pass] = got = ffn.qkv_block(*_qkv_args(sets[0]), ln_pass=ln_pass)
+        err = max(rel_l2(a, b) for a, b in zip(got, ref))
+        check(err <= TOL_REL_L2["bf16"], f"qkv_block ln_pass={ln_pass}: rel-L2 {err:.3e}")
+        times[ln_pass] = device_ms([lambda s=s, lp=ln_pass: ffn.qkv_block(*_qkv_args(s),
+                                                                          ln_pass=lp)
+                                    for s in sets])
+    same = all(a.equal(b) for a, b in zip(outs[True], outs[False]))
+    check(same, "qkv_block: LN pass and prologue differ")
+    src = (_cuda.CSRC / "qkv_block.cu").read_text()
+    tile_n = re.search(r"constexpr int kTileN = (\d+);", src).group(1)
+    form = {True: "LN pass", False: "prologue"}
+    print(f"[kernels] qkv_block bf16 rows  2 N 1024 LN-modulate forms, card ms (equal bit for "
+          f"bit), tile 128 x {tile_n}: LN pass {times[True]:.4f}; prologue {times[False]:.4f}; "
+          f"chosen: {form[ffn.QKV_LN_PASS]}", flush=True)
+
+
+def _qkv_straddle() -> None:
+    """K1 in both types at rows 3, N 1088 against its plain version: 128-row
+    tiles straddle two batch rows (N % 128 == 64) and the last tile holds
+    rows past B*N (3 * 1088 % 128 == 64)."""
+    import torch
+
+    from lemas_tts_tpu_torch.ops import ffn
+
+    for tag, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        t = _kernel_inputs(torch, 3, 1088, 1024, 128, 16, 64, dtype, seed=5)
+        got, ref = ffn.qkv_block(*_qkv_args(t)), ffn.qkv_block_plain(*_qkv_args(t))
+        rl2 = max(rel_l2(a, b) for a, b in zip(got, ref))
+        mab = max(max_abs(a, b) for a, b in zip(got, ref))
+        ok = rl2 <= TOL_REL_L2[tag]
+        print(f"[kernels] qkv_block {tag:4s} rows  3 N 1088 (tiles straddle batch rows, rows "
+              f"past B*N): rel-L2 {rl2:.3e} max-abs {mab:.3e} (tol {TOL_REL_L2[tag]:.0e}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"qkv_block {tag} rows 3 N 1088: rel-L2 {rl2:.3e} over tolerance")
+        del t, got, ref
+
+
 def phase_kernels() -> dict:
     """K1-K4 against their plain versions on the card (K4 also against K3).
     Returns the records of the flagship path's shape (rows 2, N 1024, bf16)
@@ -222,8 +284,7 @@ def phase_kernels() -> dict:
         inner = heads * dh
         results = []
         if dh == 64:
-            args = lambda s: (s["x"], s["scale"], s["shift"], s["wq"], s["bq"], s["wk"],
-                              s["bk"], s["wv"], s["bv"])
+            args = _qkv_args
             got = ffn.qkv_block(*args(t))
             ref = ffn.qkv_block_plain(*args(t))
             err = (max(rel_l2(a, b) for a, b in zip(got, ref)),
@@ -295,10 +356,13 @@ def phase_kernels() -> dict:
                             "lemas_tts_tpu/ops/attention.py:528"))
         _report(results, tag, f"rows {rows:2d} N {n:4d} heads {heads}x{dh}", peak,
                 records if main_shape else None)
+        if main_shape:
+            _qkv_designs(sets)
         if dh == 64 and rows == 2:
             _nhd_masked_row(torch, tag, a_sets[0], n)
         del sets, a_sets, t
         torch.cuda.empty_cache()
+    _qkv_straddle()
     return records
 
 

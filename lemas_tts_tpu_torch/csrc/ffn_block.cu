@@ -32,16 +32,18 @@ int ffn_block_sm90(const void* x, const void* scale, const void* shift, const vo
                    const void* w1, const void* b1, const void* w2, const void* b2, void* h,
                    void* stats, void* out, int rows, int seq, int d, int f, cudaStream_t s) {
   const int batch = rows / seq;
-  CUtensorMap xmap, w1map, scale_map, shift_map, hmap, w2map;
-  cudaError_t err = sm90::box_map(&xmap, x, rows, d);
-  if (err == cudaSuccess) err = sm90::box_map(&w1map, w1, f, d);
-  if (err == cudaSuccess) err = sm90::box_map(&hmap, h, rows, f);
-  if (err == cudaSuccess) err = sm90::box_map(&w2map, w2, d, f);
+  sm90::GemmMaps up_maps, down_maps;
+  cudaError_t err = sm90::box_map(&up_maps.a, x, rows, d);
+  if (err == cudaSuccess) err = sm90::box_map(&up_maps.b[0], w1, f, d);
+  if (err == cudaSuccess) err = sm90::box_map(&down_maps.a, h, rows, f);
+  if (err == cudaSuccess) err = sm90::box_map(&down_maps.b[0], w2, d, f);
   // 64 columns of two batch rows, unswizzled (a tile straddles at most two)
   if (err == cudaSuccess)
-    err = sm90::map_2d(&scale_map, scale, batch, d, 2, sm90::kBox, CU_TENSOR_MAP_SWIZZLE_NONE);
+    err = sm90::map_2d(&up_maps.scale, scale, batch, d, 2, sm90::kBox,
+                       CU_TENSOR_MAP_SWIZZLE_NONE);
   if (err == cudaSuccess)
-    err = sm90::map_2d(&shift_map, shift, batch, d, 2, sm90::kBox, CU_TENSOR_MAP_SWIZZLE_NONE);
+    err = sm90::map_2d(&up_maps.shift, shift, batch, d, 2, sm90::kBox,
+                       CU_TENSOR_MAP_SWIZZLE_NONE);
   if (err != cudaSuccess) return (int)err;
 
   sm90::ln_stats_kernel<<<(rows + 7) / 8, 256, 0, s>>>(static_cast<const bf16*>(x),
@@ -51,27 +53,26 @@ int ffn_block_sm90(const void* x, const void* scale, const void* shift, const vo
 
   sm90::GemmArgs up = {};
   up.stats = static_cast<const float2*>(stats);
-  up.bias = static_cast<const bf16*>(b1);
-  up.out = static_cast<bf16*>(h);
+  up.bias[0] = static_cast<const bf16*>(b1);
+  up.out[0] = static_cast<bf16*>(h);
   up.rows = rows;
   up.seq = seq;
   up.K = d;
-  up.ncols = f;
-  err = sm90::launch_gemm_sm90<kUpBN, kStages, true, sm90::kEpiGelu>(xmap, w1map, scale_map,
-                                                                      shift_map, up, s);
+  up.wcols = f;
+  err = sm90::launch_gemm_sm90<kUpBN, kStages, true, sm90::kEpiGelu>(up_maps, up, s);
   if (err != cudaSuccess) return (int)err;
 
   sm90::GemmArgs down = {};
-  down.bias = static_cast<const bf16*>(b2);
-  down.out = static_cast<bf16*>(out);
+  down.bias[0] = static_cast<const bf16*>(b2);
+  down.out[0] = static_cast<bf16*>(out);
   down.resid = static_cast<const bf16*>(x);
   down.gate = static_cast<const bf16*>(gate);
   down.rows = rows;
   down.seq = seq;
   down.K = f;
-  down.ncols = d;
-  return (int)sm90::launch_gemm_sm90<kDownBN, kStages, false, sm90::kEpiGateRes>(
-      hmap, w2map, hmap, hmap, down, s);
+  down.wcols = d;
+  return (int)sm90::launch_gemm_sm90<kDownBN, kStages, false, sm90::kEpiGateRes>(down_maps,
+                                                                                 down, s);
 }
 }  // namespace
 

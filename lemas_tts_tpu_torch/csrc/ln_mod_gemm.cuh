@@ -1,6 +1,6 @@
-// Tiled GEMM  out = epilogue(prologue(A) . W^T)  on mma.sync: qkv_block (K1)
-// in both types and the two launches of ffn_block (K2) in f32 (the bf16 K2
-// runs on gemm_sm90.cuh).
+// Tiled GEMM  out = epilogue(prologue(A) . W^T)  on mma.sync: the f32
+// checking path of qkv_block (K1) and of the two launches of ffn_block (K2);
+// the bf16 K1 and K2 run on gemm_sm90.cuh.
 //
 // prologue (kLnMod): A is the raw residual stream x [rows, K]; the block
 //   computes the LayerNorm statistics of its rows in f32 (fast variance

@@ -32,7 +32,7 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _NHD = [I, I, I] + [P] * 6 + [I] * 3 + [F, P]
 # C entry points of each library csrc/<library>.cu, with their argtypes
 ENTRY_POINTS = {
-    "qkv_block": {"lemas_qkv_block": [I, I] + [P] * 12 + [I] * 4 + [P]},
+    "qkv_block": {"lemas_qkv_block": [I, I] + [P] * 13 + [I] * 5 + [P]},
     "ffn_block": {"lemas_ffn_block": [I, I] + [P] * 11 + [I] * 4 + [P]},
     "attention_nhd": {"lemas_attention_nhd": _NHD, "lemas_attention_nhd_pack": _NHD},
     "attention_bhnd": {"lemas_attention_bhnd": [I, I, I] + [P] * 5 + [I] * 3 + [F, P]},

@@ -12,11 +12,12 @@ beside it that rounds at the same points as the Pallas kernels:
   get ``+ bias``.
 
 Dispatch is by the tensors' device: CPU tensors take the plain version, CUDA
-tensors launch the kernel or raise. The bf16 ``ffn_block`` kernel (wgmma and
-TMA, ``csrc/gemm_sm90.cuh``) takes a ``[B*N, 2]`` f32 scratch for the
-LayerNorm mean and rstd from its wrapper; f32 and ``qkv_block`` run the
-``mma.sync`` GEMM (``csrc/ln_mod_gemm.cuh``). Weights are in torch ``Linear``
-layout ``[out, in]``. Each wrapper counts its kernel launches in ``.launches``.
+tensors launch the kernel or raise. In bf16 both run on the warp-specialised
+wgmma/TMA GEMM of ``csrc/gemm_sm90.cuh`` and take an LN-modulate scratch from
+their wrapper: ``qkv_block`` the modulated ``m`` ``[B*N, D]``, ``ffn_block``
+the LayerNorm mean and rstd ``[B*N, 2]`` f32. In f32 both run the ``mma.sync``
+GEMM of ``csrc/ln_mod_gemm.cuh``. Weights are in torch ``Linear`` layout
+``[out, in]``. Each wrapper counts its kernel launches in ``.launches``.
 """
 
 from __future__ import annotations
@@ -27,11 +28,17 @@ import torch.nn.functional as F
 from lemas_tts_tpu_torch.ops import _cuda
 
 LN_EPS = 1e-6
-ROW_TILE = 64  # rows per kernel block (csrc/ln_mod_gemm.cuh BM)
-COL_TILE = 128  # output columns per kernel block (BN)
-K_TILE = 32  # reduction depth per stage (BK)
-# The bf16 ffn_block (csrc/gemm_sm90.cuh) runs 128-row tiles, rows past B*N
-# masked, and 64-deep stages: it takes every shape ffn_block_supported does.
+# The f32 kernels' tiles (csrc/ln_mod_gemm.cuh BM, BN, BK) bound the shapes
+# both types take: the bf16 GEMM (csrc/gemm_sm90.cuh) runs 128-row tiles with
+# rows past B*N masked, 64-deep stages with the depth past D read as zeros,
+# and masks the columns past the output, so it takes every such shape.
+ROW_TILE = 64  # rows per f32 block
+COL_TILE = 128  # output columns per f32 block
+K_TILE = 32  # reduction depth per f32 stage
+# The bf16 qkv_block's LN-modulate (csrc/qkv_block.cu): a pass that writes m
+# once (True) or the GEMM's prologue (False). The pass took the less card time
+# on an H100 80GB HBM3 at 700 W (chip_smoke.py times both; PERF.md).
+QKV_LN_PASS = True
 
 
 def ln_modulate(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
@@ -62,9 +69,10 @@ def ffn_block_plain(x, scale, shift, gate, w1, b1, w2, b2):
 
 
 def qkv_block_supported(n: int, d: int, inner: int) -> bool:
-    """Shapes the CUDA kernel takes: whole row tiles inside each batch row
-    (N % 64), whole reduction stages (D % 32) and whole column tiles inside
-    each of q, k, v (inner % 128)."""
+    """Shapes the CUDA kernels take (the f32 kernel's tiles; the bf16 one
+    takes all of them): whole row tiles inside each batch row (N % 64), whole
+    reduction stages (D % 32) and whole column tiles inside each of q, k, v
+    (inner % 128)."""
     return n % ROW_TILE == 0 and d % K_TILE == 0 and inner % COL_TILE == 0
 
 
@@ -84,9 +92,11 @@ def _check_cuda(x: torch.Tensor, *others: torch.Tensor) -> None:
         _cuda.require(t.is_contiguous(), "operands must be contiguous")
 
 
-def qkv_block(x, scale, shift, wq, bq, wk, bk, wv, bv):
+def qkv_block(x, scale, shift, wq, bq, wk, bk, wv, bv, *, ln_pass=QKV_LN_PASS):
     """LN -> AdaLN modulate -> q/k/v projections. x [B, N, D]; scale, shift
-    [B, D]; w* [I, D]; b* [I]. Returns q, k, v, each [B, N, I]."""
+    [B, D]; w* [I, D]; b* [I]. Returns q, k, v, each [B, N, I]. ``ln_pass``
+    picks the bf16 kernel's LN-modulate form (the default is the faster; the
+    other is there to be timed against it)."""
     if x.device.type == "cpu":
         return qkv_block_plain(x, scale, shift, wq, bq, wk, bk, wv, bv)
     _cuda.require(x.device.type == "cuda", f"no kernel for device {x.device}")
@@ -101,11 +111,16 @@ def qkv_block(x, scale, shift, wq, bq, wk, bk, wv, bv):
     _cuda.require(tuple(scale.shape) == (B, D) and tuple(shift.shape) == (B, D),
                   "scale and shift must be [B, D]")
     q, k, v = (torch.empty(B, N, inner, device=x.device, dtype=x.dtype) for _ in range(3))
+    # the bf16 kernel's LN-modulate scratch: m, or each row's (mean, rstd)
+    scratch = None
+    if x.dtype == torch.bfloat16:
+        scratch = (torch.empty(B * N, D, device=x.device, dtype=x.dtype) if ln_pass
+                   else torch.empty(B * N, 2, device=x.device, dtype=torch.float32))
     err = _cuda.library("qkv_block").lemas_qkv_block(
         x.device.index, _cuda.dtype_code(x), x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
         wq.data_ptr(), bq.data_ptr(), wk.data_ptr(), bk.data_ptr(), wv.data_ptr(), bv.data_ptr(),
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), B * N, N, D, inner,
-        _cuda.stream_ptr(x.device))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        B * N, N, D, inner, int(ln_pass), _cuda.stream_ptr(x.device))
     _cuda.check(err, "qkv_block")
     qkv_block.launches += 1
     return q, k, v

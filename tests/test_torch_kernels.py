@@ -1,6 +1,7 @@
 """The port's K1-K3 (qkv_block, ffn_block, vmem_attention_nhd) against the
 JAX Pallas kernels run in interpret mode, on the CPU, and what every kernel
-wrapper (K1-K5) does on the CPU and on other devices.
+wrapper (K1-K5) does on the CPU and on other devices, and the widths at
+which the DiT block takes the fused kernels.
 
 On the CPU the port's wrappers take their plain PyTorch versions, which
 round at the same points as the CUDA kernels; the kernels themselves are held
@@ -73,6 +74,25 @@ def test_qkv_block_matches_pallas(dtype):
     for g, r in zip(got, ref):
         np.testing.assert_allclose(g.float().numpy(), np.asarray(r, np.float32),
                                    rtol=TOL[dtype], atol=TOL[dtype])
+
+
+# The widths of the CPU parity tests of the fused branch (test_torch_dit.py:
+# N 256, D = I = 128; test_torch_modules.py's (2, 64) block: N 128) and of
+# the flagship (N 1024, and the straddling N 1088 that chip_smoke.py checks
+# K1 at, D = I = 1024): a narrowed predicate must not quietly move the CPU
+# parity tests, or the flagship, off the kernels.
+@pytest.mark.parametrize("n,d,inner", [(128, 128, 128), (256, 128, 128), (1024, 1024, 1024),
+                                       (1088, 1024, 1024)])
+def test_qkv_block_supported_keeps_test_and_flagship_widths(n, d, inner):
+    assert tffn.qkv_block_supported(n, d, inner)
+
+
+@pytest.mark.parametrize("dim,heads,n", [(128, 2, 128), (128, 2, 256), (1024, 16, 1024)])
+def test_dit_block_takes_fused_branch_at_test_and_flagship_widths(dim, heads, n):
+    from lemas_tts_tpu_torch.models.modules import DiTBlock
+
+    blk = DiTBlock(dim, heads, 64, ff_mult=2)
+    assert blk.fused_attn_ok(n) and blk.fused_ff_ok(n)
 
 
 # Every query row keeps at least one valid key (fully masked rows: below).
