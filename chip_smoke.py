@@ -25,8 +25,19 @@ Phases, in order (any failure raises; the exit code is then non-zero):
      per path (counts set to 0 just before a path, read just after): the
      flagship ``multilingual`` config (one warm-up, two timed requests, then
      one request under ``LEMAS_ATTN_PACK=1``), ``f5tts_base`` and an MMDiT
-     built from the flagship config (one warm-up and one timed request each);
-     one more request per path under ``torch.profiler``.
+     built from the flagship config (one warm-up and one timed request each),
+     all with a character vocab and ``frontend=None``; one more request per
+     path under ``torch.profiler``;
+  6. frontend: the flagship with its default ``frontend="phone"`` on a phone
+     vocab made by the port's ``TextNorm`` from the run's texts (one warm-up
+     and one timed request in bucket 1024, one profiled; the live G2P tier and
+     the host ms of ``prepare_units`` printed), four requests in turns as
+     phone units and as the raw string (phone, raw, raw, phone), then one
+     request with ``frontend="char"`` on the same model;
+  7. edit: ``speech_edit_multilingual.main()`` with its defaults (NFE 64,
+     CFG 5, sway 3) on a 10 s utterance at 24 kHz: depth x 64 launches of
+     each of K1-K3, kept frames equal to the reference mel bit for bit,
+     every regenerated frame different, a finite WAV written.
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Needs only torch, numpy and the CUDA
 toolkit: no JAX, no yaml.
@@ -572,8 +583,13 @@ def _reference_wave(sr: int, seconds: float, seed: int):
     return (0.15 * env * tone + 0.01 * rng.standard_normal(t.size)).astype(np.float32)
 
 
+REF_TEXT = "some call me nature, others call me mother nature."
+GEN_TEXT = ("i have been a silent spectator, watching species evolve, "
+            "empires rise and fall, and always remember i am mighty.")
+
+
 def run_requests(tts, label: str, n: int, kernels, dev: dict, ref_path: str, ref_text: str,
-                 gen_text: str) -> tuple:
+                 gen_text: str, bucket: int = 1024) -> tuple:
     """``n`` TTS.infer requests (the first a warm-up) with the launch counts
     set to 0 just before and read just after; every request must launch each
     kernel of ``kernels`` depth x 32 times and no other kernel. Returns the
@@ -608,7 +624,7 @@ def run_requests(tts, label: str, n: int, kernels, dev: dict, ref_path: str, ref
     audio = sum(a for a, _ in timed)
     wall = sum(w for _, w in timed)
     print(f"[slice] {label} timed: {audio:.3f} audio-s in {wall:.3f} s wall = "
-          f"{audio / wall:.2f} audio-s/s (NFE 32, CFG 2, B 1, bucket 1024) on {dev['card']}",
+          f"{audio / wall:.2f} audio-s/s (NFE 32, CFG 2, B 1, bucket {bucket}) on {dev['card']}",
           flush=True)
     return launches, timed
 
@@ -634,9 +650,7 @@ def phase_slice(dev: dict) -> dict:
                                     + list(",.!?'-")) + "\n")
         ref_path = str(Path(d) / "ref.wav")
         write_wav(ref_path, _reference_wave(16000, 3.0, seed=0), 16000)
-        ref_text = "some call me nature, others call me mother nature."
-        gen_text = ("i have been a silent spectator, watching species evolve, "
-                    "empires rise and fall, and always remember i am mighty.")
+        ref_text, gen_text = REF_TEXT, GEN_TEXT
         # no public MMDiT config: the flagship's arch under the MMDiT backbone
         mmdit_cfg = json.loads((CONFIG_DIR / "multilingual.json").read_text())
         mmdit_cfg["model"]["backbone"] = "MMDiT"
@@ -648,7 +662,8 @@ def phase_slice(dev: dict) -> dict:
                  (str(mmdit_path), [("MMDiT", 2, False, MMDIT_KERNELS)])]
         for model, runs in paths:
             t0 = time.perf_counter()
-            tts = TTS(model=model, vocab_file=str(vocab))  # device None: the card
+            # device None: the card; a character vocab, so no text frontend
+            tts = TTS(model=model, vocab_file=str(vocab), frontend=None)
             check(tts.device.type == "cuda" and next(tts.dit.parameters()).is_cuda,
                   "TTS() did not place the model on the card")
             a = tts.config.arch
@@ -671,6 +686,230 @@ def phase_slice(dev: dict) -> dict:
             del tts
             torch.cuda.empty_cache()
     return totals
+
+
+def _frontend_units(frontend, text: str) -> list:
+    """The units ``TTS.prepare_units`` gives ``text`` with ``frontend``
+    (checked against it once the model is built)."""
+    if frontend.dtype == "phone":
+        return frontend.text2phn(text + ". ").replace("(cmn)", "(zh)").split("|")
+    lang, norm = frontend.text2norm(text + ". ")
+    return [f"({lang.replace('cmn', 'zh')})"] + list(norm)
+
+
+def _edit_inputs(d: Path) -> tuple:
+    """A synthetic 10 s utterance at 24 kHz (937 frames: bucket 1024, RMS above
+    the sampler's target, so the sampler keeps its scale and the kept frames
+    are the reference mel as it is) and its alignment JSON: 20 words of 0.5 s,
+    words 8-9 replaced. Returns (wav path, align dir, target text)."""
+    from lemas_tts_tpu_torch.utils.audio_io import write_wav
+
+    words = ("the old lighthouse keeper walked along the rocky shore every "
+             "morning before the fishing boats came home with their catch").split()
+    wav_dir, align_dir = d / "edit_wavs", d / "edit_align"
+    wav_dir.mkdir()
+    align_dir.mkdir()
+    wav_path = wav_dir / "utt.wav"
+    write_wav(str(wav_path), 2.0 * _reference_wave(24000, 10.0, seed=1), 24000)
+    orig, new = " ".join(words[8:10]), "beside the quiet harbour"
+    display = " ".join(words)
+    (align_dir / "utt.json").write_text(json.dumps({
+        "interval": [0.0, 10.0], "modified_index": [8, 10],
+        "words": [{"word": w, "interval": [0.5 * i + 0.05, 0.5 * i + 0.45]}
+                  for i, w in enumerate(words)],
+        "modified_text": [orig, new], "display_text": display}))
+    return wav_path, align_dir, display.replace(orig, new)
+
+
+def phase_frontend(dev: dict, model: str = "multilingual") -> dict:
+    """The text frontend on the flagship at full depth and width: ``TTS`` with
+    its default ``frontend="phone"`` on a phone vocab made by the port's
+    ``TextNorm`` from this run's texts (one warm-up and one timed request,
+    bucket 1024, K1-K3 depth x 32 each), the host time of ``prepare_units``,
+    then one request with ``frontend="char"`` on the same model; then speech
+    editing through ``speech_edit_multilingual.main()`` (NFE 64, CFG 5, sway 3:
+    K1-K3 depth x 64 each) with its kept frames held bit for bit against the
+    reference mel. Returns the launch counts summed over these runs."""
+    import importlib.util
+    import types
+
+    import numpy as np
+    import torch
+
+    from lemas_tts_tpu_torch import TTS
+    from lemas_tts_tpu_torch.api import process_phone_list
+    from lemas_tts_tpu_torch.config import SamplerConfig
+    from lemas_tts_tpu_torch.infer.pipeline import TEXT_BUCKETS, pick_bucket
+    from lemas_tts_tpu_torch.infer.preprocess import preprocess_ref_audio_text
+    from lemas_tts_tpu_torch.scripts import speech_edit_multilingual as edit_cli
+    from lemas_tts_tpu_torch.text import TextNorm, tokenizer
+    from lemas_tts_tpu_torch.utils.audio_io import write_wav
+    from lemas_tts_tpu_torch.utils.vocab import text_to_ids
+
+    totals = dict.fromkeys(kernel_counters(), 0)
+    tier = "espeak-ng" if tokenizer.available() else "builtin-ipa"
+    backends = ", ".join(f"{m} {'yes' if importlib.util.find_spec(m) else 'no'}"
+                         for m in ("phonemizer", "jieba", "pypinyin", "langid"))
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        ref_path = str(d / "ref.wav")
+        write_wav(ref_path, _reference_wave(16000, 3.0, seed=0), 16000)
+        wav, sr, rtext = preprocess_ref_audio_text(ref_path, REF_TEXT, show_info=lambda *_: None)
+        wav_path, align_dir, edit_text = _edit_inputs(d)
+        # the vocab: " " and every unit of this run's texts, in both frontends
+        # and in their separate_langs forms
+        frontends = {dt: TextNorm(dt) for dt in ("phone", "char")}
+        units = {(dt, t): _frontend_units(fe, t) for dt, fe in frontends.items()
+                 for t in (rtext, GEN_TEXT)}
+        edit_units = edit_cli.build_tokens_from_text(
+            types.SimpleNamespace(frontend=frontends["phone"]), edit_text)
+        seqs = list(units.values()) + [edit_units]
+        vocab_units = sorted({u for q in seqs for u in q + process_phone_list(q)} - {" "})
+        vocab = d / "phone_vocab.txt"
+        vocab.write_text("\n".join([" "] + vocab_units) + "\n")
+
+        t0 = time.perf_counter()
+        tts = TTS(model=model, vocab_file=str(vocab))  # default frontend: "phone"
+        check(tts.device.type == "cuda" and tts.frontend is not None
+              and tts.frontend.dtype == "phone", "TTS() is not the phone frontend on the card")
+        for dt, fe in frontends.items():
+            tts.frontend = fe
+            for t in (rtext, GEN_TEXT):
+                check(tts.prepare_units(t) == units[dt, t], f"prepare_units ({dt}) differs")
+        tts.frontend = frontends["phone"]
+        # host time of the request's frontend work (reference + one chunk)
+        host = []
+        for _ in range(21):
+            t1 = time.perf_counter()
+            ref_units, gen_units = tts.prepare_units(rtext), tts.prepare_units(GEN_TEXT)
+            host.append((time.perf_counter() - t1) * 1e3)
+        ids = text_to_ids(ref_units + gen_units, tts.vocab)
+        check(bool((ids > 0).all()), "a phone unit is not in the vocab")
+        bucket = tts.synth.estimate_bucket(wav, sr, ref_units, gen_units, SamplerConfig())
+        a = tts.config.arch
+        print(f"[frontend] TTS({model}) built on {tts.device} in {time.perf_counter() - t0:.1f} s "
+              f"(frontend {tts.frontend.dtype}, phone vocab of {tts.vocab.size} units, depth "
+              f"{a.depth}, dim {a.dim}); G2P tier {tier} ({backends}); request: "
+              f"{len(ref_units)} + {len(gen_units)} phone units, duration bucket {bucket}, "
+              f"text bucket {pick_bucket(len(ids), TEXT_BUCKETS)}; prepare_units host ms per "
+              f"request: "
+              f"first {host[0]:.3f}, median of 20 more {float(np.median(host[1:])):.3f}",
+              flush=True)
+        check(bucket == 1024, f"the phone request lands in bucket {bucket}, not 1024")
+        launches, _ = run_requests(tts, "flagship phone frontend", 2, FLAGSHIP_KERNELS, dev,
+                                   ref_path, REF_TEXT, GEN_TEXT)
+        totals = {k: totals[k] + launches[k] for k in totals}
+        profile_request(tts, ref_path, REF_TEXT, GEN_TEXT)
+        # the same model and text as phone units and as the raw string, in
+        # turns (phone, raw, raw, phone), so the host's drift over the run
+        # falls on both sides: the frontend's effect on a request's wall time
+        walls = {"phone": [], "raw": []}
+        for kind in ("phone", "raw", "raw", "phone"):
+            tts.frontend = frontends["phone"] if kind == "phone" else None
+            launches, timed = run_requests(tts, f"flagship in turns, {kind}", 1,
+                                           FLAGSHIP_KERNELS, dev, ref_path, REF_TEXT, GEN_TEXT)
+            totals = {k: totals[k] + launches[k] for k in totals}
+            walls[kind] += [round(w, 4) for _, w in timed]
+        print(f"[frontend] the same model in turns (phone, raw, raw, phone): wall s per request "
+              f"phone {walls['phone']}, raw {walls['raw']} on {dev['card']}", flush=True)
+
+        tts.frontend = frontends["char"]  # the same model through the char frontend
+        ref_c, gen_c = tts.prepare_units(rtext), tts.prepare_units(GEN_TEXT)
+        bucket_c = tts.synth.estimate_bucket(wav, sr, ref_c, gen_c, SamplerConfig())
+        print(f"[frontend] char frontend on the same model: {len(ref_c)} + {len(gen_c)} char "
+              f"units, duration bucket {bucket_c}", flush=True)
+        launches, _ = run_requests(tts, "flagship char frontend", 1, FLAGSHIP_KERNELS, dev,
+                                   ref_path, REF_TEXT, GEN_TEXT, bucket=bucket_c)
+        totals = {k: totals[k] + launches[k] for k in totals}
+        del tts
+        torch.cuda.empty_cache()
+
+        launches = phase_edit(dev, model, vocab, wav_path, align_dir, d / "edited")
+        totals = {k: totals[k] + launches[k] for k in totals}
+    return totals
+
+
+def phase_edit(dev: dict, model: str, vocab: Path, wav_path: Path, align_dir: Path,
+               save_dir: Path) -> dict:
+    """Speech editing through the CLI's ``main()`` with its defaults, the
+    launch counts set to 0 just before and read just after. ``edit_speech``
+    is wrapped to keep what it was given and gave back; its kept frames must
+    equal the reference mel of the utterance bit for bit, every edited frame
+    must differ from it, and the written WAV must be finite."""
+    import numpy as np
+    import torch
+
+    from lemas_tts_tpu_torch.cfm.sampler import DURATION_BUCKETS, pick_bucket
+    from lemas_tts_tpu_torch.config import load_model_config
+    from lemas_tts_tpu_torch.infer import editing
+    from lemas_tts_tpu_torch.scripts import speech_edit_multilingual as edit_cli
+    from lemas_tts_tpu_torch.utils.audio_io import read_audio
+
+    seen = {}
+    edit_speech = editing.edit_speech
+
+    def recorded(synth, wav, sr, tokens, parts, **kw):
+        t0 = time.perf_counter()
+        out = edit_speech(synth, wav, sr, tokens, parts, **kw)  # ends on the host
+        seen.update(synth=synth, wav=np.asarray(wav, np.float32), sr=sr, parts=parts,
+                    cfg=kw["cfg"], out=out, seconds=time.perf_counter() - t0,
+                    tokens=list(tokens))
+        return out
+
+    editing.edit_speech = recorded
+    try:
+        reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = edit_cli.main(["--wav", str(wav_path), "--align_dir", str(align_dir),
+                            "--save_dir", str(save_dir), "--model", model,
+                            "--vocab_file", str(vocab), "--seed", "0"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counters()
+    finally:
+        editing.edit_speech = edit_speech
+    check(rc == 0 and "out" in seen, f"speech_edit_multilingual.main() returned {rc}")
+    synth, cfg = seen["synth"], seen["cfg"]
+    depth = load_model_config(model).arch.depth
+    wave, out_sr, mel = seen["out"]
+    hop = synth.mel_cfg.hop_length
+    ref = synth.ref_mel(seen["wav"])  # the cond mel edit_speech pasted from
+    frames = ref.shape[0]
+    keep = editing.build_edit_mask(seen["parts"], len(seen["wav"]), seen["sr"], hop)[:frames]
+    check(mel.shape[1] > frames, f"edit: {mel.shape[1]} mel frames for {frames} of the utterance")
+    got = mel.T[:frames]
+    rms = float(np.sqrt(np.mean(np.square(seen["wav"]))))
+    bucket = pick_bucket(mel.shape[1], DURATION_BUCKETS)
+    print(f"[edit] speech_edit_multilingual.main() on {synth.device}: NFE {cfg.nfe_steps}, CFG "
+          f"{cfg.cfg_strength}, sway {cfg.sway_sampling_coef}; "
+          f"{seen['wav'].shape[0] / seen['sr']:.2f} s utterance ({frames} mel frames, RMS "
+          f"{rms:.3f}), {len(seen['tokens'])} units, edit span {seen['parts']} s, "
+          f"{int((~keep).sum())} frames regenerated; mel {mel.shape[1]} frames, bucket {bucket}; "
+          f"edit_speech {seen['seconds']:.3f} s, main() {wall:.3f} s wall (model build "
+          f"included) on {dev['card']}; launches {launches}", flush=True)
+    check(synth.device.type == "cuda", "the edit did not run on the card")
+    check((cfg.nfe_steps, cfg.cfg_strength, cfg.sway_sampling_coef) == (64, 5.0, 3.0),
+          "the edit CLI's defaults are not NFE 64, CFG 5, sway 3")
+    check(seen["sr"] == out_sr == 24000 and rms >= cfg.target_rms,
+          "the utterance is rescaled or resampled: its mel is not the reference")
+    check(bucket == 1024, f"the edit ({mel.shape[1]} frames) does not land in bucket 1024")
+    check(all(t in synth.vocab.char_map for t in seen["tokens"]),
+          "an edit unit is not in the vocab")
+    want = expected_launches(FLAGSHIP_KERNELS, depth * 64)
+    check(launches == want, f"edit: launches {launches}, expected {want}")
+    kept_equal = np.array_equal(got[keep], ref[keep])
+    edited_differ = bool((got[~keep] != ref[~keep]).any(axis=1).all())
+    print(f"[edit] kept frames ({int(keep.sum())}) equal to the reference mel bit for bit: "
+          f"{kept_equal}; every regenerated frame differs from it: {edited_differ}", flush=True)
+    check(kept_equal, "edit: kept frames differ from the reference mel")
+    check(edited_differ and (~keep).any(), "edit: regenerated frames equal the reference mel")
+    written, wsr = read_audio(str(save_dir / "utt.wav"))
+    check(wave.size > 0 and bool(np.isfinite(wave).all()) and wsr == 24000
+          and written.shape[-1] == wave.size and bool(np.isfinite(written).all()),
+          "edit: the edited wave is empty or not finite")
+    return launches
+
 
 
 def profile_request(tts, ref_path: str, ref_text: str, gen_text: str) -> None:
@@ -716,6 +955,8 @@ def main() -> int:
     records = {**phase_kernels(), **phase_split_attention()}
     phase_dit()
     launches = phase_slice(dev)
+    more = phase_frontend(dev)
+    launches = {k: launches[k] + more[k] for k in launches}
     kernels = [records[k] for k in ("qkv_block", "vmem_attention_nhd", "ffn_block",
                                      "vmem_attention_nhd_pack", "vmem_attention")]
     for rec in kernels:

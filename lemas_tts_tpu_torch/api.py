@@ -1,17 +1,24 @@
 """Top-level ``TTS`` facade (counterpart of ``lemas_tts_tpu/api.py``):
-construction loads the config, vocab, acoustic model (the config's
-``backbone``: DiT or MMDiT; UNetT is not ported yet) and Vocos vocoder onto
-one device;
-``infer`` runs zero-shot TTS from a reference audio/text pair.
+construction loads the config, vocab, text frontend, acoustic model (the
+config's ``backbone``: DiT or MMDiT; UNetT is not ported yet) and Vocos
+vocoder onto one device; ``infer`` runs zero-shot TTS from a reference
+audio/text pair; ``prepare_units`` gives the frontend units of one text;
+``export_wav``/``export_spectrogram`` save artifacts; ``process_phone_list``
+adds language-id prefixes for mixed-language phone streams.
 
-Differences in this port:
+Differences from the JAX package:
  - ``device=None`` means ``"cuda"``, and raises when no CUDA device is
    present; only an explicit ``device="cpu"`` runs on the CPU. An explicit
    request never silently becomes another device.
  - The compute dtype is bf16 on CUDA and f32 on the CPU.
- - ``frontend=None`` (raw strings, byte or custom vocab) is the only text
-   frontend so far: ``"phone"`` and ``"char"`` need ``text/``, not ported
-   yet. Quantization is not ported either.
+ - The text frontend (``frontend="phone"``, the default, ``"char"`` or
+   ``None`` for raw strings) is the port's own copy, ``text/``; it takes only
+   an exact ``#1``-``#4`` as a pause token (``text/__init__.py``).
+ - Not ported yet: quantization, the midpoint ODE method and the prosody
+   encoder raise ``NotImplementedError``. Native orbax checkpoints,
+   distilled-student sidecars, ``mesh``, ``hf://`` checkpoint URIs, the
+   block cache, ``transcribe`` (ASR) and ``export_wav(remove_silence=...)``
+   have no keyword here, so passing one gives a ``TypeError``.
  - A missing checkpoint or vocoder gives random weights (seeded), as in the
    JAX package; reference ``.pt``/``.safetensors`` checkpoints and the
    published Vocos ``pytorch_model.bin`` load directly (same key names).
@@ -23,7 +30,7 @@ import os
 import random
 import warnings
 from pathlib import Path
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -32,6 +39,16 @@ from lemas_tts_tpu_torch.config import ModelConfig, SamplerConfig, load_model_co
 from lemas_tts_tpu_torch.utils.vocab import Vocab, get_tokenizer
 
 THIS_FILE = Path(__file__)
+
+# Languages recognized as "(lang)" tags (reference ``api.py:109``).
+LANGS = {
+    "cmn": "zh", "zh": "zh", "en": "en-us", "it": "it", "es": "es",
+    "pt": "pt-br", "fr": "fr-fr", "de": "de", "ru": "ru", "id": "id",
+    "vi": "vi", "th": "th",
+}
+
+_PUNCS = {"#1", "#2", "#3", "#4", "_", "!", ",", ".", "?", '"', "'", "^",
+          "。", "，", "？", "！"}
 
 
 def find_pretrained_root() -> Path:
@@ -68,7 +85,7 @@ class TTS:
     def __init__(self, model: str = "multilingual", ckpt_file: str = "", vocab_file: str = "",
                  ode_method: str = "euler", use_ema: bool = False,
                  vocoder_local_path: Optional[str] = None, device: Optional[str] = None,
-                 frontend: Optional[str] = None, compute_dtype: Optional[str] = None,
+                 frontend: Optional[str] = "phone", compute_dtype: Optional[str] = None,
                  quantization: Optional[str] = None):
         from lemas_tts_tpu_torch.infer.pipeline import Synthesizer
         from lemas_tts_tpu_torch.models.dit import DiT, cast_matrices
@@ -80,10 +97,6 @@ class TTS:
             raise NotImplementedError(f"ode_method={ode_method!r}: only euler is ported")
         if quantization is not None:
             raise NotImplementedError(f"quantization={quantization!r} is not ported yet")
-        if frontend is not None:
-            raise NotImplementedError(
-                f"frontend={frontend!r} needs the text frontend (text/), not ported yet; "
-                "use frontend=None (raw strings)")
         self.ode_method = ode_method
         self.config: ModelConfig = load_model_config(model)
         backbones = {"DiT": DiT, "MMDiT": MMDiT}
@@ -92,6 +105,7 @@ class TTS:
         if self.config.use_prosody_encoder:
             raise NotImplementedError("the prosody encoder is not ported yet")
         self.target_sample_rate = self.config.mel_spec.target_sample_rate
+        self.langs = dict(LANGS)
         self.seed: Optional[int] = None
 
         self.device = select_device(device)
@@ -112,6 +126,14 @@ class TTS:
         else:
             warnings.warn("no vocab file found — using the byte tokenizer")
             self.vocab = get_tokenizer("", "byte")
+
+        # ---- text frontend
+        if frontend is not None:
+            from lemas_tts_tpu_torch.text import TextNorm
+
+            self.frontend = TextNorm(dtype=frontend)
+        else:
+            self.frontend = None
 
         # ---- acoustic model (the config's backbone)
         mel = self.config.mel_spec
@@ -153,21 +175,53 @@ class TTS:
         if vocoder_state is not None:
             self.vocoder.load_state_dict(vocoder_state)
 
+    def prepare_units(self, text: str):
+        """One text -> frontend token units, exactly as :meth:`infer` prepares
+        them (phone: ``text2phn`` split on ``|`` with ``(cmn)``->``(zh)``;
+        char: ``text2norm`` + lang tag; no frontend or a byte vocab: the raw
+        string)."""
+        if self.vocab.char_map is None or self.frontend is None:
+            return text
+        if self.frontend.dtype == "phone":
+            return self.frontend.text2phn(text + ". ").replace("(cmn)", "(zh)").split("|")
+        lang, norm = self.frontend.text2norm(text + ". ")
+        return [f"({lang.replace('cmn', 'zh')})"] + list(norm)
+
+    def process_phone_list(self, parts: Sequence[str]) -> List[str]:
+        return process_phone_list(parts, self.langs)
+
     def export_wav(self, wav: np.ndarray, file_wave: str) -> None:
         from lemas_tts_tpu_torch.utils.audio_io import write_wav
 
         write_wav(file_wave, np.asarray(wav), self.target_sample_rate)
+
+    def export_spectrogram(self, spec: np.ndarray, file_spec: str) -> None:
+        """Save a [n_mels, T] spectrogram image (reference
+        ``utils_infer.py:646-651``)."""
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        fig = plt.figure(figsize=(12, 4))
+        plt.imshow(np.asarray(spec), origin="lower", interpolation="nearest", aspect="auto")
+        plt.colorbar()
+        plt.savefig(file_spec)
+        plt.close(fig)
 
     def infer(self, ref_file, ref_text: str, gen_text: str, show_info=print,
               target_rms: float = 0.1, cross_fade_duration: float = 0.15,
               use_acc_grl: bool = False, ref_ratio: Optional[float] = None,
               no_ref_audio: bool = False, cfg_strength: float = 2.0, nfe_step: int = 32,
               speed: float = 1.0, sway_sampling_coef: Optional[float] = 5,
-              cfg_cutoff: Optional[float] = None, fix_duration: Optional[float] = None,
-              file_wave: Optional[str] = None, seed: Optional[int] = None,
+              cfg_cutoff: Optional[float] = None, separate_langs: bool = False,
+              fix_duration: Optional[float] = None, file_wave: Optional[str] = None,
+              file_spec: Optional[str] = None, seed: Optional[int] = None,
               transcribe_fn=None):
         """Zero-shot TTS. ``ref_file`` is a WAV path or a ``(wave, sr)``
-        tuple. Returns ``(wav, sample_rate, spec)``."""
+        tuple. One chunk per line of ``gen_text`` with a frontend; the raw
+        string path chunks by a byte budget. Returns ``(wav, sample_rate,
+        spec)``."""
         from lemas_tts_tpu_torch.infer.pipeline import chunk_text
         from lemas_tts_tpu_torch.infer.preprocess import preprocess_ref_audio_text
 
@@ -176,11 +230,17 @@ class TTS:
         self.seed = seed
         wav, sr, ref_text = preprocess_ref_audio_text(ref_file, ref_text, show_info=show_info,
                                                       transcribe_fn=transcribe_fn)
-        # raw-string path with a byte budget per chunk (api.py:555-562)
-        ref_units = ref_text
-        max_chars = int(len(ref_text.encode("utf-8")) / (wav.shape[-1] / sr)
-                        * (22 - wav.shape[-1] / sr)) if wav.shape[-1] > 0 else 135
-        gen_chunks = chunk_text(gen_text, max_chars=max(1, max_chars))
+        if self.vocab.char_map is not None and self.frontend is not None:
+            ref_units = self.prepare_units(ref_text)
+            gen_chunks = [self.prepare_units(x) for x in gen_text.split("\n")]
+        else:  # raw-string path with a byte budget per chunk (api.py:555-562)
+            ref_units = ref_text
+            max_chars = int(len(ref_text.encode("utf-8")) / (wav.shape[-1] / sr)
+                            * (22 - wav.shape[-1] / sr)) if wav.shape[-1] > 0 else 135
+            gen_chunks = chunk_text(gen_text, max_chars=max(1, max_chars))
+        if separate_langs and not isinstance(ref_units, str):
+            ref_units = self.process_phone_list(ref_units)
+            gen_chunks = [self.process_phone_list(x) for x in gen_chunks]
         cfg = SamplerConfig(nfe_steps=nfe_step, cfg_strength=cfg_strength,
                             sway_sampling_coef=sway_sampling_coef, cfg_cutoff=cfg_cutoff,
                             ode_method=self.ode_method, speed=speed, target_rms=target_rms,
@@ -191,4 +251,26 @@ class TTS:
                                                           cfg=cfg, seed=seed)
         if file_wave is not None:
             self.export_wav(wave, file_wave)
+        if file_spec is not None:
+            self.export_spectrogram(spec, file_spec)
         return wave, out_sr, spec
+
+
+def process_phone_list(parts: Sequence[str], langs=LANGS) -> List[str]:
+    """Prefix bare phones with the current ``(lang)`` tag and collapse
+    separator/punctuation runs (reference ``api.py:252-276``; phones before
+    the first tag pass through bare, as there)."""
+    processed: List[str] = []
+    current_lang = ""
+    for part in parts:
+        if part.startswith("(") and part.endswith(")") and part[1:-1] in langs:
+            current_lang = part
+        elif part in _PUNCS:
+            if processed and processed[-1] == "_":
+                processed.pop()
+            elif processed and processed[-1] in _PUNCS and part == "_":
+                continue
+            processed.append(part)
+        else:
+            processed.append(f"{current_lang}{part}")
+    return processed

@@ -120,6 +120,21 @@ def clip_and_shuffle(mel: np.ndarray, ratio: Optional[float], frames_per_second:
     return shuffled[:total]
 
 
+def initial_noise(N: int, D: int, device, seed: Optional[int], rng: np.random.Generator,
+                  noise_override: Optional[np.ndarray] = None) -> torch.Tensor:
+    """The sampler's initial noise [N, D] f32: ``noise_override`` zero-padded
+    or truncated to N rows, else ``torch.randn`` from a generator seeded by
+    ``seed`` (or by a draw from ``rng`` when ``seed`` is None)."""
+    if noise_override is not None:
+        pad = np.zeros((N, D), np.float32)
+        t = min(len(noise_override), N)
+        pad[:t] = np.asarray(noise_override[:t], np.float32)
+        return torch.from_numpy(pad).to(device)
+    noise_seed = seed if seed is not None else int(rng.integers(2 ** 31 - 1))
+    gen = torch.Generator(device=device).manual_seed(int(noise_seed))
+    return torch.randn((N, D), generator=gen, device=device, dtype=torch.float32)
+
+
 class Synthesizer:
     """Owns the DiT, the vocoder and the vocab on one device."""
 
@@ -299,16 +314,7 @@ class Synthesizer:
             cond = random_cond / random_cond.mean(axis=1, keepdims=True) * cond_mean
 
         # shared seeded noise prefix (cfm.py:430-435 semantics)
-        if noise_override is not None:
-            pad = np.zeros((N, D), np.float32)
-            t = min(len(noise_override), N)
-            pad[:t] = np.asarray(noise_override[:t], np.float32)
-            noise = torch.from_numpy(pad).to(dev)
-        else:
-            noise_seed = seed if seed is not None else int(rng.integers(2 ** 31 - 1))
-            gen = torch.Generator(device=dev).manual_seed(int(noise_seed))
-            noise = torch.randn((N, D), generator=gen, device=dev, dtype=torch.float32)
-        y0 = noise[None].expand(Bp, N, D)
+        y0 = initial_noise(N, D, dev, seed, rng, noise_override)[None].expand(Bp, N, D)
 
         t_start = 0.0
         cond_t = torch.from_numpy(cond).to(dev)

@@ -1,0 +1,12 @@
+"""Command-line entry points of the port (counterparts of
+``lemas_tts_tpu/scripts/``, same flags and defaults):
+
+ - ``tts_multilingual``         — zero-shot multilingual TTS
+ - ``speech_edit_multilingual`` — alignment-JSON-driven speech editing
+ - ``g2p``                      — offline batch text → phone strings
+
+Run as modules: ``python -m lemas_tts_tpu_torch.scripts.tts_multilingual
+--help``. They run on CUDA unless ``--device cpu`` is given, and never fall
+back to another device. A flag that asks for a feature the port does not have
+yet raises ``NotImplementedError`` naming it.
+"""

@@ -1,0 +1,272 @@
+"""Speech editing, the three CLIs and WAV decoding of the port, against the
+JAX package on the CPU.
+
+- ``parse_align_json`` and ``build_edit_mask`` equal JAX's on the cases of
+  ``tests/test_editing_cli.py``.
+- ``edit_speech`` on the tiny config (weights carried over from JAX) with
+  JAX's noise, drawn as ``lemas_tts_tpu/infer/editing.py:172-174`` draws it,
+  passed as the port's ``noise_override``: the mel agrees within 2e-4 of its
+  peak (f32), and its kept frames equal the cond mel bit for bit.
+- The CLIs run end to end with ``--device cpu``, fail without CUDA when no
+  device is given, and refuse each unported flag with
+  ``NotImplementedError``.
+- 24-bit and float32 WAV (and EXTENSIBLE headers) read equal to the JAX
+  ``read_audio``.
+"""
+
+import json
+import struct
+import warnings
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+
+from lemas_tts_tpu import TTS as JTTS
+from lemas_tts_tpu.config import SamplerConfig as JSamplerConfig
+from lemas_tts_tpu.infer import editing as jediting
+from lemas_tts_tpu.scripts import g2p as jg2p
+from lemas_tts_tpu.utils.audio_io import read_audio as jread_audio
+from lemas_tts_tpu_torch import TTS
+from lemas_tts_tpu_torch import weights
+from lemas_tts_tpu_torch.cfm.sampler import DURATION_BUCKETS, pick_bucket
+from lemas_tts_tpu_torch.config import SamplerConfig
+from lemas_tts_tpu_torch.infer import editing
+from lemas_tts_tpu_torch.scripts import g2p, speech_edit_multilingual, tts_multilingual
+from lemas_tts_tpu_torch.utils.audio_io import read_audio, write_wav
+
+TINY = "tests/data/tiny.yaml"
+ALIGN = {
+    "interval": [1.0, 4.0], "modified_index": [1, 2],
+    "words": [{"word": "hello", "interval": [1.1, 1.6]},
+              {"word": "world", "interval": [1.8, 2.4]},
+              {"word": "bye", "interval": [2.6, 3.1]}],
+    "modified_text": ["world", "earth"], "display_text": "hello world bye",
+}
+VOCAB = [" "] + list("abcdefghijklmnopqrstuvwxyz") + ["(en)", "(zh)", "_", ",", ".", "!", "?",
+                                                      "#1", "#2", "#3", "#4"]
+
+
+@pytest.mark.parametrize("case", [ALIGN, {**ALIGN, "modified_index": [0, 3]},
+                                  {**ALIGN, "modified_index": [-2, 9], "interval": [0.0, 3.2]},
+                                  {**ALIGN, "modified_index": [2, 2]}])
+def test_parse_align_json_matches_jax(case, tmp_path):
+    path = tmp_path / "a.json"
+    path.write_text(json.dumps(case))
+    for src in (case, str(path)):
+        try:
+            want = jediting.parse_align_json(src)
+        except ValueError:
+            with pytest.raises(ValueError):
+                editing.parse_align_json(src)
+            continue
+        got = editing.parse_align_json(src)
+        assert (got.utt_start, got.utt_end, got.parts_to_edit, got.target_text,
+                got.display_text) == (want.utt_start, want.utt_end, want.parts_to_edit,
+                                      want.target_text, want.display_text)
+
+
+@pytest.mark.parametrize("parts,seconds,margin", [
+    ([(0.5, 1.0)], 2, 0.0), ([(0.5, 1.0)], 2, 0.1), ([(0.5, 1.0), (2.0, 2.5)], 3, 0.0),
+    ([(0.0, 0.3), (2.9, 3.5)], 3, 0.1)])
+def test_build_edit_mask_matches_jax(parts, seconds, margin):
+    args = (parts, 8000 * seconds, 8000, 64)
+    np.testing.assert_array_equal(editing.build_edit_mask(*args, margin=margin),
+                                  jediting.build_edit_mask(*args, margin=margin))
+
+
+@pytest.fixture(scope="module")
+def pair(tmp_path_factory):
+    d = tmp_path_factory.mktemp("edit")
+    (d / "vocab.txt").write_text("\n".join(VOCAB) + "\n")
+    with pytest.warns(UserWarning):
+        jtts = JTTS(model=TINY, vocab_file=str(d / "vocab.txt"), frontend="phone", device="cpu")
+        tts = TTS(model=TINY, vocab_file=str(d / "vocab.txt"), device="cpu")
+    tts.load_weights(weights.dit_state_from_jax(jtts.synth.dit_params),
+                     weights.vocos_state_from_jax(jtts.synth.vocoder_params))
+    return jtts, tts, d
+
+
+@pytest.mark.parametrize("opts", [dict(), dict(no_ref_audio=True),
+                                  dict(use_acc_grl=True, ref_ratio=0.5)])
+def test_edit_speech_matches_jax(pair, opts):
+    jtts, tts, _ = pair
+    sr, seed, tokens, parts = 8000, 5, list("abc def."), [(0.5, 1.0)]
+    wav = (0.2 * np.random.default_rng(1).standard_normal(2 * sr)).astype(np.float32)
+    kw = dict(nfe_steps=3, cfg_strength=2.0, sway_sampling_coef=1.0, **opts)
+    jw, jsr, jmel = jediting.edit_speech(jtts.synth, wav, sr, tokens, parts,
+                                         cfg=JSamplerConfig(**kw), seed=seed)
+    # JAX's noise, drawn as lemas_tts_tpu/infer/editing.py:172-174 draws it
+    frames = tts.synth.ref_mel(wav).shape[0]
+    N = pick_bucket(max(max(len(tokens), frames) + 1, len(wav) // 64), DURATION_BUCKETS)
+    noise = np.asarray(jax.random.normal(jax.random.key(seed), (N, 20), jnp.float32))
+    w, out_sr, mel = editing.edit_speech(tts.synth, wav, sr, tokens, parts,
+                                         cfg=SamplerConfig(**kw), seed=seed, noise_override=noise)
+    assert out_sr == jsr and mel.shape == jmel.shape and w.shape == jw.shape
+    np.testing.assert_allclose(mel, jmel, rtol=2e-4, atol=2e-4 * np.abs(jmel).max())
+    np.testing.assert_allclose(w, jw, rtol=2e-4, atol=2e-4 * np.abs(jw).max())
+    if not opts.get("no_ref_audio"):  # kept frames: the cond mel, bit for bit
+        keep = editing.build_edit_mask(parts, len(wav), sr, 64)[:frames]
+        cond = tts.synth.ref_mel(wav)
+        np.testing.assert_array_equal(mel.T[:frames][keep], cond[keep])
+        assert (mel.T[:frames][~keep] != cond[~keep]).any(axis=1).all()
+
+
+def test_edit_speech_refuses_block_cache(pair):
+    _, tts, _ = pair
+    with pytest.raises(NotImplementedError, match="block_cache"):
+        editing.edit_speech(tts.synth, np.zeros(8000, np.float32), 8000, list("ab"), [(0.1, 0.2)],
+                            cfg=SamplerConfig(block_cache="0-2:2"))
+
+
+def _edit_dirs(d):
+    wav_dir, align_dir = d / "wavs", d / "align"
+    wav_dir.mkdir(exist_ok=True)
+    align_dir.mkdir(exist_ok=True)
+    rng = np.random.default_rng(2)
+    write_wav(str(wav_dir / "utt1.wav"), (0.2 * rng.standard_normal(3 * 8000)).astype(np.float32),
+              8000)
+    (align_dir / "utt1.json").write_text(json.dumps({**ALIGN, "interval": [0.0, 3.0]}))
+    return wav_dir, align_dir
+
+
+def test_cli_end_to_end_on_the_cpu(pair):
+    """Both model CLIs with --device cpu write finite WAVs (and the
+    spectrogram image)."""
+    _, _, d = pair
+    wav_dir, align_dir = _edit_dirs(d)
+    model = ["--model", TINY, "--vocab_file", str(d / "vocab.txt"), "--device", "cpu",
+             "--nfe_step", "2", "--cfg_strength", "1.0"]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        rc = speech_edit_multilingual.main(["--wav_dir", str(wav_dir), "--align_dir",
+                                            str(align_dir), "--save_dir", str(d / "out"),
+                                            "--seed", "3"] + model)
+        assert rc == 0
+        rc = tts_multilingual.main(["--ref_audio", str(wav_dir / "utt1.wav"), "--ref_text",
+                                    "abc def", "--text", "hello world\nbye", "--output_wave",
+                                    str(d / "gen.wav"), "--output_spec", str(d / "gen.png"),
+                                    "--separate_langs", "--seed", "4"] + model)
+        assert rc == 0
+    for path in (d / "out" / "utt1.wav", d / "gen.wav"):
+        w, sr = read_audio(str(path))
+        assert sr == 8000 and w.size > 0 and np.isfinite(w).all()
+    assert (d / "gen.png").stat().st_size > 0
+
+
+@pytest.mark.parametrize("lines,separate", [(["hello world", "abc def"], False),
+                                            (["你好 world", "the cat, #2 sat.", "", "hola amigo"],
+                                             True)])
+def test_g2p_cli_matches_jax(tmp_path, lines, separate):
+    src = tmp_path / "in.txt"
+    src.write_text("\n".join(lines) + "\n")
+    flags = ["--input", str(src), "--workers", "1"] + (["--separate_langs"] if separate else [])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        assert g2p.main(flags + ["--output", str(tmp_path / "port.txt")]) == 0
+        assert jg2p.main(flags + ["--output", str(tmp_path / "jax.txt")]) == 0
+    got = (tmp_path / "port.txt").read_text()
+    assert got == (tmp_path / "jax.txt").read_text() and got.count("\n") == len(lines)
+
+
+def test_g2p_cli_worker_pool(tmp_path):
+    """More than three lines and two workers: the spawn pool gives the
+    in-process result."""
+    src = tmp_path / "in.txt"
+    src.write_text("\n".join(["hello world", "abc def", "the cat sat", "on the mat", "bye"]))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        assert g2p.main(["--input", str(src), "--output", str(tmp_path / "a.txt"),
+                         "--workers", "2"]) == 0
+        assert g2p.main(["--input", str(src), "--output", str(tmp_path / "b.txt"),
+                         "--workers", "1"]) == 0
+    assert (tmp_path / "a.txt").read_text() == (tmp_path / "b.txt").read_text()
+
+
+def _cli_args(d, cli):
+    if cli == "tts":
+        return tts_multilingual.main, ["--ref_audio", str(d / "wavs" / "utt1.wav"), "--ref_text",
+                                       "abc", "--text", "hi", "--output_wave", str(d / "x.wav"),
+                                       "--model", TINY, "--vocab_file", str(d / "vocab.txt")]
+    return speech_edit_multilingual.main, ["--wav", str(d / "wavs" / "utt1.wav"), "--align_dir",
+                                           str(d / "align"), "--save_dir", str(d / "x"),
+                                           "--model", TINY, "--vocab_file", str(d / "vocab.txt")]
+
+
+@pytest.mark.parametrize("cli", ["tts", "edit"])
+def test_cli_without_cuda_fails(pair, cli):
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the CLI would run on it")
+    _edit_dirs(pair[2])
+    main, args = _cli_args(pair[2], cli)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(args)
+
+
+@pytest.mark.parametrize("cli,flags,feature", [
+    ("tts", ["--denoise"], "denoise"), ("tts", ["--block_cache", "0-2:2"], "block_cache"),
+    ("tts", ["--ode_method", "midpoint"], "midpoint"),
+    ("tts", ["--enable_prosody_encoder"], "prosody"), ("tts", ["--ref_text", ""], "ASR"),
+    ("tts", ["--attn_backend", "vmem"], "attn_backend"),
+    ("edit", ["--ode_method", "midpoint"], "midpoint"),
+    ("edit", ["--use_prosody_encoder"], "prosody"),
+    ("edit", ["--attn_backend", "xla"], "attn_backend")])
+def test_cli_refuses_unported_flags(pair, cli, flags, feature):
+    _edit_dirs(pair[2])
+    main, args = _cli_args(pair[2], cli)
+    with pytest.raises(NotImplementedError, match=feature):
+        main(args + flags + ["--device", "cpu"])
+
+
+def _wav_bytes(samples: np.ndarray, fmt: int, bits: int, extensible: bool) -> bytes:
+    ch = samples.shape[0]
+    data = np.moveaxis(samples, 0, 1).tobytes()  # [T, ch, ...]: interleaved frames
+    if extensible:
+        fmt_ck = struct.pack("<HHIIHHHHIH14s", 0xFFFE, ch, 8000, 8000 * ch * bits // 8,
+                             ch * bits // 8, bits, 22, bits, 0, fmt, b"\x00" * 14)
+    else:
+        fmt_ck = struct.pack("<HHIIHH", fmt, ch, 8000, 8000 * ch * bits // 8, ch * bits // 8,
+                             bits)
+    body = (b"WAVE" + b"fmt " + struct.pack("<I", len(fmt_ck)) + fmt_ck
+            + b"LIST" + struct.pack("<I", 4) + b"INFO"
+            + b"data" + struct.pack("<I", len(data)) + data)
+    return b"RIFF" + struct.pack("<I", len(body)) + body
+
+
+@pytest.mark.parametrize("kind", ["pcm24", "float32", "pcm24-ext", "float32-ext", "pcm16",
+                                  "pcm32"])
+@pytest.mark.parametrize("channels", [1, 2])
+def test_read_audio_matches_jax(tmp_path, kind, channels):
+    rng = np.random.default_rng(channels)
+    x = np.clip(0.5 * rng.standard_normal((channels, 4001)), -1, 0.999).astype(np.float32)
+    if kind.startswith("float32"):
+        samples, fmt, bits = x.astype("<f4"), 3, 32
+    elif kind.startswith("pcm24"):
+        v = np.round(x * 8388607).astype("<i4")
+        samples = v.view(np.uint8).reshape(channels, -1, 4)[..., :3]  # little-endian 3 bytes
+        fmt, bits = 1, 24
+    elif kind == "pcm16":
+        samples, fmt, bits = np.round(x * 32767).astype("<i2"), 1, 16
+    else:
+        samples, fmt, bits = np.round(x * 2 ** 31 * 0.999).astype("<i4"), 1, 32
+    path = tmp_path / f"{kind}.wav"
+    path.write_bytes(_wav_bytes(np.ascontiguousarray(samples), fmt, bits, kind.endswith("ext")))
+    got, sr = read_audio(str(path))
+    want, jsr = jread_audio(str(path))
+    assert sr == jsr == 8000 and got.dtype == np.float32 and got.shape == (channels, 4001)
+    np.testing.assert_array_equal(got, want)
+    if kind.startswith(("float32", "pcm24")):
+        np.testing.assert_allclose(got, x, atol=2 ** -22)
+
+
+def test_read_audio_refuses_other_formats(tmp_path):
+    (tmp_path / "a.mp3").write_bytes(b"ID3")
+    with pytest.raises(NotImplementedError, match="only WAV"):
+        read_audio(str(tmp_path / "a.mp3"))
+    (tmp_path / "b.wav").write_bytes(_wav_bytes(np.zeros((1, 8), np.uint8), 6, 8, False))
+    with pytest.raises(ValueError, match="format tag 6"):
+        read_audio(str(tmp_path / "b.wav"))

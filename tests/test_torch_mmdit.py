@@ -98,7 +98,8 @@ def pair(tmp_path_factory):
     with pytest.warns(UserWarning):
         jtts = JTTS(model="tests/data/tiny_mmdit.yaml", vocab_file=str(vocab), frontend=None,
                     device="cpu")
-        tts = TTS(model="tests/data/tiny_mmdit.yaml", vocab_file=str(vocab), device="cpu")
+        tts = TTS(model="tests/data/tiny_mmdit.yaml", vocab_file=str(vocab), frontend=None,
+                  device="cpu")
     tts.load_weights(weights.mmdit_state_from_jax(jtts.synth.dit_params),
                      weights.vocos_state_from_jax(jtts.synth.vocoder_params))
     return jtts, tts

@@ -34,7 +34,7 @@ def pair(tmp_path_factory):
                      + "\n")
     with pytest.warns(UserWarning):
         jtts = JTTS(model=TINY, vocab_file=str(vocab), frontend=None, device="cpu")
-        tts = TTS(model=TINY, vocab_file=str(vocab), device="cpu")
+        tts = TTS(model=TINY, vocab_file=str(vocab), frontend=None, device="cpu")
     tts.load_weights(weights.dit_state_from_jax(jtts.synth.dit_params),
                      weights.vocos_state_from_jax(jtts.synth.vocoder_params))
     return jtts, tts, d

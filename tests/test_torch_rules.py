@@ -21,13 +21,19 @@ PKG = REPO / "lemas_tts_tpu_torch"
 
 
 def test_import_leaves_jax_out():
-    """Importing every module of the port (and building nothing) pulls in
-    neither jax nor lemas_tts_tpu."""
+    """Importing every module of the port (and building nothing), its
+    ``text/`` and ``scripts/`` subpackages included, pulls in neither jax nor
+    lemas_tts_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import lemas_tts_tpu_torch, lemas_tts_tpu_torch.api\n"
-        "for m in pkgutil.walk_packages(lemas_tts_tpu_torch.__path__, 'lemas_tts_tpu_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(lemas_tts_tpu_torch.__path__,"
+        " 'lemas_tts_tpu_torch.')]\n"
+        "for sub in ('text.frontend', 'text.en_ipa', 'scripts.tts_multilingual',"
+        " 'scripts.speech_edit_multilingual', 'scripts.g2p', 'infer.editing'):\n"
+        "    assert 'lemas_tts_tpu_torch.' + sub in names, sub\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax',"
         " 'lemas_tts_tpu'))\n"
         "assert not bad, bad\n"
@@ -88,13 +94,26 @@ def test_tts_without_cuda_raises():
             TTS(model="tests/data/tiny.yaml", device=device)
 
 
-@pytest.mark.parametrize("option", [dict(frontend="phone"), dict(quantization="int8"),
-                                    dict(ode_method="midpoint")])
+@pytest.mark.parametrize("option", [dict(quantization="int8"), dict(ode_method="midpoint")])
 def test_unported_options_raise(option):
     from lemas_tts_tpu_torch import TTS
 
     with pytest.raises(NotImplementedError):
         TTS(model="tests/data/tiny.yaml", device="cpu", **option)
+
+
+@pytest.mark.parametrize("frontend", ["phone", "char"])
+def test_text_frontends_build(frontend):
+    """Both text frontends are ported; ``"phone"`` is the default, as in the
+    JAX package."""
+    import inspect
+
+    from lemas_tts_tpu_torch import TTS
+
+    assert inspect.signature(TTS).parameters["frontend"].default == "phone"
+    with pytest.warns(UserWarning):
+        tts = TTS(model="tests/data/tiny.yaml", device="cpu", frontend=frontend)
+    assert tts.frontend.dtype == frontend
 
 
 @pytest.mark.parametrize("name", ["multilingual", "tests/data/tiny.yaml",
