@@ -37,20 +37,44 @@ Phases, in order (any failure raises; the exit code is then non-zero):
   7. edit: ``speech_edit_multilingual.main()`` with its defaults (NFE 64,
      CFG 5, sway 3) on a 10 s utterance at 24 kHz: depth x 64 launches of
      each of K1-K3, kept frames equal to the reference mel bit for bit,
-     every regenerated frame different, a finite WAV written.
-The line before the last is the ``kernels`` JSON record; the last line is
-``{"ok": true, "device": {...}}``. Needs only torch, numpy and the CUDA
+     every regenerated frame different, a finite WAV written;
+  8. graph: the flagship sampler as a CUDA graph (``Synthesizer.warmup``
+     captures it): one B = 1 request replays it, launches = replays x the
+     graph's launches, its mel against a direct ``sample_mel`` on the same
+     inputs (bit for bit, or rel-L2 <= 1e-6), two more buckets' first calls
+     in two threads at once (each eager run counted once, each graph
+     recording only its own launches), eager and graphed B = 1 under
+     ``torch.profiler`` (card busy = the union of kernel intervals, <=
+     wall); then the serving modes: the block cache "0-22:2+t2" with CFG
+     cutoff 0.5 (launches from ``block_cache_flags`` and
+     ``cfg_active_steps``), midpoint at NFE 16 (2 x 16 forwards), ``int8``
+     and ``int8_ff`` against bf16 on the same noise (rel-L2 printed, within
+     ``INT8_REL_L2``) with their kernels, and ``int8_dense`` on the card
+     equal to its CPU integer math;
+  9. serve: ``serve_http`` in-process at its defaults (NFE 32, CFG 3, sway 1,
+     cutoff 0.5, block cache, int8) with ``--max_batch 8 --warmup_batches
+     1,8``: two waves of 8 concurrent ``/tts`` requests, each one batch of 8
+     (``/stats``), two ``/tts_stream`` requests of 3 chunks (the first
+     captures, the second replays) equal, in order, to ``synthesize_stream``'s,
+     ``/healthz`` and ``/config``, one B = 8 batch under ``torch.profiler``,
+     the card's reserved memory after warmup and after the waves.
+On CUDA every request's sampler is a graph replay (its first request of a
+bucket runs eagerly and captures), so every count above is launches on the
+card. The line before the last is the ``kernels`` JSON record; the last line
+is ``{"ok": true, "device": {...}}``. Needs only torch, numpy and the CUDA
 toolkit: no JAX, no yaml.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -472,11 +496,9 @@ def phase_split_attention() -> dict:
 
 def kernel_counters() -> dict:
     """The launch counter of every kernel wrapper, by kernel name."""
-    from lemas_tts_tpu_torch.ops import attention, ffn
+    from lemas_tts_tpu_torch.ops import launches
 
-    return {"qkv_block": ffn.qkv_block, "vmem_attention_nhd": attention.vmem_attention_nhd,
-            "vmem_attention_nhd_pack": attention.vmem_attention_nhd_pack,
-            "vmem_attention": attention.vmem_attention, "ffn_block": ffn.ffn_block}
+    return launches.counters()
 
 
 def reset_counters() -> None:
@@ -506,6 +528,12 @@ def attn_pack(on: bool):
 def expected_launches(kernels, per_call: int) -> dict:
     return {k: (per_call if k in kernels else 0) for k in kernel_counters()}
 
+
+# int8 / int8_ff flagship mel against bf16, same weights and noise: the H100
+# read 1.97e-3 / 1.87e-3 (PERF.md). The band is a quarter to three times
+# that: above it, the quantized path is wrong; below it, it did not quantize
+# (the bf16 path is deterministic, so it would read 0).
+INT8_REL_L2 = (5e-4, 6e-3)
 
 FLAGSHIP_KERNELS = ("qkv_block", "vmem_attention_nhd", "ffn_block")
 PACK_KERNELS = ("qkv_block", "vmem_attention_nhd_pack", "ffn_block")
@@ -912,31 +940,503 @@ def phase_edit(dev: dict, model: str, vocab: Path, wav_path: Path, align_dir: Pa
 
 
 
-def profile_request(tts, ref_path: str, ref_text: str, gen_text: str) -> None:
-    """One more request (after the counted runs) under torch.profiler: the
-    card's busy time by kernel, and its idle share of the request."""
+def profiled(fn, label: str, top: int = 12) -> dict:
+    """``fn()`` once under torch.profiler: the card's busy time (the union of
+    its kernels' intervals: a graph's kernels may overlap), the kernels' summed
+    time by kernel, and the idle share of the call's wall time (which ends in
+    a sync). Fails if the busy time exceeds the wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        tts.infer(ref_path, ref_text, gen_text, seed=3, show_info=lambda *_: None)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    cuda = torch.autograd.DeviceType.CUDA
     rows = []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0.0)
-        if e.device_type == torch.autograd.DeviceType.CUDA and us > 0:
+        if e.device_type == cuda and us > 0:
             rows.append((us, e.count, e.key))
     rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows)
-    print(f"[profile] one request under torch.profiler: wall {wall_us / 1e3:.1f} ms, card busy "
-          f"{busy / 1e3:.1f} ms in {sum(r[1] for r in rows)} kernels, idle share "
-          f"{1 - busy / wall_us:.3f}", flush=True)
-    for us, count, key in rows[:12]:
-        print(f"[profile] {us / 1e3:9.2f} ms {100 * us / max(busy, 1e-9):5.1f} % x{count:6d}  "
+    summed = sum(r[0] for r in rows)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == cuda and e.time_range.end > e.time_range.start)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    out = {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3, "summed_ms": summed / 1e3,
+           "kernels": sum(r[1] for r in rows), "idle": 1 - busy / wall_us}
+    print(f"[profile] {label} under torch.profiler: wall {out['wall_ms']:.1f} ms, card busy "
+          f"{out['busy_ms']:.1f} ms (union of {len(spans)} intervals; kernel times summed "
+          f"{out['summed_ms']:.1f} ms) in {out['kernels']} kernels, idle share "
+          f"{out['idle']:.3f}", flush=True)
+    for us, count, key in rows[:top]:
+        print(f"[profile] {us / 1e3:9.2f} ms {100 * us / max(summed, 1e-9):5.1f} % x{count:6d}  "
               f"{key[:90]}", flush=True)
+    check(0 < busy <= wall_us, f"{label}: card busy {busy:.0f} us against a wall of "
+                               f"{wall_us:.0f} us")
+    return out
+
+
+def profile_request(tts, ref_path: str, ref_text: str, gen_text: str) -> dict:
+    """One more request (after the counted runs) under torch.profiler."""
+    return profiled(lambda: tts.infer(ref_path, ref_text, gen_text, seed=3,
+                                      show_info=lambda *_: None), "one request")
+
+
+CHAR_VOCAB = [" "] + list("abcdefghijklmnopqrstuvwxyz0123456789") + list(",.!?'-")
+
+
+def _timed(fn) -> tuple:
+    """(fn()'s result, wall seconds), the call ending in a sync."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def serving_refresh_steps(settings, steps: int = 32) -> tuple:
+    """(CFG steps, refresh steps in the CFG prefix, refresh steps in the
+    cond-only tail) of a block-cached sampler, from the port's own
+    ``cfg_active_steps`` and ``block_cache_flags``; the tail refreshes at its
+    first step, where the batch width halves."""
+    from lemas_tts_tpu_torch.cfm.sampler import block_cache_flags, sway_time_grid
+
+    k = settings.cfg_active_steps(sway_time_grid(steps, settings.sway_sampling_coef))
+    flags = block_cache_flags(settings, steps)
+    tail = flags[k:].copy()
+    if tail.size:
+        tail[0] = True
+    return k, int(flags[:k].sum()), int(tail.sum())
+
+
+def serving_settings(synth):
+    """The sampler settings ``serve_http`` runs at its defaults."""
+    from lemas_tts_tpu_torch.config import (SERVING_BLOCK_CACHE, SERVING_CFG_CUTOFF,
+                                            SamplerConfig)
+
+    return synth._settings(SamplerConfig(nfe_steps=32, cfg_strength=3.0, sway_sampling_coef=1.0,
+                                         cfg_cutoff=SERVING_CFG_CUTOFF,
+                                         block_cache=SERVING_BLOCK_CACHE))
+
+
+def phase_graph(dev: dict) -> tuple:
+    """The flagship sampler as a CUDA graph, and the serving modes on it.
+    Returns (launch counts summed over the counted requests, the eager and
+    graphed B = 1 profiles)."""
+    import numpy as np
+    import torch
+
+    from lemas_tts_tpu_torch import TTS
+    from lemas_tts_tpu_torch.cfm.sampler import sample_mel, sway_time_grid
+    from lemas_tts_tpu_torch.config import SERVING_BLOCK_CACHE, SERVING_CFG_CUTOFF, SamplerConfig
+    from lemas_tts_tpu_torch.infer.pipeline import TEXT_BUCKETS, pick_bucket
+    from lemas_tts_tpu_torch.infer.preprocess import preprocess_ref_audio_text
+    from lemas_tts_tpu_torch.utils.audio_io import write_wav
+    from lemas_tts_tpu_torch.utils.vocab import text_to_ids
+
+    totals = dict.fromkeys(kernel_counters(), 0)
+    quiet = dict(show_info=lambda *_: None)
+
+    def count(label, fn, kernels, per_kernel):
+        """fn() with the counts set to 0 just before and read just after;
+        each kernel of ``kernels`` must launch ``per_kernel`` times, no other."""
+        reset_counters()
+        out, wall = _timed(fn)
+        got = read_counters()
+        want = expected_launches(kernels, per_kernel)
+        check(got == want, f"{label}: launches {got}, expected {want}")
+        for k in totals:
+            totals[k] += got[k]
+        return out, wall, got
+
+    def report(label, wave, wall, launches):
+        audio = len(wave) / 24000
+        check(wave.ndim == 1 and wave.size > 0 and bool(np.isfinite(wave).all()),
+              f"{label}: wave empty or not finite")
+        print(f"[graph] {label}: {audio:.3f} audio-s in {wall:.3f} s = {audio / wall:.2f} "
+              f"audio-s/s on {dev['card']}; launches {launches}", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        vocab = d / "vocab.txt"
+        vocab.write_text("\n".join(CHAR_VOCAB) + "\n")
+        ref_path = str(d / "ref.wav")
+        write_wav(ref_path, _reference_wave(16000, 3.0, seed=0), 16000)
+        wav, sr, rtext = preprocess_ref_audio_text(ref_path, REF_TEXT, **quiet)
+        t0 = time.perf_counter()
+        tts = TTS(model="multilingual", vocab_file=str(vocab), frontend=None)
+        depth = tts.config.arch.depth
+        nt = pick_bucket(len(text_to_ids(rtext + GEN_TEXT, tts.vocab)), TEXT_BUCKETS)
+        plain = SamplerConfig(nfe_steps=32, cfg_strength=2.0, sway_sampling_coef=5)  # infer's
+        t1 = time.perf_counter()
+        n = tts.synth.warmup(plain, duration_buckets=(1024,), text_buckets=(nt,),
+                             batch_buckets=(1,))
+        print(f"[graph] TTS(multilingual) built in {t1 - t0:.1f} s; warmup captured {n} graph "
+              f"(B 1, bucket 1024, text bucket {nt}) in {time.perf_counter() - t1:.1f} s",
+              flush=True)
+        check(n == 1, f"warmup captured {n} graphs, not 1")
+
+        # graph parity: one request replays the graph; the same inputs through sample_mel
+        seen, run = {}, tts.synth.run_sampler
+
+        def recorded(settings, *args):
+            out = run(settings, *args)
+            seen.update(settings=settings, out=out.clone(),
+                        args=[None if a is None else a.clone() for a in args])
+            return out
+
+        tts.synth.run_sampler = recorded
+        try:
+            (wave, _, spec), wall, got = count(
+                "graphed request", lambda: tts.infer(ref_path, REF_TEXT, GEN_TEXT, seed=0,
+                                                     **quiet), FLAGSHIP_KERNELS, depth * 32)
+        finally:
+            del tts.synth.run_sampler
+        report("B 1 request, graph replay (NFE 32, CFG 2)", wave, wall, got)
+        graphs = list(tts.synth._graphs.values())
+        check(len(graphs) == 1 and got == {k: graphs[0].launches_per_replay.get(k, 0)
+                                           for k in got},
+              f"launches {got} are not 1 replay of the one graph's")
+        s = seen["settings"]
+        cond, cond_mask, text_ids, duration, y0, step_cond = seen["args"]
+        grid = sway_time_grid(s.steps, s.sway_sampling_coef, s.t_start)
+
+        def eager():
+            return sample_mel(tts.dit, cond=cond, cond_mask=cond_mask, text_ids=text_ids,
+                              duration=duration, y0=y0, time_grid=grid, settings=s,
+                              step_cond=step_cond)
+
+        ref_out = eager()
+        same = torch.equal(ref_out, seen["out"])
+        err = rel_l2(seen["out"], ref_out)
+        print(f"[graph] graphed B 1 mel against a direct sample_mel on the same inputs: equal "
+              f"bit for bit {same}, rel-L2 {err:.3e}, max-abs {max_abs(seen['out'], ref_out):.3e}",
+              flush=True)
+        check(same or err <= 1e-6, f"graph replay differs from sample_mel: rel-L2 {err:.3e}")
+
+        # two buckets' first calls at once, as a server's threads make them:
+        # one thread's eager run may fall inside the other's capture, yet each
+        # eager run counts once and each graph records only its own launches
+        errors = []
+
+        def first_call(N):
+            try:
+                tts.synth.warmup(plain, duration_buckets=(N,), text_buckets=(nt,),
+                                 batch_buckets=(1,))
+            except BaseException as e:  # handed to the main thread below
+                errors.append(e)
+
+        reset_counters()
+        firsts = [threading.Thread(target=first_call, args=(N,)) for N in (512, 768)]
+        t0 = time.perf_counter()
+        for t in firsts:
+            t.start()
+        for t in firsts:
+            t.join(600)
+        torch.cuda.synchronize()
+        if errors:
+            raise errors[0]
+        got = read_counters()
+        for k in totals:
+            totals[k] += got[k]
+        new = [g for g in tts.synth._graphs.values() if g is not graphs[0]]
+        one = expected_launches(FLAGSHIP_KERNELS, depth * 32)
+        print(f"[graph] two first calls at once (B 1, buckets 512 and 768) in "
+              f"{time.perf_counter() - t0:.1f} s: launches {got}; the graphs record "
+              f"{[g.launches_per_replay for g in new]}", flush=True)
+        check(got == expected_launches(FLAGSHIP_KERNELS, 2 * depth * 32) and len(new) == 2
+              and all({k: g.launches_per_replay.get(k, 0) for k in one} == one for g in new),
+              "concurrent first calls: the counts or the graphs' records are not their own")
+        walls = {"eager": [], "graph": []}
+        for kind in ("eager", "graph", "graph", "eager"):
+            fn = eager if kind == "eager" else (lambda: run(s, *seen["args"]))
+            walls[kind].append(_timed(fn)[1] * 1e3)
+        print(f"[graph] sampler B 1 wall ms in turns (eager, graph, graph, eager): eager "
+              f"{[round(w, 1) for w in walls['eager']]}, graph "
+              f"{[round(w, 1) for w in walls['graph']]} on {dev['card']}", flush=True)
+        profiles = {"eager": profiled(eager, "eager sample_mel, B 1, NFE 32, CFG 2", top=6),
+                    "graph": profiled(lambda: run(s, *seen["args"]),
+                                      "graph replay of the same sampler, B 1", top=6)}
+        # whole requests with the sampler run eagerly (this script swaps
+        # run_sampler for sample_mel; the port has no such switch), in turns
+        # with graphed ones
+        tts.synth.run_sampler = lambda st, *a: sample_mel(
+            tts.dit, cond=a[0], cond_mask=a[1], text_ids=a[2], duration=a[3], y0=a[4],
+            step_cond=a[5], settings=st,
+            time_grid=sway_time_grid(st.steps, st.sway_sampling_coef, st.t_start))
+        (wave, _, _), wall, got = count(
+            "eager request", lambda: tts.infer(ref_path, REF_TEXT, GEN_TEXT, seed=0, **quiet),
+            FLAGSHIP_KERNELS, depth * 32)
+        report("B 1 request, sampler eager", wave, wall, got)
+        del tts.synth.run_sampler
+        (wave, _, _), wall, got = count(
+            "graphed request", lambda: tts.infer(ref_path, REF_TEXT, GEN_TEXT, seed=0, **quiet),
+            FLAGSHIP_KERNELS, depth * 32)
+        report("B 1 request, graph replay", wave, wall, got)
+
+        # serving modes on the bf16 model
+        serving = dict(nfe_step=32, cfg_strength=3.0, sway_sampling_coef=1.0,
+                       cfg_cutoff=SERVING_CFG_CUTOFF, seed=0, **quiet)
+        k, prefix, tail = serving_refresh_steps(serving_settings(tts.synth))
+        refresh = prefix + tail
+        print(f"[graph] block cache {SERVING_BLOCK_CACHE} at NFE 32, CFG 3, sway 1, cutoff "
+              f"{SERVING_CFG_CUTOFF}: {k} CFG steps, {32 - k} cond-only; {prefix} + {tail} "
+              f"refresh steps, so {refresh} x {depth} launches a kernel", flush=True)
+        (_, _, spec_exact), wall, got = count(
+            "cutoff, no cache", lambda: tts.infer(ref_path, REF_TEXT, GEN_TEXT, **serving),
+            FLAGSHIP_KERNELS, depth * 32)
+        for i in range(2):  # the capture, then a replay
+            (wave, _, spec_cache), wall, got = count(
+                "block cache", lambda: tts.infer(ref_path, REF_TEXT, GEN_TEXT,
+                                                 block_cache=SERVING_BLOCK_CACHE, **serving),
+                FLAGSHIP_KERNELS, depth * refresh)
+            report(f"block cache request {i} ({'capture' if i == 0 else 'replay'})", wave, wall,
+                   got)
+        print(f"[graph] block cache mel against the uncached mel (same noise, cutoff): rel-L2 "
+              f"{rel_l2(torch.from_numpy(spec_cache), torch.from_numpy(spec_exact)):.3e}",
+              flush=True)
+        mid = SamplerConfig(nfe_steps=16, cfg_strength=2.0, sway_sampling_coef=5,
+                            ode_method="midpoint")
+        for i in range(2):
+            (wave, _, _), wall, got = count(
+                "midpoint", lambda: tts.synth.synthesize_chunks(wav, sr, rtext, [GEN_TEXT],
+                                                                cfg=mid, seed=0),
+                FLAGSHIP_KERNELS, depth * 2 * 16)
+            report(f"midpoint NFE 16 request {i}", wave, wall, got)
+        del tts
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        for mode, kernels in (("int8", ("vmem_attention_nhd",)),
+                              ("int8_ff", ("qkv_block", "vmem_attention_nhd"))):
+            qtts = TTS(model="multilingual", vocab_file=str(vocab), frontend=None,
+                       quantization=mode)
+            for i in range(2):
+                (wave, _, qspec), wall, got = count(
+                    mode, lambda: qtts.infer(ref_path, REF_TEXT, GEN_TEXT, seed=0, **quiet),
+                    kernels, depth * 32)
+                report(f"{mode} request {i}", wave, wall, got)
+            err = rel_l2(torch.from_numpy(qspec), torch.from_numpy(spec))
+            lo, hi = INT8_REL_L2
+            print(f"[graph] {mode} mel against bf16 (same weights before quantization, same "
+                  f"noise): rel-L2 {err:.3e} (bounds {lo:.0e} to {hi:.0e})", flush=True)
+            check(qspec.shape == spec.shape and lo <= err <= hi,
+                  f"{mode}: rel-L2 {err:.3e} against bf16 lies outside [{lo:.0e}, {hi:.0e}]")
+            del qtts
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    int8_product_check()
+    return totals, profiles
+
+
+def int8_product_check() -> None:
+    """``int8_dense``'s product on the card (``torch._int_mm``) equals the
+    CPU's int32 integer math, at the flagship's q/k/v, FF-up and FF-down
+    shapes (B 1 under CFG: rows 2048)."""
+    import torch
+
+    from lemas_tts_tpu_torch.ops import quant
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    for rows, k_in, n_out in ((2048, 1024, 1024), (2048, 1024, 2048), (2048, 2048, 1024)):
+        x = torch.randn(rows, k_in, generator=g, device="cuda").to(torch.bfloat16)
+        w = torch.randn(n_out, k_in, generator=g, device="cuda")
+        x_q, _ = quant.quantize_activation(x)
+        w_q, _ = quant.quantize_weight(w)
+        got = quant.int8_matmul(x_q, w_q)
+        ref = quant.int8_matmul(x_q.cpu(), w_q.cpu())
+        same = torch.equal(got.cpu(), ref)
+        print(f"[graph] int8_dense product [{rows}, {k_in}] x [{n_out}, {k_in}]^T: torch._int_mm "
+              f"on the card equal to the CPU's int32 math: {same}", flush=True)
+        check(same, "int8 product on the card differs from the CPU's")
+
+
+def _http(port: int, method: str, path: str, body=None, timeout: float = 600.0):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, body=None if body is None else json.dumps(body))
+        resp = conn.getresponse()
+        return resp.status, resp.getheader("Content-Type"), resp.read()
+    finally:
+        conn.close()
+
+
+def phase_serve(dev: dict, eager_b1: dict) -> dict:
+    """``serve_http`` in-process at its defaults with ``--max_batch 8
+    --warmup_batches 1,8``: two waves of 8 concurrent /tts requests (each one
+    batch of 8, K3 only under int8, 18 x depth launches a batch), one
+    /tts_stream of 3 chunks, /healthz, /config, one B = 8 batch profiled.
+    Returns the launch counts of the two waves."""
+    import http.client
+    import io
+    import wave as wave_mod
+
+    import numpy as np
+    import torch
+
+    from lemas_tts_tpu_torch.config import SERVING_BLOCK_CACHE
+    from lemas_tts_tpu_torch.scripts import serve_http
+    from lemas_tts_tpu_torch.utils.audio_io import read_audio, write_wav
+
+    totals = dict.fromkeys(kernel_counters(), 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        vocab = d / "vocab.txt"
+        vocab.write_text("\n".join(CHAR_VOCAB) + "\n")
+        ref_path = str(d / "ref.wav")
+        write_wav(ref_path, _reference_wave(16000, 3.0, seed=0), 16000)
+        args = serve_http.build_parser().parse_args(
+            ["--port", "0", "--vocab_file", str(vocab), "--frontend", "none", "--max_batch", "8",
+             "--warmup_batches", "1,8"])
+        ready, box, failed = threading.Event(), [], []
+
+        def run_server():
+            try:
+                serve_http.serve(args, ready_event=ready, server_box=box)
+            except BaseException as e:  # handed to the main thread below
+                failed.append(e)
+                ready.set()
+
+        t0 = time.perf_counter()
+        server = threading.Thread(target=run_server, daemon=True)
+        server.start()
+        check(ready.wait(900), "serve_http did not start")
+        if failed:
+            raise failed[0]
+        httpd, engine = box[0]
+        port = httpd.server_address[1]
+        # the engine's 15 ms batching window (the JAX server's) is shorter
+        # than eight clients take to post here: wait up to 2 s for a full batch
+        engine.batcher.max_wait_us = 2_000_000
+
+        def memory(when: str) -> None:
+            print(f"[serve] card memory {when}: reserved {torch.cuda.memory_reserved() / 2**20:.0f}"
+                  f" MiB, allocated {torch.cuda.memory_allocated() / 2**20:.0f} MiB, peak "
+                  f"reserved {torch.cuda.max_memory_reserved() / 2**20:.0f} MiB; "
+                  f"{len(engine.synth._graphs)} sampler graphs cached", flush=True)
+
+        try:
+            print(f"[serve] serve_http ready on 127.0.0.1:{port} in "
+                  f"{time.perf_counter() - t0:.1f} s (model build, warmup and dispatch warmup "
+                  f"of batches 1 and 8)", flush=True)
+            memory("after warmup")
+            status, _, body = _http(port, "GET", "/healthz")
+            check(status == 200 and json.loads(body)["ok"], f"/healthz: {status} {body!r}")
+            status, _, body = _http(port, "GET", "/config")
+            conf = json.loads(body)
+            print(f"[serve] /config: {conf}", flush=True)
+            check(status == 200 and (conf["nfe_steps"], conf["cfg_strength"],
+                                     conf["sway_sampling_coef"], conf["cfg_cutoff"],
+                                     conf["block_cache"], conf["quant"], conf["max_batch"],
+                                     conf["device"])
+                  == (32, 3.0, 1.0, 0.5, SERVING_BLOCK_CACHE, "int8", 8, "cuda"),
+                  "serve_http's defaults differ from the JAX server's")
+            depth = len(engine.synth.dit_model.transformer_blocks)
+            _, prefix, tail = serving_refresh_steps(serving_settings(engine.synth))
+            per_batch = expected_launches(("vmem_attention_nhd",), (prefix + tail) * depth)
+            payload = dict(ref_path=ref_path, ref_text=REF_TEXT, text=GEN_TEXT)
+            for wave_no in (1, 2):
+                results = [None] * 8
+                start = threading.Barrier(9)
+
+                def client(i):
+                    start.wait()
+                    t1 = time.perf_counter()
+                    out = _http(port, "POST", "/tts", dict(payload, seed=i))
+                    results[i] = out + (time.perf_counter() - t1,)
+
+                threads = [threading.Thread(target=client, args=(i,)) for i in range(8)]
+                for t in threads:
+                    t.start()
+                reset_counters()
+                start.wait()
+                t1 = time.perf_counter()
+                for t in threads:
+                    t.join(timeout=900)
+                wall = time.perf_counter() - t1
+                got = read_counters()
+                check(got == per_batch, f"wave {wave_no}: launches {got}, one batch of 8 "
+                                        f"launches {per_batch}")
+                for k in totals:
+                    totals[k] += got[k]
+                audio = []
+                for i, res in enumerate(results):
+                    check(res is not None and res[0] == 200, f"/tts {i}: {res and res[:2]}")
+                    with wave_mod.open(io.BytesIO(res[2]), "rb") as w:
+                        rate = w.getframerate()
+                        pcm = np.frombuffer(w.readframes(w.getnframes()), "<i2")
+                    check(rate == 24000 and pcm.size > 0 and np.abs(pcm).max() > 0,
+                          f"/tts {i}: {rate} Hz, {pcm.size} samples")
+                    audio.append(pcm.size / rate)
+                    print(f"[serve] wave {wave_no} request {i}: {audio[-1]:.3f} audio-s, wall "
+                          f"{res[3]:.3f} s, {audio[-1] / res[3]:.2f} audio-s/s", flush=True)
+                run = "captures the B 8 graph" if wave_no == 1 else "replays it"
+                print(f"[serve] wave {wave_no} ({run}): "
+                      f"{sum(audio):.3f} audio-s in {wall:.3f} s = {sum(audio) / wall:.2f} "
+                      f"audio-s/s on {dev['card']}; launches {got}", flush=True)
+            status, _, body = _http(port, "GET", "/stats")
+            sizes = json.loads(body)["batch_sizes"]
+            print(f"[serve] /stats batch sizes: {sizes}", flush=True)
+            check(sizes == [8, 8], f"the waves did not form batches of 8: {sizes}")
+
+            lines = ["the old lighthouse keeper walked home.", "the fishing boats came in late.",
+                     "and the harbour lights went out."]
+            ref_wav, ref_sr = read_audio(ref_path)
+            chunks = None
+            for run in ("captures its graphs", "replays them"):
+                t1 = time.perf_counter()
+                conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+                conn.request("POST", "/tts_stream", body=json.dumps(
+                    dict(payload, text="\n".join(lines), seed=5, chunk_batch=2)))
+                resp = conn.getresponse()  # the 200 follows the first chunk
+                ttfb = time.perf_counter() - t1
+                streamed = np.frombuffer(resp.read(), "<i2")
+                total = time.perf_counter() - t1
+                conn.close()
+                check(resp.status == 200 and resp.getheader("Content-Type").startswith(
+                    "audio/L16; rate=24000"), f"/tts_stream: {resp.status}")
+                if chunks is None:
+                    chunks = list(engine.synth.synthesize_stream(
+                        ref_wav.mean(axis=0), ref_sr, REF_TEXT, lines, cfg=engine.cfg, seed=5,
+                        chunk_batch=2, first_chunk_batch=1))
+                # the server's first run of a bucket is the eager one, a
+                # replay may differ in the PCM's last step
+                pcm = [(np.clip(w, -1.0, 1.0) * 32767.0).astype("<i2") for w, _ in chunks]
+                whole = np.concatenate(pcm)
+                in_order = (len(pcm) == 3 and streamed.shape == whole.shape and int(np.abs(
+                    streamed.astype(np.int32) - whole.astype(np.int32)).max()) <= 1)
+                print(f"[serve] /tts_stream of {len(lines)} chunks ({run}): first audio after "
+                      f"{ttfb:.3f} s, all {streamed.size / 24000:.3f} audio-s after {total:.3f} "
+                      f"s; equal (to 1 PCM step), in order, to synthesize_stream's chunks "
+                      f"({[p.size for p in pcm]} samples): {in_order}", flush=True)
+                check(in_order and all(np.abs(p).max() > 0 for p in pcm),
+                      "the stream's chunks are not synthesize_stream's, in order")
+
+            memory("after the /tts waves and streams")
+            reqs = [dict(ref_wav=ref_wav.mean(axis=0), ref_sr=ref_sr, ref_units=REF_TEXT,
+                         gen_units=GEN_TEXT, seed=i) for i in range(8)]
+            b8 = profiled(lambda: engine.synth.synthesize_requests(reqs, cfg=engine.cfg),
+                          "one served B 8 batch (synthesize_requests, graph replay)", top=8)
+            print(f"[serve] card busy per request: B 8 served batch {b8['busy_ms'] / 8:.1f} ms "
+                  f"(idle share {b8['idle']:.3f}), eager B 1 sampler {eager_b1['busy_ms']:.1f} ms "
+                  f"(idle share {eager_b1['idle']:.3f}), on {dev['card']}", flush=True)
+        finally:
+            httpd.shutdown()
+            server.join(timeout=120)
+        check(not server.is_alive(), "serve_http did not stop")
+    return totals
 
 
 def main() -> int:
@@ -955,8 +1455,9 @@ def main() -> int:
     records = {**phase_kernels(), **phase_split_attention()}
     phase_dit()
     launches = phase_slice(dev)
-    more = phase_frontend(dev)
-    launches = {k: launches[k] + more[k] for k in launches}
+    graphed, profiles = phase_graph(dev)
+    for more in (phase_frontend(dev), graphed, phase_serve(dev, profiles["eager"])):
+        launches = {k: launches[k] + more[k] for k in launches}
     kernels = [records[k] for k in ("qkv_block", "vmem_attention_nhd", "ffn_block",
                                      "vmem_attention_nhd_pack", "vmem_attention")]
     for rec in kernels:

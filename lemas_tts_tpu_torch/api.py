@@ -14,11 +14,15 @@ Differences from the JAX package:
  - The text frontend (``frontend="phone"``, the default, ``"char"`` or
    ``None`` for raw strings) is the port's own copy, ``text/``; it takes only
    an exact ``#1``-``#4`` as a pause token (``text/__init__.py``).
- - Not ported yet: quantization, the midpoint ODE method and the prosody
-   encoder raise ``NotImplementedError``. Native orbax checkpoints,
-   distilled-student sidecars, ``mesh``, ``hf://`` checkpoint URIs, the
-   block cache, ``transcribe`` (ASR) and ``export_wav(remove_silence=...)``
-   have no keyword here, so passing one gives a ``TypeError``.
+ - ``quantization="int8"|"int8_ff"`` (W8A8, ``ops/quant.py``) quantizes the
+   float weights as they load, as ``quantize_dense_tree`` does in the JAX
+   package; ``ode_method="midpoint"`` and ``infer(block_cache=...)`` run the
+   sampler's second-order step and block-range cache.
+ - Not ported yet: the prosody encoder raises ``NotImplementedError``.
+   Native orbax checkpoints, distilled-student sidecars, ``mesh``,
+   ``hf://`` checkpoint URIs, ``transcribe`` (ASR) and
+   ``export_wav(remove_silence=...)`` have no keyword here, so passing one
+   gives a ``TypeError``.
  - A missing checkpoint or vocoder gives random weights (seeded), as in the
    JAX package; reference ``.pt``/``.safetensors`` checkpoints and the
    published Vocos ``pytorch_model.bin`` load directly (same key names).
@@ -91,17 +95,21 @@ class TTS:
         from lemas_tts_tpu_torch.models.dit import DiT, cast_matrices
         from lemas_tts_tpu_torch.models.mmdit import MMDiT
         from lemas_tts_tpu_torch.models.vocos import Vocos
+        from lemas_tts_tpu_torch.ops.quant import MODES, quantize_dense_tree
         from lemas_tts_tpu_torch.weights import load_reference_state_dict
 
-        if ode_method != "euler":
-            raise NotImplementedError(f"ode_method={ode_method!r}: only euler is ported")
-        if quantization is not None:
-            raise NotImplementedError(f"quantization={quantization!r} is not ported yet")
+        if ode_method not in ("euler", "midpoint"):
+            raise ValueError(f"unknown ode_method: {ode_method!r}")
+        if quantization is not None and quantization not in MODES:
+            raise ValueError(f"unknown quantization mode: {quantization!r}")
         self.ode_method = ode_method
+        self.quant = quantization
         self.config: ModelConfig = load_model_config(model)
         backbones = {"DiT": DiT, "MMDiT": MMDiT}
         if self.config.backbone not in backbones:
             raise NotImplementedError(f"backbone {self.config.backbone!r} is not ported yet")
+        if quantization is not None and self.config.backbone != "DiT":
+            raise ValueError("quantization is only supported for the DiT backbone")
         if self.config.use_prosody_encoder:
             raise NotImplementedError("the prosody encoder is not ported yet")
         self.target_sample_rate = self.config.mel_spec.target_sample_rate
@@ -145,6 +153,8 @@ class TTS:
             self.dit.load_state_dict(load_reference_state_dict(ckpt_file, use_ema=use_ema))
         else:
             warnings.warn("no checkpoint — random-initializing model weights")
+        if quantization is not None:  # from the float weights, before the dtype cast
+            quantize_dense_tree(self.dit, MODES[quantization])
 
         # ---- vocoder
         if mel.mel_spec_type != "vocos":
@@ -170,7 +180,8 @@ class TTS:
 
     def load_weights(self, dit_state: dict, vocoder_state: Optional[dict] = None) -> None:
         """Replace the weights (e.g. from :mod:`lemas_tts_tpu_torch.weights`);
-        they are stored in the model's compute dtype on its device."""
+        they are stored in the model's compute dtype on its device, and a
+        quantized model quantizes the float weights as they load."""
         self.dit.load_state_dict(dit_state)
         if vocoder_state is not None:
             self.vocoder.load_state_dict(vocoder_state)
@@ -217,11 +228,12 @@ class TTS:
               cfg_cutoff: Optional[float] = None, separate_langs: bool = False,
               fix_duration: Optional[float] = None, file_wave: Optional[str] = None,
               file_spec: Optional[str] = None, seed: Optional[int] = None,
-              transcribe_fn=None):
+              transcribe_fn=None, block_cache: Optional[str] = None):
         """Zero-shot TTS. ``ref_file`` is a WAV path or a ``(wave, sr)``
         tuple. One chunk per line of ``gen_text`` with a frontend; the raw
-        string path chunks by a byte budget. Returns ``(wav, sample_rate,
-        spec)``."""
+        string path chunks by a byte budget. ``block_cache`` is a
+        ``"lo-hi:every[+hN][+tN]"`` block-range cache spec. Returns ``(wav,
+        sample_rate, spec)``."""
         from lemas_tts_tpu_torch.infer.pipeline import chunk_text
         from lemas_tts_tpu_torch.infer.preprocess import preprocess_ref_audio_text
 
@@ -243,7 +255,8 @@ class TTS:
             gen_chunks = [self.process_phone_list(x) for x in gen_chunks]
         cfg = SamplerConfig(nfe_steps=nfe_step, cfg_strength=cfg_strength,
                             sway_sampling_coef=sway_sampling_coef, cfg_cutoff=cfg_cutoff,
-                            ode_method=self.ode_method, speed=speed, target_rms=target_rms,
+                            block_cache=block_cache, ode_method=self.ode_method,
+                            speed=speed, target_rms=target_rms,
                             cross_fade_duration=cross_fade_duration, use_acc_grl=use_acc_grl,
                             ref_ratio=ref_ratio, no_ref_audio=no_ref_audio,
                             fix_duration=fix_duration)

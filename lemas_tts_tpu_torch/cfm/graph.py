@@ -1,0 +1,114 @@
+"""The sampler as one CUDA graph per bucket: the port's counterpart of the
+JAX package's compiled sampler program (``make_sampler``, one program per
+settings and shape bucket).
+
+A ``GraphedSampler`` holds, for one ``SamplerSettings`` and one (batch,
+duration, text) bucket, static input buffers and a ``torch.cuda.CUDAGraph``
+of the whole ``sample_mel`` loop over them: the CFG prefix, the cond-only
+tail, the cached steps. A call copies its inputs into the buffers, replays
+the graph and clones the static output, all on the current stream without
+a host sync. The first call for a bucket (or ``capture`` from
+``Synthesizer.warmup``) runs ``sample_mel`` eagerly on a side stream, which
+loads every kernel library and sets up cuBLAS, then captures; that first
+call returns the eager result. The eager run's launches are counted as
+launches; the capture's go to its thread's record (``ops/launches.py``),
+which every replay adds to the counters, so launches that other threads
+make meanwhile are not mixed in.
+
+The graphs of one ``Synthesizer`` capture into one memory pool
+(``GraphPool``), so its cache holds one sampler workspace (the largest
+bucket's), not one a graph. That is safe because the graphs run one at a
+time in the order they are queued on one stream, each reads only what it
+wrote in the same replay or its static inputs, and each output is cloned
+right after its replay.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Optional
+
+import numpy as np
+import torch
+
+from lemas_tts_tpu_torch.cfm.sampler import SamplerSettings, device_time_grid, sample_mel
+from lemas_tts_tpu_torch.ops import launches
+
+
+class GraphPool:
+    """The memory pool that a set of graphs shares: the first capture makes
+    it, later captures join it, and it lives while one of its graphs does."""
+
+    def __init__(self):
+        self.handle = None
+
+
+class GraphedSampler:
+    """``sample_mel`` of one settings and one [B, N, D] / [B, nt] bucket as a
+    CUDA graph. Thread-safe: a lock covers copy-in, replay and copy-out, and
+    one lock for all graphs lets one capture run at a time."""
+
+    _capture_lock = threading.Lock()
+
+    def __init__(self, model, settings: SamplerSettings, time_grid: np.ndarray, B: int, N: int,
+                 D: int, nt: int, device: torch.device, pool: GraphPool):
+        self.model, self.settings, self.time_grid, self.pool = model, settings, time_grid, pool
+        zeros = torch.zeros(B, N, D, device=device)
+        self.inputs = dict(cond=zeros,
+                           cond_mask=torch.zeros(B, N, dtype=torch.bool, device=device),
+                           text_ids=torch.full((B, nt), -1, dtype=torch.int32, device=device),
+                           duration=torch.full((B,), N, dtype=torch.int64, device=device),
+                           y0=torch.zeros_like(zeros), step_cond=torch.zeros_like(zeros))
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.out: Optional[torch.Tensor] = None
+        self.launches_per_replay: dict = {}
+        self._lock = threading.Lock()
+
+    def _sample(self) -> torch.Tensor:
+        return sample_mel(self.model, time_grid=self.time_grid, settings=self.settings,
+                          **self.inputs)
+
+    def _capture(self) -> torch.Tensor:
+        """Eager run on a side stream (the result), then the capture."""
+        dev = self.inputs["cond"].device
+        device_time_grid(self.time_grid, dev)  # made before capture, not in it
+        cur = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            eager = self._sample()
+        cur.wait_stream(side)
+        eager.record_stream(cur)
+        graph = torch.cuda.CUDAGraph()
+        with GraphedSampler._capture_lock, launches.recording() as record:
+            with torch.cuda.graph(graph, pool=self.pool.handle, capture_error_mode="thread_local"):
+                self.out = self._sample()
+            if self.pool.handle is None:
+                self.pool.handle = graph.pool()
+        self.launches_per_replay, self.graph = record, graph
+        return eager
+
+    def capture(self) -> bool:
+        """Capture on the buffers as they are (a warm-up); False if the graph
+        was already there."""
+        with self._lock:
+            if self.graph is not None:
+                return False
+            self._capture()
+            return True
+
+    def __call__(self, cond, cond_mask, text_ids, duration, y0, step_cond=None) -> torch.Tensor:
+        given = dict(cond=cond, cond_mask=cond_mask, text_ids=text_ids, duration=duration, y0=y0,
+                     step_cond=cond if step_cond is None else step_cond)
+        with self._lock:
+            for k, v in given.items():
+                buf = self.inputs[k]
+                if tuple(v.shape) != tuple(buf.shape):
+                    raise ValueError(f"{k}: shape {tuple(v.shape)}, graph bucket "
+                                     f"{tuple(buf.shape)}")
+                buf.copy_(v)
+            if self.graph is None:
+                return self._capture()
+            self.graph.replay()
+            launches.add(self.launches_per_replay)
+            return self.out.clone()

@@ -1,5 +1,5 @@
 """Conditional-flow-matching sampler (counterpart of
-``lemas_tts_tpu/cfm/sampler.py``): an Euler ODE from noise to mel with
+``lemas_tts_tpu/cfm/sampler.py``): an ODE from noise to mel with
 classifier-free guidance, as a Python loop over the sway-warped time grid.
 
 - The text embeddings of both CFG branches are computed once per utterance.
@@ -8,10 +8,19 @@ classifier-free guidance, as a Python loop over the sway-warped time grid.
 - ``cfg_cutoff`` splits the loop statically: a prefix of CFG steps, then a
   tail of cond-only steps that keep the clamp. Without CFG the cond-only pass
   skips the clamp (the reference's early return).
+- ``method="midpoint"`` evaluates the velocity twice a step, at ``t`` and at
+  ``t + dt/2``.
+- The block-range residual cache (``block_cache_range``, DiT only, euler
+  only): on refresh steps blocks ``[lo, hi)`` run and their aggregate
+  residual ``h_hi - h_lo`` is stored; on the other steps that range is one
+  add of the stored residual. The cache is 2B rows wide in the CFG prefix and
+  B rows in the cond-only tail, whose first step always refreshes.
 - Kept frames are pasted back exactly at the end.
 
-The midpoint method, the block-range residual cache and trajectories are not
-ported: asking for them raises.
+Nothing in the loop reads the device from the host, and the time grid's
+device copy is made once per (grid, device), so the whole loop can be
+captured as one CUDA graph (``cfm/graph.py``). Trajectories are not ported:
+asking for them raises.
 """
 
 from __future__ import annotations
@@ -65,7 +74,7 @@ def sway_time_grid(steps: int, sway_sampling_coef: Optional[float],
 
 @dataclass(frozen=True)
 class SamplerSettings:
-    """Static sampler configuration."""
+    """Static sampler configuration (hashable: it keys the captured graphs)."""
 
     steps: int = 32
     cfg_strength: float = 2.0
@@ -73,15 +82,24 @@ class SamplerSettings:
     t_start: float = 0.0
     velocity_clamp: float = 20.0
     return_trajectory: bool = False
-    method: str = "euler"
+    method: str = "euler"  # "euler" (reference) | "midpoint"
     cfg_cutoff: Optional[float] = None
-    block_cache_range: Optional[tuple] = None
+    block_cache_range: Optional[tuple] = None  # (lo, hi) block indices
+    block_cache_every: int = 2  # refresh period (1: every step)
+    block_cache_warm_head: int = 0  # always-refresh steps at the head
+    block_cache_warm_tail: int = 0  # and at the tail
 
     def __post_init__(self):
-        if self.method != "euler":
-            raise NotImplementedError(f"ODE method {self.method!r}: only euler is ported")
+        if self.method not in ("euler", "midpoint"):
+            raise ValueError(f"unknown ODE method: {self.method!r}")
         if self.block_cache_range is not None:
-            raise NotImplementedError("the block-range residual cache is not ported yet")
+            lo, hi = self.block_cache_range
+            if not (0 <= lo < hi):
+                raise ValueError(f"bad block_cache_range: {(lo, hi)}")
+            if self.method != "euler":
+                raise ValueError("block_cache_range requires method='euler'")
+            if self.block_cache_every < 1:
+                raise ValueError("block_cache_every must be >= 1")
         if self.return_trajectory:
             raise NotImplementedError("trajectories are not ported yet")
 
@@ -101,6 +119,89 @@ class SamplerSettings:
         return int(np.sum(self.cfg_strength * np.square(1.0 - ts) >= self.cfg_cutoff))
 
 
+def parse_block_cache(spec: Optional[str]):
+    """Parse a block-cache spec ``"lo-hi:every[+hN][+tN]"`` (e.g. ``"2-20:2"``,
+    ``"0-22:2+t2"``) into ``((lo, hi), every, head, tail)``; ``None``, empty,
+    ``"0"``, ``"none"`` or ``"off"`` give None. ``+hN``/``+tN`` are
+    always-refresh windows of N steps at the trajectory's head/tail."""
+    if not spec or str(spec).strip().lower() in ("0", "none", "off"):
+        return None
+    s = str(spec).strip()
+    try:
+        rng, _, rest = s.partition(":")
+        lo, hi = (int(x) for x in rng.split("-"))
+        parts = rest.split("+") if rest else [""]
+        every = int(parts[0]) if parts[0] else 2
+        head = tail = 0
+        for p in parts[1:]:
+            if p[:1] == "h":
+                head = int(p[1:])
+            elif p[:1] == "t":
+                tail = int(p[1:])
+            else:
+                raise ValueError(p)
+    except ValueError:
+        raise ValueError(f"bad block_cache spec {spec!r} (want 'lo-hi:every[+hN][+tN]')")
+    if not (0 <= lo < hi) or every < 1 or head < 0 or tail < 0:
+        raise ValueError(f"bad block_cache spec {spec!r}")
+    return (lo, hi), every, head, tail
+
+
+def block_cache_fields(spec: Optional[str], depth: Optional[int] = None,
+                       method: str = "euler") -> dict:
+    """``SamplerSettings`` keyword arguments for a block-cache spec (empty
+    when it is off). ``depth`` clamps ``hi`` to the model's block count (an
+    empty range turns the cache off), and a method other than euler turns it
+    off, as in the JAX package."""
+    if method != "euler":
+        return {}
+    parsed = parse_block_cache(spec)
+    if parsed is None:
+        return {}
+    (lo, hi), every, head, tail = parsed
+    if depth is not None:
+        hi = min(hi, int(depth))
+        if lo >= hi:
+            return {}
+    out = {"block_cache_range": (lo, hi), "block_cache_every": every}
+    if head:
+        out["block_cache_warm_head"] = head
+    if tail:
+        out["block_cache_warm_tail"] = tail
+    return out
+
+
+def block_cache_flags(settings: SamplerSettings, steps: int) -> np.ndarray:
+    """Refresh flags [steps] of the block-range cache: every
+    ``block_cache_every``-th step, plus the warm head/tail windows;
+    ``flags[0]`` is always True."""
+    flags = np.arange(steps) % settings.block_cache_every == 0
+    if settings.block_cache_warm_head:
+        flags[: settings.block_cache_warm_head] = True
+    if settings.block_cache_warm_tail:
+        flags[max(0, steps - settings.block_cache_warm_tail):] = True
+    return flags
+
+
+def _segment_flags(flags: np.ndarray):
+    """A refresh schedule as periodic regions ``[(period, count), ...]``:
+    ``count`` repetitions of [refresh, cached × (period−1)]."""
+    steps = len(flags)
+    if steps == 0:
+        return []
+    if not flags[0]:
+        raise ValueError("a block-cache schedule must start with a refresh")
+    refresh_idx = np.flatnonzero(flags)
+    periods = np.diff(np.append(refresh_idx, steps))
+    regions: list = []
+    for p in periods:
+        if regions and regions[-1][0] == int(p):
+            regions[-1][1] += 1
+        else:
+            regions.append([int(p), 1])
+    return [(p, c) for p, c in regions]
+
+
 def cfg_velocity_combine(pred2: torch.Tensor, B: int, t: torch.Tensor,
                          settings: SamplerSettings) -> torch.Tensor:
     """CFG combine then clamp (reference ``cfm.py:420-424`` order)."""
@@ -110,20 +211,49 @@ def cfg_velocity_combine(pred2: torch.Tensor, B: int, t: torch.Tensor,
     return torch.clamp(v, -settings.velocity_clamp, settings.velocity_clamp)
 
 
+_GRIDS: dict = {}
+
+
+def device_time_grid(time_grid: np.ndarray, device) -> torch.Tensor:
+    """The time grid's f32 copy on ``device``, made once per (grid, device):
+    a loop under CUDA graph capture copies nothing from the host."""
+    g = np.ascontiguousarray(time_grid, np.float32)
+    key = (g.tobytes(), str(torch.device(device)))
+    t = _GRIDS.get(key)
+    if t is None:
+        t = _GRIDS[key] = torch.from_numpy(g.copy()).to(device)
+    return t
+
+
 @torch.no_grad()
 def sample_mel(model, *, cond, cond_mask, text_ids, duration, y0, time_grid,
                settings: SamplerSettings, step_cond=None) -> torch.Tensor:
-    """Euler CFG flow from noise to mel. cond, y0 [B, N, D] f32; cond_mask
-    [B, N] bool (True = kept frame); text_ids [B, nt] (-1 padded); duration
-    [B]; time_grid [steps+1] numpy. Returns [B, N, D] f32 with the kept
-    frames pasted from ``cond``."""
+    """CFG flow from noise to mel. cond, y0 [B, N, D] f32; cond_mask [B, N]
+    bool (True = kept frame); text_ids [B, nt] (-1 padded); duration [B];
+    time_grid [steps+1] numpy. Returns [B, N, D] f32 with the kept frames
+    pasted from ``cond``."""
     B, N, _ = cond.shape
     keep = cond_mask[..., None]
     step_cond = torch.where(keep, cond if step_cond is None else step_cond, 0.0)
     attn_mask = lens_to_mask(duration, N)
     y = torch.where(attn_mask[..., None], y0, 0.0).float()
     te_cond = model.embed_text(text_ids, N, drop_text=False)
-    grid = torch.from_numpy(np.asarray(time_grid, np.float32)).to(cond.device)
+    grid = device_time_grid(time_grid, cond.device)
+    dts = grid[1:] - grid[:-1]
+
+    cfg_pack = None
+    if settings.use_cfg:
+        te2 = torch.cat([te_cond, model.embed_text(text_ids, N, drop_text=True)], dim=0)
+        cond2 = torch.cat([step_cond, torch.zeros_like(step_cond)], dim=0)
+        mask2 = torch.cat([attn_mask, attn_mask], dim=0)
+        cfg_pack = (te2, cond2, mask2)
+
+    steps = len(time_grid) - 1
+    k = settings.cfg_active_steps(np.asarray(time_grid))
+    if settings.block_cache_range is not None:
+        y = _block_cached_loop(model, settings, grid, dts, k, y, step_cond=step_cond,
+                               attn_mask=attn_mask, te_cond=te_cond, cfg_pack=cfg_pack)
+        return torch.where(keep, cond, y)  # exact paste of kept frames
 
     def velocity_cond_only(t, x, clamp):
         v = model(x, step_cond, None, t.expand(B), attn_mask, text_embed=te_cond)
@@ -132,9 +262,7 @@ def sample_mel(model, *, cond, cond_mask, text_ids, duration, y0, time_grid,
         return v
 
     if settings.use_cfg:
-        te2 = torch.cat([te_cond, model.embed_text(text_ids, N, drop_text=True)], dim=0)
-        cond2 = torch.cat([step_cond, torch.zeros_like(step_cond)], dim=0)
-        mask2 = torch.cat([attn_mask, attn_mask], dim=0)
+        te2, cond2, mask2 = cfg_pack
 
         def velocity(t, x):
             pred2 = model(torch.cat([x, x], dim=0), cond2, None, t.expand(2 * B), mask2,
@@ -144,11 +272,72 @@ def sample_mel(model, *, cond, cond_mask, text_ids, duration, y0, time_grid,
         def velocity(t, x):
             return velocity_cond_only(t, x, clamp=False)
 
-    steps = len(time_grid) - 1
-    k = settings.cfg_active_steps(np.asarray(time_grid))
     for i in range(steps):
-        t, dt = grid[i], grid[i + 1] - grid[i]
-        v = velocity(t, y) if i < k or not settings.use_cfg else \
-            velocity_cond_only(t, y, clamp=True)
-        y = y + dt * v
+        vel = velocity if i < k or not settings.use_cfg else \
+            (lambda t, x: velocity_cond_only(t, x, clamp=True))
+        t, dt = grid[i], dts[i]
+        if settings.method == "midpoint":
+            half = 0.5 * dt
+            y_mid = y + half * vel(t, y)
+            y = y + dt * vel(t + half, y_mid)
+        else:
+            y = y + dt * vel(t, y)
     return torch.where(keep, cond, y)  # exact paste of kept frames
+
+
+def _block_cached_loop(model, settings: SamplerSettings, grid, dts, k: int, y, *, step_cond,
+                       attn_mask, te_cond, cfg_pack):
+    """The Euler loop under the block-range residual cache (JAX
+    ``make_cached_forward`` and ``_scan_block_cached``): the refresh
+    schedule's regions run as [refresh step, (period−1) cached steps]; the
+    cond-only tail after a CFG prefix refreshes at its first step, since the
+    batch width halves there."""
+    if not hasattr(model, "run_blocks"):
+        raise ValueError("the block cache supports the DiT backbone only")
+    lo, hi = settings.block_cache_range
+    depth = len(model.transformer_blocks)
+    if not (0 <= lo < hi <= depth):
+        raise ValueError(f"block_cache_range {(lo, hi)} outside depth {depth}")
+    B = y.shape[0]
+    steps = dts.shape[0]
+    clamp = settings.velocity_clamp
+    flags = block_cache_flags(settings, steps)
+
+    def fwd(x, cond_x, mask_x, te_x, t, cache, refresh: bool):
+        h, t_emb, angles = model.embed_inputs(x, cond_x, None, t.expand(x.shape[0]),
+                                              text_embed=te_x)
+        h = model.run_blocks(h, t_emb, mask_x, angles, 0, lo)
+        if refresh:
+            h_mid = model.run_blocks(h, t_emb, mask_x, angles, lo, hi)
+            h, cache = h_mid, h_mid - h
+        else:
+            h = h + cache
+        h = model.run_blocks(h, t_emb, mask_x, angles, hi, depth)
+        return model.head(h, t_emb), cache
+
+    def cond_only(t, x, cache, refresh, do_clamp):
+        pred, cache = fwd(x, step_cond, attn_mask, te_cond, t, cache, refresh)
+        return (torch.clamp(pred, -clamp, clamp) if do_clamp else pred), cache
+
+    def cfg_vel(t, x, cache, refresh):
+        te2, cond2, mask2 = cfg_pack
+        pred2, cache = fwd(torch.cat([x, x], dim=0), cond2, mask2, te2, t, cache, refresh)
+        return cfg_velocity_combine(pred2, B, t, settings), cache
+
+    def run(vel, start: int, part_flags, y):
+        cache, i = None, start
+        for period, count in _segment_flags(part_flags):
+            for _ in range(count):
+                for j in range(period):
+                    v, cache = vel(grid[i], y, cache, j == 0)
+                    y = y + dts[i] * v
+                    i += 1
+        return y
+
+    if settings.use_cfg and k < steps:
+        tail = flags[k:].copy()
+        tail[0] = True  # the batch width halves at the boundary
+        y = run(cfg_vel, 0, flags[:k], y)
+        return run(lambda t, x, c, r: cond_only(t, x, c, r, True), k, tail, y)
+    vel = cfg_vel if settings.use_cfg else (lambda t, x, c, r: cond_only(t, x, c, r, False))
+    return run(vel, 0, flags, y)

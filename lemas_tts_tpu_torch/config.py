@@ -85,6 +85,32 @@ class ModelConfig:
     vocoder: VocoderConfig = field(default_factory=VocoderConfig)
 
 
+# Serving defaults, as the JAX package's serving entry points set them
+# (``lemas_tts_tpu/config.py:95-135``); the library ``SamplerConfig`` keeps
+# exact reference semantics (None), the server opts in. Their speed and error
+# on the H100 are measured by ``chip_smoke.py`` (PERF.md), not carried over.
+# CFG truncation: the uncond pass stops once cfg_strength·(1−t)² < 0.5.
+SERVING_CFG_CUTOFF = 0.5
+# Block-range residual cache: the whole stack's residual refreshed every 2nd
+# step and on the last 2 steps, one cached add in between.
+SERVING_BLOCK_CACHE = "0-22:2+t2"
+
+
+def resolve_quant(value: Optional[str]) -> Optional[str]:
+    """One grammar for the quantization knob of every entry point:
+    ``None``/``""``/``"none"``/``"0"``/``"off"`` disable, ``"default"`` is the
+    serving default, anything else is a mode that the model build checks."""
+    if value is None or str(value).strip().lower() in ("", "none", "0", "off"):
+        return None
+    v = str(value).strip()
+    return SERVING_QUANT if v == "default" else v
+
+
+# W8A8 int8 for the DiT block products (``ops/quant.py``); the environment
+# variable ``LEMAS_SERVING_QUANT`` overrides it ("" disables).
+SERVING_QUANT: Optional[str] = resolve_quant(os.environ.get("LEMAS_SERVING_QUANT", "int8"))
+
+
 @dataclass(frozen=True)
 class SamplerConfig:
     """CFM sampler parameters (library defaults follow the reference
@@ -93,10 +119,11 @@ class SamplerConfig:
     nfe_steps: int = 32
     cfg_strength: float = 3.0
     sway_sampling_coef: Optional[float] = 1.0
-    ode_method: str = "euler"  # "midpoint" is not ported yet
+    ode_method: str = "euler"  # "euler" (reference) | "midpoint" (2 evals a step)
     # opt-in CFG truncation: the uncond pass stops once cfg·(1−t)² < cutoff
     cfg_cutoff: Optional[float] = None
-    block_cache: Optional[str] = None  # not ported yet: must stay None
+    # block-range residual cache spec "lo-hi:every[+hN][+tN]" (cfm/sampler.py)
+    block_cache: Optional[str] = None
     max_duration: int = 4096
     speed: float = 1.0
     target_rms: float = 0.1

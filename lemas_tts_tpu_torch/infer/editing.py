@@ -4,9 +4,11 @@
 An alignment JSON gives the utterance interval and per-word intervals; the
 words in ``modified_index`` are replaced by new text, a frame-level keep mask
 is built over the mel sequence (False = regenerate, ±0.1 s safety margin),
-and the same sampler as TTS (``cfm/sampler.py:sample_mel``) runs with that
+and the same sampler as TTS (``Synthesizer.run_sampler``: a CUDA graph per
+bucket on the card, ``cfm/sampler.py:sample_mel`` on the CPU) runs with that
 mask: kept frames come back bit-exactly, regenerated frames follow the new
-text.
+text. The sampler takes the midpoint method and the block cache as the
+synthesis paths do.
 
 Alignment JSON schema (reference ``speech_edit_multilingual.py:232-258``):
   ``interval``: [start_s, end_s] of the utterance inside the file
@@ -17,8 +19,7 @@ Alignment JSON schema (reference ``speech_edit_multilingual.py:232-258``):
 
 As in ``infer/pipeline.py``, the seeded noise comes from a
 ``torch.Generator``, so one seed gives other noise than in the JAX package;
-``noise_override`` pins it. The midpoint method and the block cache are not
-ported: asking for them raises. Nor is the prosody branch
+``noise_override`` pins it. The prosody branch is not ported
 (``lemas_tts_tpu/infer/editing.py:180-192``): the port's ``SamplerConfig``
 has no prosody switch, and the edit CLI refuses its prosody flag.
 """
@@ -32,16 +33,10 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from lemas_tts_tpu_torch.cfm.sampler import (
-    DURATION_BUCKETS,
-    SamplerSettings,
-    pick_bucket,
-    sample_mel,
-    sway_time_grid,
-)
+from lemas_tts_tpu_torch.cfm.sampler import DURATION_BUCKETS, pick_bucket
 from lemas_tts_tpu_torch.config import SamplerConfig
 from lemas_tts_tpu_torch.infer.pipeline import (TEXT_BUCKETS, Synthesizer, clip_and_shuffle,
-                                                initial_noise)
+                                                initial_noise, to_device)
 from lemas_tts_tpu_torch.ops.resample import resample
 from lemas_tts_tpu_torch.utils.vocab import pad_text_batch, text_to_ids
 
@@ -121,9 +116,9 @@ def edit_speech(synth: Synthesizer, wav: np.ndarray, sr: int, text_tokens: Seque
     Mirrors ``gen_wav_multilingual`` (``speech_edit_multilingual.py:67-207``):
     RMS normalize, resample, mel, keep-mask sampling, full-sequence vocoder
     decode, RMS restore. ``noise_override`` ([N, D], zero-padded/truncated to
-    the bucket) replaces the seeded noise."""
-    if cfg.block_cache:
-        raise NotImplementedError("block_cache is not ported yet")
+    the bucket) replaces the seeded noise. The sampler settings, the block
+    cache included, are the synthesis paths' (``Synthesizer._settings``); the
+    exact paste of kept frames holds under the cache too."""
     tgt_sr = synth.mel_cfg.target_sample_rate
     hop = synth.mel_cfg.hop_length
     D = synth.mel_cfg.n_mel_channels
@@ -175,16 +170,10 @@ def edit_speech(synth: Synthesizer, wav: np.ndarray, sr: int, text_tokens: Seque
         random_cond = rng.standard_normal(cond.shape).astype(np.float32) * 0.1 + cond_mean
         cond = random_cond / random_cond.mean(axis=1, keepdims=True) * cond_mean
 
-    settings = SamplerSettings(steps=cfg.nfe_steps, cfg_strength=cfg.cfg_strength,
-                               sway_sampling_coef=cfg.sway_sampling_coef,
-                               method=cfg.ode_method, cfg_cutoff=cfg.cfg_cutoff)
-    out = sample_mel(
-        synth.dit_model, cond=torch.from_numpy(cond).to(dev),
-        cond_mask=torch.from_numpy(keep).to(dev), text_ids=torch.from_numpy(text_ids).to(dev),
-        duration=torch.tensor([duration], device=dev), y0=y0[None],
-        time_grid=sway_time_grid(settings.steps, settings.sway_sampling_coef),
-        settings=settings,
-        step_cond=None if step_cond is None else torch.from_numpy(step_cond).to(dev))
+    out = synth.run_sampler(
+        synth._settings(cfg), to_device(cond, dev), to_device(keep, dev),
+        to_device(text_ids, dev), to_device(np.asarray([duration], np.int64), dev), y0[None],
+        None if step_cond is None else to_device(step_cond, dev))
     out = out.cpu().numpy().astype(np.float32)  # [1, N, D]
     if cfg.no_ref_audio:  # mean re-alignment (cfm.py:464-467)
         gen = ~keep[0, :duration]

@@ -6,27 +6,43 @@ one masked vocoder decode. Shapes are bucketed (duration, text length,
 batch); every chunk starts from the same seeded noise prefix, so results do
 not depend on how chunks are batched.
 
+On CUDA the sampler runs as one captured CUDA graph per (settings, batch
+bucket, duration bucket, text bucket) (``cfm/graph.py``), the counterpart of
+the JAX package's compiled program per bucket; ``warmup`` captures them
+ahead, ``dispatch_warmup`` through the real request path. CPU tensors run
+``sample_mel`` eagerly. ``synthesize_requests`` serves many requests, each
+with its own reference, as one sampler call; ``synthesize_stream`` yields
+chunk by chunk, the next mini-batch queued on the card before the previous
+one's results are read on the host. Inputs go up and results come down
+through pinned memory (``to_device``, ``to_host``), so queueing waits for
+nothing on the card and a read waits for its own batch only.
+
 Intentional difference from the JAX package: the seeded initial noise comes
 from ``torch.Generator(device).manual_seed(seed)``, not ``jax.random``, so
 the same seed gives different noise in the two packages. Parity checks pin
 the noise with ``noise_override``.
 
-Not ported yet: prosody conditioning, streaming, ``synthesize_requests`` and
-warmup.
+Not ported yet: prosody conditioning.
 """
 
 from __future__ import annotations
 
+import logging
+import os
 import re
-from typing import List, Optional, Sequence, Tuple
+import threading
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from lemas_tts_tpu_torch.cfm.graph import GraphedSampler, GraphPool
 from lemas_tts_tpu_torch.cfm.sampler import (
     DURATION_BUCKETS,
     SamplerSettings,
+    block_cache_fields,
+    parse_block_cache,
     pick_bucket,
     sample_mel,
     sway_time_grid,
@@ -36,8 +52,69 @@ from lemas_tts_tpu_torch.ops.mel import MelFrontend
 from lemas_tts_tpu_torch.ops.resample import resample
 from lemas_tts_tpu_torch.utils.vocab import Vocab, pad_text_batch, text_to_ids
 
+logger = logging.getLogger(__name__)
+
 TEXT_BUCKETS = (64, 128, 256, 512, 1024, 2048, 4096)
 BATCH_BUCKETS = (1, 2, 4, 8, 16, 32)
+
+
+def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``. To CUDA it goes through pinned memory
+    without waiting: a copy from pageable memory would wait for the card to
+    finish what is queued before it."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def to_host(*tensors: torch.Tensor):
+    """Start copying device tensors to the host: ``(host tensors, event)``.
+    From CUDA they go into pinned memory behind an event, so a reader waits
+    for these results only, not for work queued on the card after them (the
+    next mini-batch of a stream); on the CPU the event is None."""
+    if tensors[0].device.type != "cuda":
+        return list(tensors), None
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+    for h, t in zip(host, tensors):
+        h.copy_(t, non_blocking=True)
+    copied = torch.cuda.Event()
+    copied.record()
+    return host, copied
+
+
+def dispatch_warmup(synth, cfg: SamplerConfig = SamplerConfig(),
+                    duration_buckets: Sequence[int] = (1024,),
+                    batch_buckets: Sequence[int] = (1,),
+                    max_text_chars: int = 20000) -> int:
+    """Warm the serving path through ``synth.synthesize_requests`` itself:
+    synthetic requests whose estimated duration lands in each target bucket,
+    ``B`` of them for each batch bucket, so the graphs real traffic replays
+    are the ones captured (JAX ``dispatch_warmup``). Returns the number of
+    dispatches; buckets the synthetic reference cannot reach are skipped, and
+    non-bucket durations are taken to their bucket. Each duration bucket is
+    warmed at the one text bucket its synthetic text lands in."""
+    sr = synth.mel_cfg.target_sample_rate
+    t = np.arange(2 * sr) / sr
+    ref = (0.1 * np.sin(2 * np.pi * 220.0 * t)).astype(np.float32)
+    ref_units = "warm up reference audio."
+    filler = "all warmup and no playback makes the first request slow ".split()
+    n = 0
+    for N in sorted({pick_bucket(int(N), DURATION_BUCKETS) for N in duration_buckets}):
+        gen, w = "warm. ", 0
+        # one word at a time: coarse growth can jump over a narrow bucket
+        while (synth.estimate_bucket(ref, sr, ref_units, gen, cfg) < N
+               and len(gen) < max_text_chars):
+            gen += filler[w % len(filler)] + " "
+            w += 1
+        if synth.estimate_bucket(ref, sr, ref_units, gen, cfg) != N:
+            continue
+        for B in batch_buckets:
+            synth.synthesize_requests(
+                [dict(ref_wav=ref, ref_sr=sr, ref_units=ref_units, gen_units=gen, seed=i)
+                 for i in range(int(B))], cfg=cfg)
+            n += 1
+    return n
 
 
 def _slice_for_vocoder(mel: torch.Tensor, starts: torch.Tensor, lens: torch.Tensor,
@@ -129,14 +206,17 @@ def initial_noise(N: int, D: int, device, seed: Optional[int], rng: np.random.Ge
         pad = np.zeros((N, D), np.float32)
         t = min(len(noise_override), N)
         pad[:t] = np.asarray(noise_override[:t], np.float32)
-        return torch.from_numpy(pad).to(device)
+        return to_device(pad, torch.device(device))
     noise_seed = seed if seed is not None else int(rng.integers(2 ** 31 - 1))
     gen = torch.Generator(device=device).manual_seed(int(noise_seed))
     return torch.randn((N, D), generator=gen, device=device, dtype=torch.float32)
 
 
 class Synthesizer:
-    """Owns the DiT, the vocoder and the vocab on one device."""
+    """Owns the DiT, the vocoder and the vocab on one device, and, on CUDA,
+    a locked cache of sampler graphs keyed as the JAX package's program
+    cache is: the ``SamplerSettings`` and the (batch, duration, text)
+    bucket."""
 
     def __init__(self, dit_model, vocoder_model, vocab: Vocab,
                  mel_cfg: MelSpecConfig = MelSpecConfig(), device="cpu"):
@@ -149,6 +229,81 @@ class Synthesizer:
             n_fft=mel_cfg.n_fft, hop_length=mel_cfg.hop_length, win_length=mel_cfg.win_length,
             n_mel_channels=mel_cfg.n_mel_channels, target_sample_rate=mel_cfg.target_sample_rate,
             mel_spec_type=mel_cfg.mel_spec_type)
+        self._graphs: Dict[tuple, GraphedSampler] = {}
+        self._graph_pool = GraphPool()  # one memory pool for all of them
+        self._graph_lock = threading.Lock()
+        self._warned_cache_drop = False
+
+    # ---------------------------------------------------------------- sampler
+    def _block_cache_kwargs(self, cfg: SamplerConfig) -> dict:
+        """Block-cache ``SamplerSettings`` fields for this model: clamped to
+        its depth, off under midpoint, and DiT-only; a spec that is dropped
+        warns once (JAX ``_block_cache_kwargs``)."""
+        depth = len(self.dit_model.transformer_blocks)
+        dit = hasattr(self.dit_model, "run_blocks")
+        fields = block_cache_fields(cfg.block_cache, depth, cfg.ode_method) if dit else {}
+        if (cfg.block_cache and parse_block_cache(cfg.block_cache) and not fields
+                and not self._warned_cache_drop):
+            self._warned_cache_drop = True
+            logger.warning("block_cache=%r disabled: %s — sampling on the exact path",
+                           cfg.block_cache, "DiT-only feature" if not dit else
+                           f"ode_method={cfg.ode_method!r} or range empty at depth {depth}")
+        return fields
+
+    def _settings(self, cfg: SamplerConfig, t_start: float = 0.0) -> SamplerSettings:
+        return SamplerSettings(steps=int(cfg.nfe_steps * (1.0 - t_start)) or 1,
+                               cfg_strength=cfg.cfg_strength,
+                               sway_sampling_coef=cfg.sway_sampling_coef, method=cfg.ode_method,
+                               cfg_cutoff=cfg.cfg_cutoff, t_start=t_start,
+                               **self._block_cache_kwargs(cfg))
+
+    def _pick_batch(self, b: int) -> int:
+        return pick_bucket(b, BATCH_BUCKETS)
+
+    def _graph(self, settings: SamplerSettings, B: int, N: int, nt: int) -> GraphedSampler:
+        # a graph keeps the kernels its capture chose: the head-pair switch
+        # (LEMAS_ATTN_PACK, read by the blocks) is part of the key
+        key = (settings, B, N, nt, os.environ.get("LEMAS_ATTN_PACK", "") == "1")
+        with self._graph_lock:
+            g = self._graphs.get(key)
+            if g is None:
+                grid = sway_time_grid(settings.steps, settings.sway_sampling_coef,
+                                      settings.t_start)
+                g = self._graphs[key] = GraphedSampler(
+                    self.dit_model, settings, grid, B, N, self.mel_cfg.n_mel_channels, nt,
+                    self.device, self._graph_pool)
+        return g
+
+    def run_sampler(self, settings: SamplerSettings, cond, cond_mask, text_ids, duration, y0,
+                    step_cond=None) -> torch.Tensor:
+        """The sampler on device tensors: on CUDA the bucket's graph (captured
+        at its first use), on the CPU ``sample_mel``."""
+        if self.device.type == "cuda":
+            B, N, _ = cond.shape
+            return self._graph(settings, B, N, text_ids.shape[1])(
+                cond, cond_mask, text_ids, duration, y0, step_cond)
+        return sample_mel(self.dit_model, cond=cond, cond_mask=cond_mask, text_ids=text_ids,
+                          duration=duration, y0=y0,
+                          time_grid=sway_time_grid(settings.steps, settings.sway_sampling_coef,
+                                                   settings.t_start),
+                          settings=settings, step_cond=step_cond)
+
+    @torch.no_grad()
+    def warmup(self, cfg: SamplerConfig = SamplerConfig(),
+               duration_buckets: Sequence[int] = (1024,), text_buckets: Sequence[int] = (256,),
+               batch_buckets: Sequence[int] = (1,)) -> int:
+        """Capture the sampler graphs of these buckets ahead of the first
+        request (JAX ``warmup``, which compiles them). Returns the number of
+        graphs captured; the CPU runs the sampler eagerly and captures none."""
+        if self.device.type != "cuda":
+            return 0
+        settings = self._settings(cfg)
+        n = 0
+        for B in batch_buckets:
+            for N in duration_buckets:
+                for nt in text_buckets:
+                    n += self._graph(settings, self._pick_batch(B), N, nt).capture()
+        return n
 
     def estimate_bucket(self, ref_wav, ref_sr: int, ref_units, gen_units,
                         cfg: SamplerConfig) -> int:
@@ -241,14 +396,18 @@ class Synthesizer:
     def _dispatch_chunks(self, ref_wav, ref_sr, ref_text_units, gen_chunks,
                          cfg: SamplerConfig = SamplerConfig(), seed: Optional[int] = None,
                          noise_override: Optional[np.ndarray] = None,
-                         duration_override: Optional[Sequence[int]] = None) -> dict:
+                         duration_override: Optional[Sequence[int]] = None,
+                         ref_prep: Optional[dict] = None) -> dict:
         """Host prep, the sampler call and the vocoder decode of <= one batch
-        bucket of chunks; returns the pending results for _finalize_chunks."""
+        bucket of chunks, queued on the device without a host sync; returns
+        the pending results for _finalize_chunks. ``ref_prep`` (from
+        ``_prepare_ref``) is the reference prep made once for a stream."""
         sr = self.mel_cfg.target_sample_rate
         hop = self.mel_cfg.hop_length
         D = self.mel_cfg.n_mel_channels
         dev = self.device
-        ref_prep = self._prepare_ref(ref_wav, ref_sr, cfg)
+        if ref_prep is None:
+            ref_prep = self._prepare_ref(ref_wav, ref_sr, cfg)
         rms, ref_audio_len = ref_prep["rms"], ref_prep["ref_audio_len"]
         cond_mel = ref_prep["cond_mel"]
         ref_frames = cond_mel.shape[0]
@@ -283,7 +442,7 @@ class Synthesizer:
             durations.append(duration)
 
         B = len(texts)
-        Bp = pick_bucket(B, BATCH_BUCKETS)
+        Bp = self._pick_batch(B)
         N = pick_bucket(max(durations), DURATION_BUCKETS)
         max_ids = max(len(t) for t in texts)
         if max_ids > TEXT_BUCKETS[-1]:
@@ -317,43 +476,31 @@ class Synthesizer:
         y0 = initial_noise(N, D, dev, seed, rng, noise_override)[None].expand(Bp, N, D)
 
         t_start = 0.0
-        cond_t = torch.from_numpy(cond).to(dev)
         if cfg.duplicate_test:  # cfm.py:307-309,439-443
             t_start = cfg.t_inter
             test_cond = np.zeros_like(cond)
             dup_end = min(2 * ref_frames, N)
             test_cond[:, ref_frames:dup_end] = cond_mel[None, : dup_end - ref_frames]
-            y0 = (1.0 - t_start) * y0 + t_start * torch.from_numpy(test_cond).to(dev)
+            y0 = (1.0 - t_start) * y0 + t_start * to_device(test_cond, dev)
 
-        if cfg.block_cache:
-            raise NotImplementedError("block_cache is not ported yet")
-        settings = SamplerSettings(steps=int(cfg.nfe_steps * (1.0 - t_start)) or 1,
-                                   cfg_strength=cfg.cfg_strength,
-                                   sway_sampling_coef=cfg.sway_sampling_coef,
-                                   method=cfg.ode_method, cfg_cutoff=cfg.cfg_cutoff,
-                                   t_start=t_start)
-        out = sample_mel(
-            self.dit_model, cond=cond_t, cond_mask=torch.from_numpy(cond_mask).to(dev),
-            text_ids=torch.from_numpy(text_ids).to(dev),
-            duration=torch.from_numpy(dur_arr).to(dev), y0=y0,
-            time_grid=sway_time_grid(settings.steps, settings.sway_sampling_coef,
-                                     settings.t_start),
-            settings=settings,
-            step_cond=None if step_cond is None else torch.from_numpy(step_cond).to(dev))
+        out = self.run_sampler(
+            self._settings(cfg, t_start), to_device(cond, dev), to_device(cond_mask, dev),
+            to_device(text_ids, dev), to_device(dur_arr, dev), y0,
+            None if step_cond is None else to_device(step_cond, dev))
         pending = dict(B=B, sr=sr, rms=rms, durations=durations, ref_frames=ref_frames,
                        ref_audio_len=ref_audio_len)
         if cfg.no_ref_audio:
-            pending.update(kind="no_ref", out=out, cond_mean=cond_mean)
+            pending.update(kind="no_ref", host=to_host(out), cond_mean=cond_mean)
             return pending
         # keep >= 1 generated frame when the reference fills the duration
         starts_l = [min(ref_audio_len, durations[i] - 1) for i in range(B)]
         lens_l = [durations[i] - starts_l[i] for i in range(B)]
         n_out = pick_bucket(max(lens_l), DURATION_BUCKETS)
-        starts = torch.tensor(starts_l + [0] * (Bp - B), device=dev)
-        lens = torch.tensor(lens_l + [1] * (Bp - B), device=dev)
+        starts = to_device(np.asarray(starts_l + [0] * (Bp - B), np.int64), dev)
+        lens = to_device(np.asarray(lens_l + [1] * (Bp - B), np.int64), dev)
         sliced, vmask = _slice_for_vocoder(out, starts, lens, n_out)
-        pending.update(kind="decode", lens_l=lens_l, sliced=sliced,
-                       waves_dev=self.vocoder_model.decode(sliced, vmask))
+        pending.update(kind="decode", lens_l=lens_l,
+                       host=to_host(self.vocoder_model.decode(sliced, vmask), sliced))
         return pending
 
     def _finalize_chunks(self, pending: dict, cfg: SamplerConfig, return_parts: bool = False):
@@ -361,10 +508,13 @@ class Synthesizer:
         B, sr, rms = pending["B"], pending["sr"], pending["rms"]
         durations = pending["durations"]
         hop = self.mel_cfg.hop_length
+        host, copied = pending["host"]
+        if copied is not None:
+            copied.synchronize()  # this batch's copies only, not work queued after them
         if pending["kind"] == "no_ref":
             # mean re-alignment of the generated region (cfm.py:464-467)
             ref_frames, ref_audio_len = pending["ref_frames"], pending["ref_audio_len"]
-            out_np = pending["out"].cpu().numpy().astype(np.float32)
+            out_np = host[0].numpy().astype(np.float32)
             gen_region = out_np[:, ref_frames:, :]
             out_np[:, ref_frames:, :] = gen_region - (
                 gen_region.mean(axis=1, keepdims=True) - pending["cond_mean"][None])
@@ -373,8 +523,7 @@ class Synthesizer:
             waves = self.vocode_batch(gen_slices)
         else:
             lens_l = pending["lens_l"]
-            waves_np = pending["waves_dev"].cpu().numpy()
-            mels_np = pending["sliced"].cpu().numpy()
+            waves_np, mels_np = (h.numpy() for h in host)
             # vocos iSTFT head: T frames -> (T-1)·hop samples
             gen_slices = [mels_np[i, :, : lens_l[i]].T for i in range(B)]
             waves = [waves_np[i, : (lens_l[i] - 1) * hop] for i in range(B)]
@@ -384,6 +533,137 @@ class Synthesizer:
             return [np.clip(w, -0.999, 0.999) for w in waves], sr, gen_slices
         final = np.clip(cross_fade_concat(waves, sr, cfg.cross_fade_duration), -0.999, 0.999)
         return final, sr, np.concatenate([g.T for g in gen_slices], axis=1)
+
+    # --------------------------------------------------------------- streaming
+    def _stream_plan(self, n_chunks: int, cfg: SamplerConfig, chunk_batch: int,
+                     first_chunk_batch: Optional[int], first_chunk_cfg: Optional[SamplerConfig]):
+        """Mini-batches ``[(start, size, cfg)]`` of a stream: the first may be
+        smaller and run other settings than the rest."""
+        chunk_batch = max(1, chunk_batch)
+        fb = chunk_batch if first_chunk_batch is None else max(1, int(first_chunk_batch))
+        plan = [(0, min(fb, n_chunks), first_chunk_cfg or cfg)]
+        i = plan[0][1]
+        while i < n_chunks:
+            size = min(chunk_batch, n_chunks - i)
+            plan.append((i, size, cfg))
+            i += size
+        return plan
+
+    def synthesize_stream(self, ref_wav: np.ndarray, ref_sr: int,
+                          ref_text_units: Sequence[str] | str,
+                          gen_chunks: Sequence[Sequence[str] | str],
+                          cfg: SamplerConfig = SamplerConfig(), seed: Optional[int] = None,
+                          chunk_batch: int = 2, first_chunk_batch: Optional[int] = None,
+                          first_chunk_cfg: Optional[SamplerConfig] = None):
+        """Yield ``(wave, sample_rate)`` per text chunk, in order, as soon as
+        its mini-batch is done (no cross-fade). Mini-batch i+1 is queued on
+        the device before batch i's results are copied to the host.
+        ``first_chunk_batch`` sizes only the first mini-batch and
+        ``first_chunk_cfg`` gives it other sampler settings."""
+        if not gen_chunks:
+            return
+        ref_prep = self._prepare_ref(ref_wav, ref_sr, cfg)
+        pending = None
+        for start, size, bcfg in self._stream_plan(len(gen_chunks), cfg, chunk_batch,
+                                                    first_chunk_batch, first_chunk_cfg):
+            nxt = (self._dispatch_chunks(ref_wav, ref_sr, ref_text_units,
+                                         list(gen_chunks[start: start + size]), cfg=bcfg,
+                                         seed=seed, ref_prep=ref_prep), bcfg)
+            if pending is not None:
+                yield from self._stream_waves(*pending)
+            pending = nxt
+        yield from self._stream_waves(*pending)
+
+    def _stream_waves(self, pending: dict, cfg: SamplerConfig):
+        waves, sr, _ = self._finalize_chunks(pending, cfg, return_parts=True)
+        for w in waves:
+            yield w, sr
+
+    # -------------------------------------------------- cross-request batching
+    @torch.no_grad()
+    def synthesize_requests(self, requests: Sequence[Dict[str, Any]],
+                            cfg: SamplerConfig = SamplerConfig(),
+                            ) -> List[Tuple[np.ndarray, int, np.ndarray]]:
+        """Many independent requests as one sampler call, each batch row with
+        its own reference. A request is ``{"ref_wav": [T], "ref_sr": int,
+        "ref_units": tokens | str, "gen_units": tokens | str, "seed": int |
+        None}``; settings are shared by the batch. Returns ``[(wave, sr, mel
+        [D, T])]`` in request order; a row's noise is ``initial_noise`` of its
+        own seed, so its result does not depend on its batch."""
+        max_b = BATCH_BUCKETS[-1]
+        if len(requests) > max_b:
+            out: List[Tuple[np.ndarray, int, np.ndarray]] = []
+            for i in range(0, len(requests), max_b):
+                out += self.synthesize_requests(requests[i: i + max_b], cfg)
+            return out
+        sr = self.mel_cfg.target_sample_rate
+        hop = self.mel_cfg.hop_length
+        D = self.mel_cfg.n_mel_channels
+        dev = self.device
+
+        rows = []
+        for r in requests:
+            prep = self._prepare_ref(r["ref_wav"], r["ref_sr"], cfg)
+            cond_mel = prep["cond_mel"]
+            ref_units, gen = r["ref_units"], r["gen_units"]
+            if isinstance(ref_units, str) != isinstance(gen, str):
+                raise TypeError("ref_units and gen_units must both be strings or both token "
+                                f"lists (got {type(ref_units).__name__} / "
+                                f"{type(gen).__name__})")
+            full = ref_units + gen if isinstance(gen, str) else list(ref_units) + list(gen)
+            ids = text_to_ids(full, self.vocab)
+            duration = estimate_duration_frames(prep["ref_audio_len"], len(ref_units), len(gen),
+                                                cfg.speed)
+            duration = max(max(len(ids), cond_mel.shape[0]) + 1, duration)
+            duration = min(duration, cfg.max_duration, DURATION_BUCKETS[-1])
+            # a reference longer than the duration cap keeps >= 1 generated frame
+            rows.append(dict(ids=ids, duration=duration, cond_mel=cond_mel, rms=prep["rms"],
+                             ref_audio_len=min(prep["ref_audio_len"], duration - 1),
+                             seed=r.get("seed")))
+
+        B = len(rows)
+        Bp = self._pick_batch(B)
+        N = pick_bucket(max(r["duration"] for r in rows), DURATION_BUCKETS)
+        max_ids = max(len(r["ids"]) for r in rows)
+        if max_ids > TEXT_BUCKETS[-1]:
+            raise ValueError(f"text length {max_ids} exceeds the largest text bucket "
+                             f"({TEXT_BUCKETS[-1]}); split the request into chunks")
+        nt = pick_bucket(max_ids, TEXT_BUCKETS)
+        text_ids = pad_text_batch([r["ids"] for r in rows], pad_to=nt)
+        if Bp > B:
+            text_ids = np.concatenate([text_ids, np.full((Bp - B, nt), -1, np.int32)], axis=0)
+        dur_arr = np.asarray([r["duration"] for r in rows] + [2] * (Bp - B), dtype=np.int64)
+        cond = np.zeros((Bp, N, D), dtype=np.float32)
+        cond_mask = np.zeros((Bp, N), dtype=bool)
+        entropy = np.random.default_rng()  # an unseeded row draws its own seed
+        seeds = []
+        for i, r in enumerate(rows):
+            f = min(r["cond_mel"].shape[0], N)
+            cond[i, :f] = r["cond_mel"][:f]
+            cond_mask[i, :f] = True
+            seeds.append(r["seed"] if r["seed"] is not None
+                         else int(entropy.integers(2 ** 31 - 1)))
+        seeds += [0] * (Bp - B)
+        y0 = torch.stack([initial_noise(N, D, dev, s, entropy) for s in seeds])
+
+        mel = self.run_sampler(self._settings(cfg), to_device(cond, dev),
+                               to_device(cond_mask, dev), to_device(text_ids, dev),
+                               to_device(dur_arr, dev), y0)
+        lens_l = [r["duration"] - r["ref_audio_len"] for r in rows]
+        n_out = pick_bucket(max(lens_l), DURATION_BUCKETS)
+        starts = to_device(np.asarray([r["ref_audio_len"] for r in rows] + [0] * (Bp - B),
+                                      np.int64), dev)
+        lens = to_device(np.asarray(lens_l + [1] * (Bp - B), np.int64), dev)
+        sliced, vmask = _slice_for_vocoder(mel, starts, lens, n_out)
+        waves = self.vocoder_model.decode(sliced, vmask).cpu().numpy()
+        mels_np = sliced.cpu().numpy()
+        results = []
+        for i, r in enumerate(rows):
+            w = waves[i, : (lens_l[i] - 1) * hop]  # vocos iSTFT: T frames -> (T-1)·hop
+            if 0 < r["rms"] < cfg.target_rms:
+                w = w * (r["rms"] / cfg.target_rms)
+            results.append((np.clip(w, -0.999, 0.999), sr, mels_np[i, :, : lens_l[i]]))
+        return results
 
     @torch.no_grad()
     def vocode_batch(self, mels: Sequence[np.ndarray]) -> List[np.ndarray]:

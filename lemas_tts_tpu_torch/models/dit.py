@@ -3,7 +3,8 @@
 
 The blocks are an ``nn.ModuleList`` run in a Python loop. Text embedding is
 a separate method so the sampler computes it once per utterance;
-``embed_inputs`` and ``head`` split the forward around the block stack. The
+``embed_inputs``, ``run_blocks`` and ``head`` split the forward around the
+block stack (the sampler's block-range cache runs it in three ranges). The
 long skip connection, the prosody projection and sequence parallelism are
 not ported: a config that asks for them raises.
 """
@@ -114,6 +115,13 @@ class DiT(nn.Module):
         h = self.input_embed(x.to(self.compute_dtype), cond.to(self.compute_dtype), text_embed)
         return h, t_emb, rope_angles(N, self.arch.dim_head, device=x.device)
 
+    def run_blocks(self, h, t_emb, mask, angles, start: int, stop: int) -> torch.Tensor:
+        """Blocks ``[start, stop)`` of the stack over ``h`` (the block-range
+        cache runs the stack in three such ranges)."""
+        for blk in self.transformer_blocks[start:stop]:
+            h = blk(h, t_emb, mask=mask, angles=angles)
+        return h
+
     def head(self, h: torch.Tensor, t_emb: torch.Tensor) -> torch.Tensor:
         """Final AdaLN and mel projection; returns f32 [B, N, mel_dim]."""
         return dense(self.norm_out(h, t_emb), self.proj_out).float()
@@ -124,8 +132,7 @@ class DiT(nn.Module):
         frames (keys)."""
         h, t_emb, angles = self.embed_inputs(x, cond, text_ids, time, drop_text=drop_text,
                                              text_embed=text_embed)
-        for blk in self.transformer_blocks:
-            h = blk(h, t_emb, mask=mask, angles=angles)
+        h = self.run_blocks(h, t_emb, mask, angles, 0, len(self.transformer_blocks))
         return self.head(h, t_emb)
 
 

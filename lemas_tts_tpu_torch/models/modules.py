@@ -18,6 +18,12 @@ its TPU path, on either device (the CPU runs each kernel's plain version):
   the split-head ``attention`` (K5);
 - FF side: ``ffn_block`` (K2) whenever it takes the widths, else the
   unfused chain.
+
+Under W8A8 int8 (``ops/quant.py``, the JAX ``int8``/``int8_ff`` split of
+``models/modules.py:488-495``) the quantized products are ``QuantLinear``s:
+``int8`` quantizes q/k/v, the output projection and both FF products, so the
+block leaves K1 and K2 and K3 still runs on the int8 q/k/v; ``int8_ff``
+quantizes the FF products only, so only K2 is left.
 """
 
 from __future__ import annotations
@@ -33,11 +39,15 @@ from torch import nn
 from lemas_tts_tpu_torch.ops.attention import attention, nhd_supported, vmem_attention_nhd
 from lemas_tts_tpu_torch.ops.ffn import (ffn_block, ffn_block_supported, qkv_block,
                                          qkv_block_supported)
+from lemas_tts_tpu_torch.ops.quant import QuantLinear, int8_dense_shared
 from lemas_tts_tpu_torch.ops.rope import apply_rope
 
 
-def dense(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
-    """flax ``nn.Dense(dtype=x.dtype)``: product in x's dtype, then + bias."""
+def dense(x: torch.Tensor, lin: nn.Module) -> torch.Tensor:
+    """flax ``nn.Dense(dtype=x.dtype)``: product in x's dtype, then + bias;
+    a ``QuantLinear`` runs the W8A8 product (``ops/quant.py:int8_dense``)."""
+    if isinstance(lin, QuantLinear):
+        return lin(x)
     y = torch.matmul(x, lin.weight.to(x.dtype).t())
     return y if lin.bias is None else y + lin.bias.to(x.dtype)
 
@@ -197,7 +207,10 @@ class Attention(nn.Module):
     def forward(self, x, mask=None, angles=None):
         """Unfused chain: x is the modulated, normalised residual stream."""
         B, N, _ = x.shape
-        q, k, v = (dense(x, lin) for lin in (self.to_q, self.to_k, self.to_v))
+        if isinstance(self.to_q, QuantLinear):  # int8: x quantized once for q, k, v
+            q, k, v = int8_dense_shared(x, (self.to_q, self.to_k, self.to_v))
+        else:
+            q, k, v = (dense(x, lin) for lin in (self.to_q, self.to_k, self.to_v))
         if angles is not None and nhd_supported(self.heads, self.dim_head, N, self.qk_norm,
                                                 self.pe_attn_head):
             return self.project_out(vmem_attention_nhd(q, k, v, mask, angles, self.heads), mask)
@@ -257,14 +270,19 @@ class DiTBlock(nn.Module):
         self.ff = FeedForward(dim, ff_mult)
 
     def fused_attn_ok(self, n: int) -> bool:
-        """Whether K1 + K3 take the attention side at sequence length ``n``."""
+        """Whether K1 + K3 take the attention side at sequence length ``n``
+        (not under int8: quantized q/k/v leave K1, and K3 still runs)."""
         a = self.attn
-        return (nhd_supported(a.heads, a.dim_head, n, a.qk_norm, a.pe_attn_head)
+        return (not isinstance(a.to_q, QuantLinear)
+                and nhd_supported(a.heads, a.dim_head, n, a.qk_norm, a.pe_attn_head)
                 and qkv_block_supported(n, a.to_q.in_features, a.heads * a.dim_head))
 
     def fused_ff_ok(self, n: int) -> bool:
-        """Whether K2 takes the FF side at sequence length ``n``."""
-        return ffn_block_supported(n, self.ff.ff[2].out_features, self.ff.ff[2].in_features)
+        """Whether K2 takes the FF side at sequence length ``n`` (not under
+        ``int8`` or ``int8_ff``: the quantized FF products leave K2)."""
+        down = self.ff.ff[2]
+        return (not isinstance(down, QuantLinear)
+                and ffn_block_supported(n, down.out_features, down.in_features))
 
     def forward(self, x, t_emb, mask=None, angles=None):
         sh_a, sc_a, g_a, sh_m, sc_m, g_m = self.attn_norm(t_emb)

@@ -32,7 +32,7 @@ import math
 
 import torch
 
-from lemas_tts_tpu_torch.ops import _cuda
+from lemas_tts_tpu_torch.ops import _cuda, launches
 
 NEG_INF = -1e30  # score of a padded key
 M_FLOOR = -1e29  # K3's running-max floor in its chunked regime
@@ -84,7 +84,7 @@ def vmem_attention(q, k, v, mask=None):
         None if mask is None else mask.data_ptr(), out.data_ptr(), B, N, H, _f32_scale(D),
         _cuda.stream_ptr(q.device))
     _cuda.check(err, "attention_bhnd")
-    vmem_attention.launches += 1
+    launches.count(vmem_attention)
     return out
 
 
@@ -188,7 +188,7 @@ def vmem_attention_nhd(q, k, v, mask, angles, heads: int, pack_pair: bool = Fals
         return vmem_attention_nhd_plain(q, k, v, mask, angles, heads,
                                         start_max=nhd_start_max(q.shape[1]))
     out = _launch_nhd("lemas_attention_nhd", q, k, v, mask, angles, heads)
-    vmem_attention_nhd.launches += 1
+    launches.count(vmem_attention_nhd)
     return out
 
 
@@ -205,7 +205,7 @@ def vmem_attention_nhd_pack(q, k, v, mask, angles, heads: int):
                   f"the head-pair kernel takes d64 heads in pairs, not {heads} heads of "
                   f"{q.shape[-1] / heads:g}")
     out = _launch_nhd("lemas_attention_nhd_pack", q, k, v, mask, angles, heads)
-    vmem_attention_nhd_pack.launches += 1
+    launches.count(vmem_attention_nhd_pack)
     return out
 
 

@@ -25,7 +25,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from lemas_tts_tpu_torch.ops import _cuda
+from lemas_tts_tpu_torch.ops import _cuda, launches
 
 LN_EPS = 1e-6
 # The f32 kernels' tiles (csrc/ln_mod_gemm.cuh BM, BN, BK) bound the shapes
@@ -122,7 +122,7 @@ def qkv_block(x, scale, shift, wq, bq, wk, bk, wv, bv, *, ln_pass=QKV_LN_PASS):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None if scratch is None else scratch.data_ptr(),
         B * N, N, D, inner, int(ln_pass), _cuda.stream_ptr(x.device))
     _cuda.check(err, "qkv_block")
-    qkv_block.launches += 1
+    launches.count(qkv_block)
     return q, k, v
 
 
@@ -157,7 +157,7 @@ def ffn_block(x, scale, shift, gate, w1, b1, w2, b2):
         h.data_ptr(), None if stats is None else stats.data_ptr(), out.data_ptr(), B * N, N, D,
         Fh, _cuda.stream_ptr(x.device))
     _cuda.check(err, "ffn_block")
-    ffn_block.launches += 1
+    launches.count(ffn_block)
     return out
 
 

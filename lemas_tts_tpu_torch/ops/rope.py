@@ -9,12 +9,23 @@ import numpy as np
 import torch
 
 
+_ANGLES: dict = {}
+
+
 def rope_angles(seq_len: int, dim: int, theta: float = 10000.0,
                 device=None) -> torch.Tensor:
-    """Per-position, per-pair rotation angles [seq_len, dim//2] (float32)."""
-    inv_freq = 1.0 / (theta ** (np.arange(0, dim, 2, dtype=np.float32) / dim))
-    t = np.arange(seq_len, dtype=np.float32)
-    return torch.from_numpy(np.outer(t, inv_freq).astype(np.float32)).to(device)
+    """Per-position, per-pair rotation angles [seq_len, dim//2] (float32).
+    Built once per (shape, device) and shared by every caller, who must not
+    write to it: a forward inside a CUDA graph capture copies nothing from
+    the host."""
+    key = (seq_len, dim, theta, str(torch.device(device or "cpu")))
+    angles = _ANGLES.get(key)
+    if angles is None:
+        inv_freq = 1.0 / (theta ** (np.arange(0, dim, 2, dtype=np.float32) / dim))
+        t = np.arange(seq_len, dtype=np.float32)
+        angles = torch.from_numpy(np.outer(t, inv_freq).astype(np.float32)).to(device)
+        _ANGLES[key] = angles
+    return angles
 
 
 def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:

@@ -14,12 +14,21 @@ import torch
 import torch.nn.functional as F
 
 
+_WINDOWS: dict = {}
+
+
 def hann_window(win_length: int, device=None) -> torch.Tensor:
     """Periodic Hann window, as ``torch.hann_window(N)``, computed in f64 and
-    rounded to f32 like the JAX package's."""
-    n = np.arange(win_length)
-    w = 0.5 * (1.0 - np.cos(2.0 * np.pi * n / win_length))
-    return torch.from_numpy(w.astype(np.float32)).to(device)
+    rounded to f32 like the JAX package's. Made once per (length, device) and
+    shared by every caller, who must not write to it: a copy from the host
+    per call would wait for the card to finish the work queued before it."""
+    key = (win_length, str(torch.device(device or "cpu")))
+    w = _WINDOWS.get(key)
+    if w is None:
+        n = np.arange(win_length)
+        w = 0.5 * (1.0 - np.cos(2.0 * np.pi * n / win_length))
+        w = _WINDOWS[key] = torch.from_numpy(w.astype(np.float32)).to(device)
+    return w
 
 
 def stft(x, n_fft: int, hop_length: int, win_length=None) -> torch.Tensor:

@@ -4,6 +4,7 @@
  - ``tts_multilingual``         — zero-shot multilingual TTS
  - ``speech_edit_multilingual`` — alignment-JSON-driven speech editing
  - ``g2p``                      — offline batch text → phone strings
+ - ``serve_http``               — the HTTP server on the batching engine
 
 Run as modules: ``python -m lemas_tts_tpu_torch.scripts.tts_multilingual
 --help``. They run on CUDA unless ``--device cpu`` is given, and never fall

@@ -53,9 +53,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cfg_cutoff", type=float, default=None,
                    help="Skip the uncond CFG forward once cfg_strength*(1-t)^2 < cutoff.")
     p.add_argument("--block_cache", type=str, default=None,
-                   help="Block-range residual cache (not ported yet: refused).")
+                   help="Block-range residual cache 'lo-hi:every[+hN][+tN]' (e.g. '2-20:2'): "
+                        "those DiT blocks are recomputed only on refresh steps.")
     p.add_argument("--ode_method", type=str, default="euler", choices=["euler", "midpoint"],
-                   help="ODE solver (midpoint is not ported yet: refused).")
+                   help="ODE solver: euler (reference parity) | midpoint (2nd order).")
     p.add_argument("--ref_ratio", type=float, default=1.0,
                    help="GRL conditioning clip ratio (<1 shuffles the ref mel).")
     p.add_argument("--no_ref_audio", action="store_true",
@@ -83,8 +84,6 @@ def refuse_unported(args) -> None:
     with their own parsers, hence ``getattr``)."""
     unported = [
         (getattr(args, "denoise", False), "--denoise (UVR5 denoising)"),
-        (getattr(args, "block_cache", None), "--block_cache (the block-range residual cache)"),
-        (getattr(args, "ode_method", "euler") != "euler", "--ode_method midpoint"),
         (args.enable_prosody_encoder, "--enable_prosody_encoder (the prosody encoder)"),
         (args.attn_backend is not None, "--attn_backend (the JAX attention backends)"),
         (hasattr(args, "ref_text") and not args.ref_text.strip(),
@@ -119,7 +118,7 @@ def main(argv=None) -> int:
         speed=args.speed, separate_langs=args.separate_langs, use_acc_grl=args.use_acc_grl,
         ref_ratio=args.ref_ratio, no_ref_audio=args.no_ref_audio,
         fix_duration=args.fix_duration, seed=seed, file_wave=args.output_wave,
-        file_spec=args.output_spec or None)
+        file_spec=args.output_spec or None, block_cache=args.block_cache)
     print(f"[tts] wrote {args.output_wave}: {len(wav) / sr:.2f} s @ {sr} Hz (seed {seed})")
     return 0
 

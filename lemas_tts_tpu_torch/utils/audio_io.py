@@ -17,11 +17,16 @@ _PCM, _FLOAT, _EXTENSIBLE = 1, 3, 0xFFFE
 
 
 def read_wav(path: str) -> Tuple[np.ndarray, int]:
-    """Decode a RIFF/WAVE file -> (float32 [channels, T], sample_rate). The
-    chunks are walked as the JAX package's native decoder walks them; the data
-    chunk is clamped to the bytes present."""
+    """Decode a RIFF/WAVE file -> (float32 [channels, T], sample_rate)."""
     with open(path, "rb") as f:
-        buf = f.read()
+        return decode_wav(f.read(), path)
+
+
+def decode_wav(buf: bytes, path: str = "<bytes>") -> Tuple[np.ndarray, int]:
+    """Decode RIFF/WAVE bytes -> (float32 [channels, T], sample_rate). The
+    chunks are walked as the JAX package's native decoder walks them; the data
+    chunk is clamped to the bytes present. ``path`` names the source in
+    errors."""
     if len(buf) < 12 or buf[:4] != b"RIFF" or buf[8:12] != b"WAVE":
         raise ValueError(f"{path!r} is not a RIFF/WAVE file")
     fmt = ch = sr = bits = None

@@ -8,14 +8,19 @@ JAX package on the CPU.
   passed as the port's ``noise_override``: the mel agrees within 2e-4 of its
   peak (f32), and its kept frames equal the cond mel bit for bit.
 - The CLIs run end to end with ``--device cpu``, fail without CUDA when no
-  device is given, and refuse each unported flag with
-  ``NotImplementedError``.
+  device is given, refuse each unported flag with ``NotImplementedError``,
+  and pass ``--block_cache`` and ``--ode_method midpoint`` to the sampler as
+  the JAX CLIs do.
 - 24-bit and float32 WAV (and EXTENSIBLE headers) read equal to the JAX
-  ``read_audio``.
+  package's WAV decoder, ``audioproc_wav_decode`` of ``native/audioproc.cpp``,
+  which the test compiles into its own directory.
 """
 
+import ctypes
 import json
+import pathlib
 import struct
+import subprocess
 import warnings
 
 import numpy as np
@@ -28,7 +33,6 @@ from lemas_tts_tpu import TTS as JTTS
 from lemas_tts_tpu.config import SamplerConfig as JSamplerConfig
 from lemas_tts_tpu.infer import editing as jediting
 from lemas_tts_tpu.scripts import g2p as jg2p
-from lemas_tts_tpu.utils.audio_io import read_audio as jread_audio
 from lemas_tts_tpu_torch import TTS
 from lemas_tts_tpu_torch import weights
 from lemas_tts_tpu_torch.cfm.sampler import DURATION_BUCKETS, pick_bucket
@@ -115,10 +119,27 @@ def test_edit_speech_matches_jax(pair, opts):
 
 
 def test_edit_speech_refuses_block_cache(pair):
-    _, tts, _ = pair
-    with pytest.raises(NotImplementedError, match="block_cache"):
-        editing.edit_speech(tts.synth, np.zeros(8000, np.float32), 8000, list("ab"), [(0.1, 0.2)],
-                            cfg=SamplerConfig(block_cache="0-2:2"))
+    """The block cache, once refused, is ported: an edit with it (and CFG
+    truncation) matches the JAX edit with it, as the plain edit above does,
+    and the kept frames are still the cond mel bit for bit."""
+    jtts, tts, _ = pair
+    sr, seed, tokens, parts = 8000, 6, list("abc def."), [(0.5, 1.0)]
+    wav = (0.2 * np.random.default_rng(2).standard_normal(2 * sr)).astype(np.float32)
+    kw = dict(nfe_steps=5, cfg_strength=2.0, sway_sampling_coef=1.0, cfg_cutoff=0.5,
+              block_cache="0-22:2+t2")
+    jw, jsr, jmel = jediting.edit_speech(jtts.synth, wav, sr, tokens, parts,
+                                         cfg=JSamplerConfig(**kw), seed=seed)
+    frames = tts.synth.ref_mel(wav).shape[0]
+    N = pick_bucket(max(max(len(tokens), frames) + 1, len(wav) // 64), DURATION_BUCKETS)
+    noise = np.asarray(jax.random.normal(jax.random.key(seed), (N, 20), jnp.float32))
+    w, out_sr, mel = editing.edit_speech(tts.synth, wav, sr, tokens, parts,
+                                         cfg=SamplerConfig(**kw), seed=seed, noise_override=noise)
+    assert tts.synth._settings(SamplerConfig(**kw)).block_cache_range == (0, 2)
+    assert out_sr == jsr and mel.shape == jmel.shape
+    np.testing.assert_allclose(mel, jmel, rtol=2e-4, atol=2e-4 * np.abs(jmel).max())
+    np.testing.assert_allclose(w, jw, rtol=2e-4, atol=2e-4 * np.abs(jw).max())
+    keep = editing.build_edit_mask(parts, len(wav), sr, 64)[:frames]
+    np.testing.assert_array_equal(mel.T[:frames][keep], tts.synth.ref_mel(wav)[keep])
 
 
 def _edit_dirs(d):
@@ -215,11 +236,60 @@ def test_cli_without_cuda_fails(pair, cli):
     ("edit", ["--ode_method", "midpoint"], "midpoint"),
     ("edit", ["--use_prosody_encoder"], "prosody"),
     ("edit", ["--attn_backend", "xla"], "attn_backend")])
-def test_cli_refuses_unported_flags(pair, cli, flags, feature):
+def test_cli_refuses_unported_flags(pair, cli, flags, feature, monkeypatch):
+    """Flags of what is not ported raise ``NotImplementedError`` naming it.
+    ``--block_cache`` and ``--ode_method midpoint``, once refused, are ported:
+    the CLI runs end to end on the CPU, and hands the sampler the settings
+    the JAX CLI hands its sampler for the same flags."""
     _edit_dirs(pair[2])
     main, args = _cli_args(pair[2], cli)
-    with pytest.raises(NotImplementedError, match=feature):
-        main(args + flags + ["--device", "cpu"])
+    argv = args + flags + ["--device", "cpu", "--nfe_step", "2"]
+    if feature not in ("block_cache", "midpoint"):
+        with pytest.raises(NotImplementedError, match=feature):
+            main(argv)
+        return
+    from lemas_tts_tpu.infer import editing as jediting_mod
+    from lemas_tts_tpu.infer.pipeline import Synthesizer as JSynthesizer
+    from lemas_tts_tpu.scripts import speech_edit_multilingual as jedit_cli
+    from lemas_tts_tpu.scripts import tts_multilingual as jtts_cli
+    from lemas_tts_tpu_torch.infer.pipeline import Synthesizer
+
+    class Seen(Exception):
+        pass
+
+    seen = {}
+
+    def spy(key, fn=None):
+        def wrapped(*a, **kw):
+            seen[key] = kw["cfg"]
+            if fn is None:  # the JAX side: the settings are all it is asked for
+                raise Seen
+            return fn(*a, **kw)
+        return wrapped
+
+    if cli == "tts":
+        monkeypatch.setattr(Synthesizer, "synthesize_chunks",
+                            spy("port", Synthesizer.synthesize_chunks))
+        monkeypatch.setattr(JSynthesizer, "synthesize_chunks", spy("jax"))
+        jmain = jtts_cli.main
+    else:
+        monkeypatch.setattr(editing, "edit_speech", spy("port", editing.edit_speech))
+        monkeypatch.setattr(jediting_mod, "edit_speech", spy("jax"))
+        jmain = jedit_cli.main
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        assert main(argv) == 0
+        with pytest.raises(Seen):
+            jmain(argv)
+    fields = ("nfe_steps", "cfg_strength", "sway_sampling_coef", "cfg_cutoff", "block_cache",
+              "ode_method")
+    got = {f: getattr(seen["port"], f) for f in fields}
+    assert got == {f: getattr(seen["jax"], f) for f in fields}
+    assert got["block_cache" if feature == "block_cache" else "ode_method"] == (
+        "0-2:2" if feature == "block_cache" else "midpoint")
+    out = pair[2] / ("x.wav" if cli == "tts" else "x/utt1.wav")
+    w, sr = read_audio(str(out))
+    assert sr == 8000 and w.size > 0 and np.isfinite(w).all()
 
 
 def _wav_bytes(samples: np.ndarray, fmt: int, bits: int, extensible: bool) -> bytes:
@@ -237,10 +307,44 @@ def _wav_bytes(samples: np.ndarray, fmt: int, bits: int, extensible: bool) -> by
     return b"RIFF" + struct.pack("<I", len(body)) + body
 
 
+@pytest.fixture(scope="module")
+def audioproc(tmp_path_factory):
+    """The JAX package's WAV decoder (``native/audioproc.cpp``), compiled with
+    the flags of ``native/Makefile`` into this module's own directory and
+    loaded with the argtypes of ``lemas_tts_tpu/native/audio.py``: the
+    reference does not depend on a shared ``native/build`` that parallel
+    test workers may be building at the same time."""
+    src = pathlib.Path(__file__).resolve().parent.parent / "native" / "audioproc.cpp"
+    so = tmp_path_factory.mktemp("audioproc") / "libaudioproc.so"
+    subprocess.run(["g++", "-O3", "-std=c++17", "-fPIC", "-Wall", "-Wextra",
+                    "-fvisibility=hidden", "-shared", "-o", str(so), str(src)],
+                   check=True, capture_output=True, timeout=300)
+    lib = ctypes.CDLL(str(so))
+    u8p, f32p = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_float)
+    i32, i64 = ctypes.c_int32, ctypes.c_int64
+    lib.audioproc_wav_info.restype = ctypes.c_int
+    lib.audioproc_wav_info.argtypes = [u8p, i64, ctypes.POINTER(i32), ctypes.POINTER(i32),
+                                       ctypes.POINTER(i64)]
+    lib.audioproc_wav_decode.restype = ctypes.c_int
+    lib.audioproc_wav_decode.argtypes = [u8p, i64, f32p]
+
+    def decode(data: bytes):
+        buf = (ctypes.c_uint8 * len(data)).from_buffer_copy(data)
+        ch, sr, frames = i32(), i32(), i64()
+        assert lib.audioproc_wav_info(buf, len(data), ctypes.byref(ch), ctypes.byref(sr),
+                                      ctypes.byref(frames)) == 0
+        out = np.empty((ch.value, frames.value), dtype=np.float32)
+        assert lib.audioproc_wav_decode(buf, len(data),
+                                        out.ctypes.data_as(f32p)) == 0
+        return out, sr.value
+
+    return decode
+
+
 @pytest.mark.parametrize("kind", ["pcm24", "float32", "pcm24-ext", "float32-ext", "pcm16",
                                   "pcm32"])
 @pytest.mark.parametrize("channels", [1, 2])
-def test_read_audio_matches_jax(tmp_path, kind, channels):
+def test_read_audio_matches_jax(tmp_path, audioproc, kind, channels):
     rng = np.random.default_rng(channels)
     x = np.clip(0.5 * rng.standard_normal((channels, 4001)), -1, 0.999).astype(np.float32)
     if kind.startswith("float32"):
@@ -256,7 +360,7 @@ def test_read_audio_matches_jax(tmp_path, kind, channels):
     path = tmp_path / f"{kind}.wav"
     path.write_bytes(_wav_bytes(np.ascontiguousarray(samples), fmt, bits, kind.endswith("ext")))
     got, sr = read_audio(str(path))
-    want, jsr = jread_audio(str(path))
+    want, jsr = audioproc(path.read_bytes())
     assert sr == jsr == 8000 and got.dtype == np.float32 and got.shape == (channels, 4001)
     np.testing.assert_array_equal(got, want)
     if kind.startswith(("float32", "pcm24")):

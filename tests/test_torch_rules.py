@@ -30,7 +30,8 @@ def test_import_leaves_jax_out():
         "names = [m.name for m in pkgutil.walk_packages(lemas_tts_tpu_torch.__path__,"
         " 'lemas_tts_tpu_torch.')]\n"
         "for sub in ('text.frontend', 'text.en_ipa', 'scripts.tts_multilingual',"
-        " 'scripts.speech_edit_multilingual', 'scripts.g2p', 'infer.editing'):\n"
+        " 'scripts.speech_edit_multilingual', 'scripts.g2p', 'infer.editing',"
+        " 'scripts.serve_http', 'serve.engine', 'serve.batcher', 'cfm.graph', 'ops.quant'):\n"
         "    assert 'lemas_tts_tpu_torch.' + sub in names, sub\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
@@ -95,11 +96,80 @@ def test_tts_without_cuda_raises():
 
 
 @pytest.mark.parametrize("option", [dict(quantization="int8"), dict(ode_method="midpoint")])
-def test_unported_options_raise(option):
-    from lemas_tts_tpu_torch import TTS
+def test_unported_options_raise(option, tmp_path):
+    """Options once refused are ported: ``TTS(quantization="int8")`` and
+    ``TTS(ode_method="midpoint")`` build, and ``synthesize_chunks`` on the
+    weights of the JAX ``TTS`` with the same option (carried over as floats;
+    the port quantizes them as they load) and the same noise matches it.
+    Midpoint: f32, 2e-4 of the peak. int8: an activation code may land a
+    quantum off where the two packages' f32 activations straddle a half, so
+    the bar is twice the port's own rel-L2 change under a 2e-6 relative
+    nudge of the noise (at most 1e-2; see tests/test_torch_quant.py), at NFE
+    4 and at NFE 1. The sampler's steps spread a flipped code: at NFE 4 the
+    float port (the same weights, not quantized) lies inside the bar too
+    (mel rel-L2 3.4e-3 against a bar of 5.3e-3), at NFE 1 it lies outside
+    (5.9e-3 against ~3e-3, the int8 port 3.8e-4), and the test asserts so.
+    A port that skipped quantization would also fail its own bar, which its
+    smooth response to the nudge sets near 4e-6."""
+    import numpy as np
+    import warnings
 
-    with pytest.raises(NotImplementedError):
-        TTS(model="tests/data/tiny.yaml", device="cpu", **option)
+    from lemas_tts_tpu import TTS as JTTS
+    from lemas_tts_tpu.config import SamplerConfig as JSamplerConfig
+    from lemas_tts_tpu_torch import TTS, weights
+    from lemas_tts_tpu_torch.config import SamplerConfig
+
+    vocab = tmp_path / "vocab.txt"
+    vocab.write_text("\n".join([" "] + list("abcdefghijklmnopqrstuvwxyz") + [",", ".", "!"])
+                     + "\n")
+    kw = dict(model="tests/data/tiny.yaml", vocab_file=str(vocab), frontend=None, device="cpu")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        jfloat = JTTS(**kw)
+        jtts = JTTS(**kw, **option)
+        tts = TTS(**kw, **option)
+    tts.load_weights(weights.dit_state_from_jax(jfloat.synth.dit_params),
+                     weights.vocos_state_from_jax(jfloat.synth.vocoder_params))
+    rng = np.random.default_rng(0)
+    ref = (0.2 * np.sin(2 * np.pi * 180 * np.arange(12000) / 16000)
+           + 0.05 * rng.standard_normal(12000)).astype(np.float32)
+    noise = rng.standard_normal((512, 20)).astype(np.float32)
+    cfg = dict(nfe_steps=4, cfg_strength=2.0, sway_sampling_coef=1.0, max_duration=512,
+               ode_method=option.get("ode_method", "euler"))
+    args = (ref, 16000, "hello there. ", ["general kenobi.", "you are a bold one."])
+    jw, jsr, jmel = jtts.synth.synthesize_chunks(*args, cfg=JSamplerConfig(**cfg), seed=3,
+                                                 noise_override=noise)
+    w, sr, mel = tts.synth.synthesize_chunks(*args, cfg=SamplerConfig(**cfg), seed=3,
+                                             noise_override=noise)
+    assert sr == jsr and mel.shape == jmel.shape and w.shape == jw.shape
+    if "ode_method" in option:
+        np.testing.assert_allclose(mel, jmel, rtol=2e-4, atol=2e-4 * np.abs(jmel).max())
+        np.testing.assert_allclose(w, jw, rtol=2e-4, atol=2e-4 * np.abs(jw).max())
+        return
+
+    def rel_l2(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        ftts = TTS(**kw)  # the float port, to show that the bar rejects it
+    ftts.load_weights(weights.dit_state_from_jax(jfloat.synth.dit_params),
+                      weights.vocos_state_from_jax(jfloat.synth.vocoder_params))
+    nudged = noise * (1 + 2e-6 * rng.standard_normal(noise.shape)).astype(np.float32)
+    for nfe in (4, 1):
+        scfg = SamplerConfig(**dict(cfg, nfe_steps=nfe))
+        if nfe != 4:
+            jw, _, jmel = jtts.synth.synthesize_chunks(
+                *args, cfg=JSamplerConfig(**dict(cfg, nfe_steps=nfe)), seed=3,
+                noise_override=noise)
+            w, _, mel = tts.synth.synthesize_chunks(*args, cfg=scfg, seed=3, noise_override=noise)
+        nw, _, nmel = tts.synth.synthesize_chunks(*args, cfg=scfg, seed=3, noise_override=nudged)
+        bars = [min(2 * rel_l2(own, got), 1e-2) for own, got in ((nmel, mel), (nw, w))]
+        for got, want, bar in ((mel, jmel, bars[0]), (w, jw, bars[1])):
+            assert rel_l2(got, want) <= bar, (nfe, rel_l2(got, want), bar)
+    fw, _, fmel = ftts.synth.synthesize_chunks(*args, cfg=scfg, seed=3, noise_override=noise)
+    for unquantized, want, bar in ((fmel, jmel, bars[0]), (fw, jw, bars[1])):
+        assert rel_l2(unquantized, want) > bar, (rel_l2(unquantized, want), bar)
 
 
 @pytest.mark.parametrize("frontend", ["phone", "char"])
