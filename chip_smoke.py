@@ -57,7 +57,24 @@ Phases, in order (any failure raises; the exit code is then non-zero):
      (``/stats``), two ``/tts_stream`` requests of 3 chunks (the first
      captures, the second replays) equal, in order, to ``synthesize_stream``'s,
      ``/healthz`` and ``/config``, one B = 8 batch under ``torch.profiler``,
-     the card's reserved memory after warmup and after the waves.
+     the card's reserved memory after warmup and after the waves;
+ 10. prosody: the kaldi fbank and the ECAPA-TDNN encoder at its default widths
+     on the card against the CPU (f32) with their card ms;
+     ``multilingual_prosody`` with its default phone frontend: a warmed B = 1
+     request replaying its prosody graph (K1-K3 depth x 32 each, the mel
+     equal to a direct ``sample_mel`` with the same prosody text), the
+     request with ``use_prosody_encoder=False`` (its mel must differ by
+     ``PROSODY_MIN_REL_L2``), a profiled request, and
+     ``speech_edit_multilingual.main() --use_prosody_encoder`` (kept frames
+     equal to the reference mel plus the prosody offset, bit for bit);
+ 11. bigvgan: ``bigvgan_mel_spectrogram`` and the full-width generator
+     (112 M parameters) on the card against the CPU (f32, 64 frames), the
+     bf16 generator against f32 (bf16 tolerance), the vocoder's card ms for a 1024-frame mel
+     (profiled), then ``f5tts_base_bigvgan`` requests (K5 and K2 depth x 32
+     each, wave = frames x 256 samples) and a profiled request;
+ 12. unett: a depth-2 full-width ``e2tts_base`` UNetT card against CPU (K5
+     once a block at N 1025), then requests at full depth (K5 24 x 32 = 768
+     times) and a profiled request.
 On CUDA every request's sampler is a graph replay (its first request of a
 bucket runs eagerly and captures), so every count above is launches on the
 card. The line before the last is the ``kernels`` JSON record; the last line
@@ -557,12 +574,8 @@ def phase_dit() -> None:
     """Depth-2 models at full width on the card (kernels) against the same
     weights on the CPU (plain versions), in f32 and bf16; each card forward
     must launch its path's kernels once per block and no other."""
-    import dataclasses
-
-    import torch
-
     from lemas_tts_tpu_torch.config import load_model_config
-    from lemas_tts_tpu_torch.models.dit import DiT, cast_matrices
+    from lemas_tts_tpu_torch.models.dit import DiT
     from lemas_tts_tpu_torch.models.mmdit import MMDiT
 
     flagship, v0 = load_model_config("multilingual"), load_model_config("f5tts_base")
@@ -570,31 +583,44 @@ def phase_dit() -> None:
              ("flagship DiT, LEMAS_ATTN_PACK=1", DiT, flagship, True, PACK_KERNELS),
              ("f5tts_base DiT (v0)", DiT, v0, False, V0_KERNELS),
              ("MMDiT, flagship arch, text 256", MMDiT, flagship, False, MMDIT_KERNELS)]
-    mel, vocab = flagship.mel_spec.n_mel_channels, 64
-    inputs = _dit_inputs(torch, 1, 1024, mel, vocab, seed=0)
     for label, cls, cfg, pack, kernels in cases:
-        arch = dataclasses.replace(cfg.arch, depth=2)
-        torch.manual_seed(0)
-        state = cls(arch, mel_dim=mel, text_num_embeds=vocab).state_dict()
-        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-            outs = []
-            for dev in ("cpu", "cuda"):
-                model = cls(arch, mel_dim=mel, text_num_embeds=vocab, compute_dtype=dtype)
-                model.load_state_dict(state)
-                model = cast_matrices(model, dtype).to(dev).eval()
-                reset_counters()
-                with attn_pack(pack), torch.no_grad():
-                    outs.append(model(*(t.to(dev) for t in inputs)).float().cpu())
-                launches = read_counters()
-            got, ref = outs[1], outs[0]
-            rl2 = rel_l2(got, ref)
-            print(f"[dit] {label}, depth 2, rows 2, N 1024, {tag}: card (kernels) vs CPU "
-                  f"(plain) rel-L2 {rl2:.3e} max-abs {max_abs(got, ref):.3e} "
-                  f"(tol {TOL_REL_L2[tag]:.0e}); card launches {launches}", flush=True)
-            check(bool(torch.isfinite(got).all()), f"{label} {tag} output not finite")
-            check(rl2 <= TOL_REL_L2[tag], f"{label} {tag}: rel-L2 {rl2:.3e} over tolerance")
-            want = expected_launches(kernels, arch.depth)
-            check(launches == want, f"{label} {tag}: launches {launches}, expected {want}")
+        depth2_forward("dit", label, cls, cfg, pack, kernels)
+
+
+def depth2_forward(tag: str, label: str, cls, cfg, pack: bool, kernels) -> None:
+    """A depth-2 model of ``cfg``'s arch at full width on the card (kernels)
+    against the same weights on the CPU (plain versions), in f32 and bf16;
+    each card forward must launch ``kernels`` once per block and no other."""
+    import dataclasses
+
+    import torch
+
+    from lemas_tts_tpu_torch.models.dit import cast_matrices
+
+    mel, vocab = cfg.mel_spec.n_mel_channels, 64
+    inputs = _dit_inputs(torch, 1, 1024, mel, vocab, seed=0)
+    arch = dataclasses.replace(cfg.arch, depth=2)
+    torch.manual_seed(0)
+    state = cls(arch, mel_dim=mel, text_num_embeds=vocab).state_dict()
+    for dtype, dt in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        outs = []
+        for dev in ("cpu", "cuda"):
+            model = cls(arch, mel_dim=mel, text_num_embeds=vocab, compute_dtype=dtype)
+            model.load_state_dict(state)
+            model = cast_matrices(model, dtype).to(dev).eval()
+            reset_counters()
+            with attn_pack(pack), torch.no_grad():
+                outs.append(model(*(t.to(dev) for t in inputs)).float().cpu())
+            launches = read_counters()
+        got, ref = outs[1], outs[0]
+        rl2 = rel_l2(got, ref)
+        print(f"[{tag}] {label}, depth 2, rows 2, N 1024, {dt}: card (kernels) vs CPU "
+              f"(plain) rel-L2 {rl2:.3e} max-abs {max_abs(got, ref):.3e} "
+              f"(tol {TOL_REL_L2[dt]:.0e}); card launches {launches}", flush=True)
+        check(bool(torch.isfinite(got).all()), f"{label} {dt} output not finite")
+        check(rl2 <= TOL_REL_L2[dt], f"{label} {dt}: rel-L2 {rl2:.3e} over tolerance")
+        want = expected_launches(kernels, arch.depth)
+        check(launches == want, f"{label} {dt}: launches {launches}, expected {want}")
 
 
 def _reference_wave(sr: int, seconds: float, seed: int):
@@ -749,6 +775,29 @@ def _edit_inputs(d: Path) -> tuple:
     return wav_path, align_dir, display.replace(orig, new)
 
 
+def _unit_vocab(d: Path, rtext: str, edit_text: str) -> tuple:
+    """A vocab of " " and every unit of this run's texts (the reference, the
+    generated text, the edit's target), in both frontends and in their
+    separate_langs forms. Returns (vocab path, the frontends by name, the
+    units by (frontend, text))."""
+    import types
+
+    from lemas_tts_tpu_torch.api import process_phone_list
+    from lemas_tts_tpu_torch.scripts import speech_edit_multilingual as edit_cli
+    from lemas_tts_tpu_torch.text import TextNorm
+
+    frontends = {dt: TextNorm(dt) for dt in ("phone", "char")}
+    units = {(dt, t): _frontend_units(fe, t) for dt, fe in frontends.items()
+             for t in (rtext, GEN_TEXT)}
+    edit_units = edit_cli.build_tokens_from_text(
+        types.SimpleNamespace(frontend=frontends["phone"]), edit_text)
+    seqs = list(units.values()) + [edit_units]
+    vocab_units = sorted({u for q in seqs for u in q + process_phone_list(q)} - {" "})
+    vocab = d / "phone_vocab.txt"
+    vocab.write_text("\n".join([" "] + vocab_units) + "\n")
+    return vocab, frontends, units
+
+
 def phase_frontend(dev: dict, model: str = "multilingual") -> dict:
     """The text frontend on the flagship at full depth and width: ``TTS`` with
     its default ``frontend="phone"`` on a phone vocab made by the port's
@@ -759,18 +808,15 @@ def phase_frontend(dev: dict, model: str = "multilingual") -> dict:
     K1-K3 depth x 64 each) with its kept frames held bit for bit against the
     reference mel. Returns the launch counts summed over these runs."""
     import importlib.util
-    import types
 
     import numpy as np
     import torch
 
     from lemas_tts_tpu_torch import TTS
-    from lemas_tts_tpu_torch.api import process_phone_list
     from lemas_tts_tpu_torch.config import SamplerConfig
     from lemas_tts_tpu_torch.infer.pipeline import TEXT_BUCKETS, pick_bucket
     from lemas_tts_tpu_torch.infer.preprocess import preprocess_ref_audio_text
-    from lemas_tts_tpu_torch.scripts import speech_edit_multilingual as edit_cli
-    from lemas_tts_tpu_torch.text import TextNorm, tokenizer
+    from lemas_tts_tpu_torch.text import tokenizer
     from lemas_tts_tpu_torch.utils.audio_io import write_wav
     from lemas_tts_tpu_torch.utils.vocab import text_to_ids
 
@@ -784,17 +830,7 @@ def phase_frontend(dev: dict, model: str = "multilingual") -> dict:
         write_wav(ref_path, _reference_wave(16000, 3.0, seed=0), 16000)
         wav, sr, rtext = preprocess_ref_audio_text(ref_path, REF_TEXT, show_info=lambda *_: None)
         wav_path, align_dir, edit_text = _edit_inputs(d)
-        # the vocab: " " and every unit of this run's texts, in both frontends
-        # and in their separate_langs forms
-        frontends = {dt: TextNorm(dt) for dt in ("phone", "char")}
-        units = {(dt, t): _frontend_units(fe, t) for dt, fe in frontends.items()
-                 for t in (rtext, GEN_TEXT)}
-        edit_units = edit_cli.build_tokens_from_text(
-            types.SimpleNamespace(frontend=frontends["phone"]), edit_text)
-        seqs = list(units.values()) + [edit_units]
-        vocab_units = sorted({u for q in seqs for u in q + process_phone_list(q)} - {" "})
-        vocab = d / "phone_vocab.txt"
-        vocab.write_text("\n".join([" "] + vocab_units) + "\n")
+        vocab, frontends, units = _unit_vocab(d, rtext, edit_text)
 
         t0 = time.perf_counter()
         tts = TTS(model=model, vocab_file=str(vocab))  # default frontend: "phone"
@@ -858,12 +894,14 @@ def phase_frontend(dev: dict, model: str = "multilingual") -> dict:
 
 
 def phase_edit(dev: dict, model: str, vocab: Path, wav_path: Path, align_dir: Path,
-               save_dir: Path) -> dict:
-    """Speech editing through the CLI's ``main()`` with its defaults, the
-    launch counts set to 0 just before and read just after. ``edit_speech``
-    is wrapped to keep what it was given and gave back; its kept frames must
-    equal the reference mel of the utterance bit for bit, every edited frame
-    must differ from it, and the written WAV must be finite."""
+               save_dir: Path, flags=(), tag: str = "edit") -> dict:
+    """Speech editing through the CLI's ``main()`` with its defaults (and
+    ``flags``), the launch counts set to 0 just before and read just after.
+    ``edit_speech`` is wrapped to keep what it was given and gave back; its
+    kept frames must equal the reference mel of the utterance bit for bit
+    (plus the ``prosody_to_mel`` offset of its embedding, when the edit is
+    prosody-conditioned), every edited frame must differ from it, and the
+    written WAV must be finite."""
     import numpy as np
     import torch
 
@@ -891,7 +929,7 @@ def phase_edit(dev: dict, model: str, vocab: Path, wav_path: Path, align_dir: Pa
         t0 = time.perf_counter()
         rc = edit_cli.main(["--wav", str(wav_path), "--align_dir", str(align_dir),
                             "--save_dir", str(save_dir), "--model", model,
-                            "--vocab_file", str(vocab), "--seed", "0"])
+                            "--vocab_file", str(vocab), "--seed", "0", *flags])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = read_counters()
@@ -903,13 +941,17 @@ def phase_edit(dev: dict, model: str, vocab: Path, wav_path: Path, align_dir: Pa
     wave, out_sr, mel = seen["out"]
     hop = synth.mel_cfg.hop_length
     ref = synth.ref_mel(seen["wav"])  # the cond mel edit_speech pasted from
+    prosody = synth.uses_prosody(cfg)
+    if prosody:  # the offset edit_speech added over the utterance's frames
+        ref = ref + synth.prosody_embedding(seen["wav"])[1][None, :]
     frames = ref.shape[0]
     keep = editing.build_edit_mask(seen["parts"], len(seen["wav"]), seen["sr"], hop)[:frames]
     check(mel.shape[1] > frames, f"edit: {mel.shape[1]} mel frames for {frames} of the utterance")
     got = mel.T[:frames]
     rms = float(np.sqrt(np.mean(np.square(seen["wav"]))))
     bucket = pick_bucket(mel.shape[1], DURATION_BUCKETS)
-    print(f"[edit] speech_edit_multilingual.main() on {synth.device}: NFE {cfg.nfe_steps}, CFG "
+    print(f"[{tag}] speech_edit_multilingual.main({' '.join(flags)}) on {synth.device}: "
+          f"prosody-conditioned {prosody}; NFE {cfg.nfe_steps}, CFG "
           f"{cfg.cfg_strength}, sway {cfg.sway_sampling_coef}; "
           f"{seen['wav'].shape[0] / seen['sr']:.2f} s utterance ({frames} mel frames, RMS "
           f"{rms:.3f}), {len(seen['tokens'])} units, edit span {seen['parts']} s, "
@@ -917,6 +959,8 @@ def phase_edit(dev: dict, model: str, vocab: Path, wav_path: Path, align_dir: Pa
           f"edit_speech {seen['seconds']:.3f} s, main() {wall:.3f} s wall (model build "
           f"included) on {dev['card']}; launches {launches}", flush=True)
     check(synth.device.type == "cuda", "the edit did not run on the card")
+    check(prosody == ("--use_prosody_encoder" in flags),
+          f"edit: prosody-conditioned {prosody} with flags {list(flags)}")
     check((cfg.nfe_steps, cfg.cfg_strength, cfg.sway_sampling_coef) == (64, 5.0, 3.0),
           "the edit CLI's defaults are not NFE 64, CFG 5, sway 3")
     check(seen["sr"] == out_sr == 24000 and rms >= cfg.target_rms,
@@ -928,7 +972,8 @@ def phase_edit(dev: dict, model: str, vocab: Path, wav_path: Path, align_dir: Pa
     check(launches == want, f"edit: launches {launches}, expected {want}")
     kept_equal = np.array_equal(got[keep], ref[keep])
     edited_differ = bool((got[~keep] != ref[~keep]).any(axis=1).all())
-    print(f"[edit] kept frames ({int(keep.sum())}) equal to the reference mel bit for bit: "
+    print(f"[{tag}] kept frames ({int(keep.sum())}) equal to the reference mel"
+          f"{' + prosody offset' if prosody else ''} bit for bit: "
           f"{kept_equal}; every regenerated frame differs from it: {edited_differ}", flush=True)
     check(kept_equal, "edit: kept frames differ from the reference mel")
     check(edited_differ and (~keep).any(), "edit: regenerated frames equal the reference mel")
@@ -1107,13 +1152,13 @@ def phase_graph(dev: dict) -> tuple:
                                            for k in got},
               f"launches {got} are not 1 replay of the one graph's")
         s = seen["settings"]
-        cond, cond_mask, text_ids, duration, y0, step_cond = seen["args"]
+        cond, cond_mask, text_ids, duration, y0, step_cond, prosody_text = seen["args"]
         grid = sway_time_grid(s.steps, s.sway_sampling_coef, s.t_start)
 
         def eager():
             return sample_mel(tts.dit, cond=cond, cond_mask=cond_mask, text_ids=text_ids,
                               duration=duration, y0=y0, time_grid=grid, settings=s,
-                              step_cond=step_cond)
+                              step_cond=step_cond, prosody_text=prosody_text)
 
         ref_out = eager()
         same = torch.equal(ref_out, seen["out"])
@@ -1171,7 +1216,7 @@ def phase_graph(dev: dict) -> tuple:
         # with graphed ones
         tts.synth.run_sampler = lambda st, *a: sample_mel(
             tts.dit, cond=a[0], cond_mask=a[1], text_ids=a[2], duration=a[3], y0=a[4],
-            step_cond=a[5], settings=st,
+            step_cond=a[5], prosody_text=a[6], settings=st,
             time_grid=sway_time_grid(st.steps, st.sway_sampling_coef, st.t_start))
         (wave, _, _), wall, got = count(
             "eager request", lambda: tts.infer(ref_path, REF_TEXT, GEN_TEXT, seed=0, **quiet),
@@ -1439,6 +1484,305 @@ def phase_serve(dev: dict, eager_b1: dict) -> dict:
     return totals
 
 
+# The prosody request's mel against the same request with the conditioning
+# off (same weights, noise and kernels): rel-L2 must reach this. Without the
+# conditioning the two would be one computation, rel-L2 0. The bar is about a
+# seventh of the CPU test's reading (tests/test_torch_prosody.py, tiny model,
+# NFE 32: 7.7e-4) and a twentieth of this phase's own on an H100 (2.08e-3), so
+# a path that kept the prosody_to_mel offset and lost the prosody text, or the
+# other way round, falls well short of the full conditioning's distance.
+PROSODY_MIN_REL_L2 = 1e-4
+
+
+def encoder_check(dev: dict) -> tuple:
+    """The fbank and the ECAPA encoder at their default widths on the card
+    against the CPU, f32 (TF32 off), on a 3 s reference at 16 kHz; the card
+    ms of each. Returns (fbank ms, encoder ms incl. fbank)."""
+    import torch
+
+    from lemas_tts_tpu_torch.models.prosody import ProsodyEncoder
+    from lemas_tts_tpu_torch.ops.fbank import extract_fbank_16k
+
+    wav = torch.from_numpy(_reference_wave(16000, 3.0, seed=0))
+    feats = {d: extract_fbank_16k(wav.to(d)) for d in ("cpu", "cuda")}
+    enc = {d: ProsodyEncoder.build(device=d) for d in ("cpu", "cuda")}  # same seeded weights
+    emb = {d: enc[d].embed(wav.to(d)) for d in ("cpu", "cuda")}
+    wav_c = wav.cuda()
+    fb_ms = device_ms([lambda: extract_fbank_16k(wav_c)])
+    enc_ms = device_ms([lambda: enc["cuda"].embed(wav_c)])
+    for name, got, ref in (("kaldi fbank [298, 80]", feats["cuda"], feats["cpu"]),
+                           ("ECAPA-TDNN embedding [512]", emb["cuda"], emb["cpu"])):
+        rl2 = rel_l2(got.cpu(), ref)
+        print(f"[prosody] {name}, 3 s at 16 kHz, f32: card vs CPU rel-L2 {rl2:.3e} max-abs "
+              f"{max_abs(got.cpu(), ref):.3e} (tol {TOL_REL_L2['f32']:.0e})", flush=True)
+        check(bool(torch.isfinite(got).all()) and rl2 <= TOL_REL_L2["f32"],
+              f"{name}: card vs CPU rel-L2 {rl2:.3e}")
+    profiled(lambda: enc["cuda"].embed(wav_c), "prosody fbank + encoder, 3 s reference, f32",
+             top=6)
+    c = enc["cuda"].cfg
+    print(f"[prosody] encoder (channels {list(c.channels)}, embed {c.embed_dim}, "
+          f"{sum(p.numel() for p in enc['cuda'].model.parameters()) / 1e6:.2f} M parameters) "
+          f"card ms per 3 s reference: fbank {fb_ms:.3f}, fbank + encoder {enc_ms:.3f} on "
+          f"{dev['card']}", flush=True)
+    return fb_ms, enc_ms
+
+
+def phase_prosody(dev: dict) -> dict:
+    """The prosody-conditioned ``multilingual_prosody`` (the flagship DiT and
+    the Pretssel encoder at their default widths, random weights): the fbank
+    and the encoder card against CPU; ``TTS`` with its default phone frontend,
+    a warmed B = 1 request replaying its prosody graph (K1-K3 depth x 32 each,
+    the mel equal to a direct ``sample_mel`` with the same prosody text), the
+    request with ``use_prosody_encoder=False`` (which must differ), one
+    request profiled; then ``speech_edit_multilingual.main()`` with
+    ``--use_prosody_encoder``. Returns the launch counts of the counted runs."""
+    import numpy as np
+    import torch
+
+    from lemas_tts_tpu_torch import TTS
+    from lemas_tts_tpu_torch.cfm.sampler import sample_mel, sway_time_grid
+    from lemas_tts_tpu_torch.config import SamplerConfig
+    from lemas_tts_tpu_torch.infer.pipeline import TEXT_BUCKETS, pick_bucket
+    from lemas_tts_tpu_torch.infer.preprocess import preprocess_ref_audio_text
+    from lemas_tts_tpu_torch.utils.audio_io import write_wav
+    from lemas_tts_tpu_torch.utils.vocab import text_to_ids
+
+    fb_ms, enc_ms = encoder_check(dev)
+    totals = dict.fromkeys(kernel_counters(), 0)
+    quiet = dict(show_info=lambda *_: None)
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        ref_path = str(d / "ref.wav")
+        write_wav(ref_path, _reference_wave(16000, 3.0, seed=0), 16000)
+        wav, sr, rtext = preprocess_ref_audio_text(ref_path, REF_TEXT, **quiet)
+        wav_path, align_dir, edit_text = _edit_inputs(d)
+        vocab, _, units = _unit_vocab(d, rtext, edit_text)
+        t0 = time.perf_counter()
+        tts = TTS(model="multilingual_prosody", vocab_file=str(vocab))
+        check(tts.device.type == "cuda" and tts.use_prosody_encoder
+              and tts.prosody_encoder.device.type == "cuda"
+              and tts.frontend is not None and tts.frontend.dtype == "phone",
+              "TTS(multilingual_prosody) is not the prosody model on the card")
+        depth = tts.config.arch.depth
+        ids = text_to_ids(units["phone", rtext] + units["phone", GEN_TEXT], tts.vocab)
+        nt = pick_bucket(len(ids), TEXT_BUCKETS)
+        plain = SamplerConfig(nfe_steps=32, cfg_strength=2.0, sway_sampling_coef=5)  # infer's
+        t1 = time.perf_counter()
+        n = tts.synth.warmup(plain, duration_buckets=(1024,), text_buckets=(nt,),
+                             batch_buckets=(1,))
+        print(f"[prosody] TTS(multilingual_prosody) built in {t1 - t0:.1f} s (phone frontend, "
+              f"depth {depth}); warmup captured {n} prosody graph (B 1, bucket 1024, text "
+              f"bucket {nt}) in {time.perf_counter() - t1:.1f} s", flush=True)
+        check(n == 1 and all(k[-1] for k in tts.synth._graphs),
+              f"warmup captured {n} graphs, not 1 prosody graph")
+
+        seen, run = {}, tts.synth.run_sampler
+
+        def recorded(settings, *args):
+            out = run(settings, *args)
+            seen.update(settings=settings, out=out.clone(),
+                        args=[None if a is None else a.clone() for a in args])
+            return out
+
+        tts.synth.run_sampler = recorded
+        try:
+            reset_counters()
+            (wave, _, spec_on), wall = _timed(lambda: tts.infer(ref_path, REF_TEXT, GEN_TEXT,
+                                                                seed=0, **quiet))
+            got = read_counters()
+        finally:
+            del tts.synth.run_sampler
+        for k in totals:
+            totals[k] += got[k]
+        audio = len(wave) / 24000
+        print(f"[prosody] B 1 request, prosody graph replay (NFE 32, CFG 2): {audio:.3f} "
+              f"audio-s in {wall:.3f} s = {audio / wall:.2f} audio-s/s on {dev['card']}; "
+              f"launches {got}", flush=True)
+        check(got == expected_launches(FLAGSHIP_KERNELS, depth * 32) and len(tts.synth._graphs)
+              == 1, f"prosody request: launches {got}, not one replay of the prosody graph")
+        check(wave.size > 0 and bool(np.isfinite(wave).all()), "prosody wave empty or not finite")
+        s = seen["settings"]
+        cond, cond_mask, text_ids, duration, y0, step_cond, pt = seen["args"]
+        check(pt is not None and tuple(pt.shape) == (1, nt, 512),
+              f"the sampler got prosody text {None if pt is None else tuple(pt.shape)}")
+        ref_out = sample_mel(tts.dit, cond=cond, cond_mask=cond_mask, text_ids=text_ids,
+                             duration=duration, y0=y0, step_cond=step_cond, prosody_text=pt,
+                             settings=s, time_grid=sway_time_grid(s.steps, s.sway_sampling_coef,
+                                                                  s.t_start))
+        same = torch.equal(ref_out, seen["out"])
+        err = rel_l2(seen["out"], ref_out)
+        print(f"[prosody] graphed mel against a direct sample_mel with the same prosody text: "
+              f"equal bit for bit {same}, rel-L2 {err:.3e}", flush=True)
+        check(same or err <= 1e-6, f"prosody graph replay differs from sample_mel: {err:.3e}")
+
+        reset_counters()
+        (_, _, spec_off), wall_off = _timed(lambda: tts.infer(
+            ref_path, REF_TEXT, GEN_TEXT, seed=0, use_prosody_encoder=False, **quiet))
+        got = read_counters()
+        for k in totals:
+            totals[k] += got[k]
+        check(got == expected_launches(FLAGSHIP_KERNELS, depth * 32),
+              f"unconditioned request: launches {got}")
+        diff = rel_l2(torch.from_numpy(spec_on), torch.from_numpy(spec_off)) \
+            if spec_on.shape == spec_off.shape else float("inf")
+        print(f"[prosody] the same request with use_prosody_encoder=False (a plain graph, "
+              f"{wall_off:.3f} s with its capture): mel rel-L2 against the prosody request "
+              f"{diff:.3e} (must reach {PROSODY_MIN_REL_L2:.0e}: unconditioned, the two "
+              f"would be one computation)", flush=True)
+        check(diff >= PROSODY_MIN_REL_L2, f"prosody request equals the unconditioned one: {diff}")
+        # both graphs captured: the request with and without the conditioning
+        # in turns, and the reference prep (host wall: it ends on the host)
+        # with and without the embedding
+        walls, preps = {True: [], False: []}, {True: [], False: []}
+        for on in (True, False, False, True):
+            walls[on].append(_timed(lambda: tts.infer(ref_path, REF_TEXT, GEN_TEXT, seed=1,
+                                                      use_prosody_encoder=on, **quiet))[1])
+            cfg = SamplerConfig(use_prosody_encoder=on)
+            preps[on].append(_timed(lambda: tts.synth._prepare_ref(wav, sr, cfg))[1] * 1e3)
+        print(f"[prosody] replayed requests in turns (on, off, off, on): wall s with prosody "
+              f"{[round(w, 4) for w in walls[True]]}, without {[round(w, 4) for w in walls[False]]}"
+              f"; reference prep ms with the embedding {[round(w, 2) for w in preps[True]]}, "
+              f"without {[round(w, 2) for w in preps[False]]}; the encoder and its fbank "
+              f"{enc_ms:.3f} ms (device_ms) on {dev['card']}", flush=True)
+        profile_request(tts, ref_path, REF_TEXT, GEN_TEXT)
+        del tts
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches = phase_edit(dev, "multilingual_prosody", vocab, wav_path, align_dir,
+                              d / "edited", flags=("--use_prosody_encoder",), tag="prosody")
+        totals = {k: totals[k] + launches[k] for k in totals}
+    return totals
+
+
+BIGVGAN_FRAMES = 64  # a short mel: the CPU runs the f32 generator too
+
+
+def phase_bigvgan(dev: dict) -> dict:
+    """The BigVGAN-vocoded F5-TTS ``f5tts_base_bigvgan``: the full-width
+    generator (bigvgan_v2_24khz_100band_256x widths, random weights) on the
+    card against the CPU in f32 on a 64-frame mel of the reference, its bf16
+    form against f32, ``bigvgan_mel_spectrogram`` card against CPU, the
+    vocoder's card ms for a 1024-frame mel (profiled), then ``TTS.infer``
+    (one warm-up, one timed request, K5 and K2 depth x 32 each, wave length
+    = frames x 256) and a profiled request. Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from lemas_tts_tpu_torch import TTS
+    from lemas_tts_tpu_torch.models.bigvgan import BigVGAN, BigVGANConfig
+    from lemas_tts_tpu_torch.models.dit import cast_matrices
+    from lemas_tts_tpu_torch.ops.mel import bigvgan_mel_spectrogram
+    from lemas_tts_tpu_torch.utils.audio_io import write_wav
+
+    wav = torch.from_numpy(_reference_wave(24000, 3.0, seed=0))[None]
+    mels = {d: bigvgan_mel_spectrogram(wav.to(d)) for d in ("cpu", "cuda")}
+    got, ref = mels["cuda"].cpu(), mels["cpu"]
+    rl2 = rel_l2(got, ref)
+    print(f"[bigvgan] bigvgan_mel_spectrogram {tuple(ref.shape)} of 3 s at 24 kHz, f32: card "
+          f"vs CPU rel-L2 {rl2:.3e} max-abs {max_abs(got, ref):.3e} (tol "
+          f"{TOL_REL_L2['f32']:.0e})", flush=True)
+    check(rl2 <= TOL_REL_L2["f32"], f"bigvgan mel: card vs CPU rel-L2 {rl2:.3e}")
+    check(mels["cpu"].shape[-1] == wav.shape[-1] // 256, "the bigvgan mel is not T // hop frames")
+
+    cfg = BigVGANConfig.for_hop(256, 100)
+    torch.manual_seed(1)
+    gen = BigVGAN(cfg).eval()
+    mel = mels["cpu"][:, :, :BIGVGAN_FRAMES]
+    with torch.no_grad():
+        ref = gen.decode(mel)
+        gen_c = gen.to("cuda")
+        out32 = gen_c.decode(mel.cuda())
+        gen16 = cast_matrices(BigVGAN(cfg, compute_dtype=torch.bfloat16), torch.bfloat16)
+        gen16.load_state_dict(gen.state_dict())
+        gen16 = gen16.to("cuda").eval()
+        out16 = gen16.decode(mel.cuda())
+    rl2 = rel_l2(out32.cpu(), ref)
+    rl2_16 = rel_l2(out16, out32)
+    print(f"[bigvgan] generator {sum(p.numel() for p in gen.parameters()) / 1e6:.2f} M "
+          f"parameters, rates {cfg.upsample_rates}, mel [1, 100, {BIGVGAN_FRAMES}] -> wave "
+          f"{tuple(ref.shape)} (peak {float(ref.abs().max()):.3f}): f32 card vs CPU rel-L2 "
+          f"{rl2:.3e} max-abs {max_abs(out32.cpu(), ref):.3e} (tol {TOL_REL_L2['f32']:.0e}); bf16 "
+          f"card vs f32 card rel-L2 {rl2_16:.3e} (tol {TOL_REL_L2['bf16']:.0e})", flush=True)
+    check(tuple(ref.shape) == (1, BIGVGAN_FRAMES * 256) and rl2 <= TOL_REL_L2["f32"],
+          f"bigvgan f32 card vs CPU rel-L2 {rl2:.3e}")
+    check(bool(torch.isfinite(out16).all()) and rl2_16 <= TOL_REL_L2["bf16"],
+          f"bf16 bigvgan vs f32 card rel-L2 {rl2_16:.3e}")
+    del gen, gen_c, out32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    totals = dict.fromkeys(kernel_counters(), 0)
+    with tempfile.TemporaryDirectory() as d:
+        vocab = Path(d) / "vocab.txt"
+        vocab.write_text("\n".join(CHAR_VOCAB) + "\n")
+        ref_path = str(Path(d) / "ref.wav")
+        write_wav(ref_path, _reference_wave(16000, 3.0, seed=0), 16000)
+        tts = TTS(model="f5tts_base_bigvgan", vocab_file=str(vocab), frontend=None)
+        check(isinstance(tts.vocoder, BigVGAN) and tts.vocoder.compute_dtype == torch.bfloat16
+              and tts.device.type == "cuda", "TTS(f5tts_base_bigvgan) has no bf16 BigVGAN on "
+                                             "the card")
+        mel1024 = torch.randn(1, 100, 1024, generator=torch.Generator().manual_seed(2)).cuda() - 5
+        mask = torch.ones(1, 1024, dtype=torch.bool, device="cuda")
+        with torch.no_grad():
+            voc_ms = device_ms([lambda: tts.vocoder.decode(mel1024, mask)], iters=5)
+            print(f"[bigvgan] vocoder decode of a 1024-frame mel (B 1, bf16, 262144 samples): "
+                  f"card ms {voc_ms:.3f} on {dev['card']}", flush=True)
+            profiled(lambda: tts.vocoder.decode(mel1024, mask),
+                     "BigVGAN decode, 1024 frames, bf16", top=10)
+        launches, timed = run_requests(tts, "f5tts_base_bigvgan (v0 + BigVGAN)", 2, V0_KERNELS,
+                                       dev, ref_path, REF_TEXT, GEN_TEXT)
+        totals = {k: totals[k] + launches[k] for k in totals}
+        wave, _, spec = tts.infer(ref_path, REF_TEXT, GEN_TEXT, seed=0,
+                                  show_info=lambda *_: None)
+        print(f"[bigvgan] request wave {len(wave)} samples for {spec.shape[1]} mel frames "
+              f"(frames x 256 = {spec.shape[1] * 256})", flush=True)
+        check(len(wave) == spec.shape[1] * 256 and bool(np.isfinite(wave).all()),
+              "the BigVGAN wave is not frames x 256 samples")
+        profile_request(tts, ref_path, REF_TEXT, GEN_TEXT)
+        del tts
+        gc.collect()
+        torch.cuda.empty_cache()
+    return totals
+
+
+def phase_unett(dev: dict) -> dict:
+    """The E2-TTS ``e2tts_base`` (UNetT, dim 1024, depth 24, 16 x 64 heads,
+    rope on the first head): a depth-2 full-width forward card against CPU
+    (K5 once a block at N 1025: the time token), then ``TTS.infer`` at full
+    depth (one warm-up, one timed request: K5 24 x 32 = 768 times) and a
+    profiled request. Returns the launch counts."""
+    import torch
+
+    from lemas_tts_tpu_torch import TTS
+    from lemas_tts_tpu_torch.config import load_model_config
+    from lemas_tts_tpu_torch.models.unett import UNetT
+    from lemas_tts_tpu_torch.utils.audio_io import write_wav
+
+    depth2_forward("unett", "UNetT e2tts_base, N 1024 + the time token", UNetT,
+                   load_model_config("e2tts_base"), False, MMDIT_KERNELS)
+    totals = dict.fromkeys(kernel_counters(), 0)
+    with tempfile.TemporaryDirectory() as d:
+        vocab = Path(d) / "vocab.txt"
+        vocab.write_text("\n".join(CHAR_VOCAB) + "\n")
+        ref_path = str(Path(d) / "ref.wav")
+        write_wav(ref_path, _reference_wave(16000, 3.0, seed=0), 16000)
+        t0 = time.perf_counter()
+        tts = TTS(model="e2tts_base", vocab_file=str(vocab), frontend=None)
+        n = sum(p.numel() for p in tts.dit.parameters())
+        print(f"[unett] TTS(e2tts_base) built in {time.perf_counter() - t0:.1f} s: UNetT, "
+              f"{n / 1e6:.1f} M parameters (char vocab), depth {len(tts.dit.layers)}",
+              flush=True)
+        check(isinstance(tts.dit, UNetT) and len(tts.dit.layers) == 24, "not the 24-layer UNetT")
+        launches, _ = run_requests(tts, "e2tts_base UNetT", 2, MMDIT_KERNELS, dev, ref_path,
+                                   REF_TEXT, GEN_TEXT)
+        totals = {k: totals[k] + launches[k] for k in totals}
+        profile_request(tts, ref_path, REF_TEXT, GEN_TEXT)
+        del tts
+        gc.collect()
+        torch.cuda.empty_cache()
+    return totals
+
+
 def main() -> int:
     if not (REPO / "lemas_tts_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -1456,7 +1800,8 @@ def main() -> int:
     phase_dit()
     launches = phase_slice(dev)
     graphed, profiles = phase_graph(dev)
-    for more in (phase_frontend(dev), graphed, phase_serve(dev, profiles["eager"])):
+    for more in (phase_frontend(dev), graphed, phase_serve(dev, profiles["eager"]),
+                 phase_prosody(dev), phase_bigvgan(dev), phase_unett(dev)):
         launches = {k: launches[k] + more[k] for k in launches}
     kernels = [records[k] for k in ("qkv_block", "vmem_attention_nhd", "ffn_block",
                                      "vmem_attention_nhd_pack", "vmem_attention")]

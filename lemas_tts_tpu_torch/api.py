@@ -1,7 +1,9 @@
 """Top-level ``TTS`` facade (counterpart of ``lemas_tts_tpu/api.py``):
 construction loads the config, vocab, text frontend, acoustic model (the
-config's ``backbone``: DiT or MMDiT; UNetT is not ported yet) and Vocos
-vocoder onto one device; ``infer`` runs zero-shot TTS from a reference
+config's ``backbone``: DiT, MMDiT or UNetT), the prosody encoder and
+``prosody_to_mel`` when the model is prosody-conditioned, and the vocoder
+the config's ``mel_spec_type`` names (Vocos or BigVGAN) onto one device;
+``infer`` runs zero-shot TTS from a reference
 audio/text pair; ``prepare_units`` gives the frontend units of one text;
 ``export_wav``/``export_spectrogram`` save artifacts; ``process_phone_list``
 adds language-id prefixes for mixed-language phone streams.
@@ -18,8 +20,14 @@ Differences from the JAX package:
    float weights as they load, as ``quantize_dense_tree`` does in the JAX
    package; ``ode_method="midpoint"`` and ``infer(block_cache=...)`` run the
    sampler's second-order step and block-range cache.
- - Not ported yet: the prosody encoder raises ``NotImplementedError``.
-   Native orbax checkpoints, distilled-student sidecars, ``mesh``,
+ - ``use_prosody_encoder`` (or a config that sets it) builds the DiT with its
+   prosody projection, the Pretssel encoder (``prosody_cfg_path``,
+   ``prosody_ckpt_path``; random weights from a seed without a checkpoint)
+   and ``prosody_to_mel`` (from the checkpoint, else seeded normal x 0.02
+   with a zero bias, as the JAX package draws it); ``infer(use_prosody_encoder=
+   False)`` turns the conditioning off for one request. The encoder and
+   ``prosody_to_mel`` run in f32 whatever the compute dtype.
+ - Not ported yet: native orbax checkpoints, distilled-student sidecars, ``mesh``,
    ``hf://`` checkpoint URIs, ``transcribe`` (ASR) and
    ``export_wav(remove_silence=...)`` have no keyword here, so passing one
    gives a ``TypeError``.
@@ -88,15 +96,18 @@ class TTS:
 
     def __init__(self, model: str = "multilingual", ckpt_file: str = "", vocab_file: str = "",
                  ode_method: str = "euler", use_ema: bool = False,
-                 vocoder_local_path: Optional[str] = None, device: Optional[str] = None,
-                 frontend: Optional[str] = "phone", compute_dtype: Optional[str] = None,
-                 quantization: Optional[str] = None):
+                 vocoder_local_path: Optional[str] = None, use_prosody_encoder: bool = False,
+                 prosody_cfg_path: str = "", prosody_ckpt_path: str = "",
+                 device: Optional[str] = None, frontend: Optional[str] = "phone",
+                 compute_dtype: Optional[str] = None, quantization: Optional[str] = None):
+        from functools import partial
+
         from lemas_tts_tpu_torch.infer.pipeline import Synthesizer
-        from lemas_tts_tpu_torch.models.dit import DiT, cast_matrices
+        from lemas_tts_tpu_torch.models.dit import PROSODY_DIM, DiT, cast_matrices
         from lemas_tts_tpu_torch.models.mmdit import MMDiT
-        from lemas_tts_tpu_torch.models.vocos import Vocos
+        from lemas_tts_tpu_torch.models.unett import UNetT
         from lemas_tts_tpu_torch.ops.quant import MODES, quantize_dense_tree
-        from lemas_tts_tpu_torch.weights import load_reference_state_dict
+        from lemas_tts_tpu_torch.weights import load_reference_checkpoint
 
         if ode_method not in ("euler", "midpoint"):
             raise ValueError(f"unknown ode_method: {ode_method!r}")
@@ -105,13 +116,17 @@ class TTS:
         self.ode_method = ode_method
         self.quant = quantization
         self.config: ModelConfig = load_model_config(model)
-        backbones = {"DiT": DiT, "MMDiT": MMDiT}
+        use_pros = bool(use_prosody_encoder or self.config.use_prosody_encoder)
+        self.use_prosody_encoder = use_pros
+        backbones = {"DiT": partial(DiT, use_prosody_encoder=use_pros), "MMDiT": MMDiT,
+                     "UNetT": UNetT}
         if self.config.backbone not in backbones:
-            raise NotImplementedError(f"backbone {self.config.backbone!r} is not ported yet")
+            raise ValueError(f"unknown backbone: {self.config.backbone!r}")
         if quantization is not None and self.config.backbone != "DiT":
             raise ValueError("quantization is only supported for the DiT backbone")
-        if self.config.use_prosody_encoder:
-            raise NotImplementedError("the prosody encoder is not ported yet")
+        if use_pros and self.config.backbone != "DiT":
+            raise NotImplementedError(f"{self.config.backbone} does not take prosody "
+                                      "conditioning; the prosody models use the DiT backbone")
         self.target_sample_rate = self.config.mel_spec.target_sample_rate
         self.langs = dict(LANGS)
         self.seed: Optional[int] = None
@@ -149,42 +164,92 @@ class TTS:
         self.dit = _seeded_init(lambda: backbone(self.config.arch, mel_dim=mel.n_mel_channels,
                                                  text_num_embeds=self.vocab.size,
                                                  compute_dtype=dtype), seed=0)
+        pros_to_mel = None
         if ckpt_file:
-            self.dit.load_state_dict(load_reference_state_dict(ckpt_file, use_ema=use_ema))
+            state, pros_to_mel = load_reference_checkpoint(ckpt_file, use_ema=use_ema)
+            self.dit.load_state_dict(state)
         else:
             warnings.warn("no checkpoint — random-initializing model weights")
         if quantization is not None:  # from the float weights, before the dtype cast
             quantize_dense_tree(self.dit, MODES[quantization])
 
-        # ---- vocoder
-        if mel.mel_spec_type != "vocos":
-            raise NotImplementedError(f"vocoder for {mel.mel_spec_type!r} is not ported yet")
-        self.vocoder = _seeded_init(lambda: Vocos(input_channels=mel.n_mel_channels,
-                                                  n_fft=mel.n_fft, hop_length=mel.hop_length,
-                                                  compute_dtype=dtype), seed=1)
-        voc_path = Path(vocoder_local_path if vocoder_local_path is not None
-                        else find_pretrained_root() / "ckpts" / "vocos-mel-24khz")
-        if (voc_path / "pytorch_model.bin").is_file():
-            sd = torch.load(voc_path / "pytorch_model.bin", map_location="cpu",
-                            weights_only=True)
-            keys = set(self.vocoder.state_dict())  # drops the mel extractor, istft window
-            self.vocoder.load_state_dict({k: v for k, v in sd.items() if k in keys})
-        elif vocoder_local_path is not None:
-            raise FileNotFoundError(f"no vocoder weights at {voc_path}")
-        else:
-            warnings.warn(f"no vocoder weights at {voc_path} — random init")
+        # ---- prosody encoder and prosody_to_mel (f32, frozen)
+        self.prosody_encoder = self.prosody_to_mel = None
+        if use_pros:
+            from lemas_tts_tpu_torch.models.prosody import ProsodyEncoder
+
+            def random_to_mel():
+                lin = torch.nn.Linear(PROSODY_DIM, mel.n_mel_channels)
+                torch.nn.init.normal_(lin.weight, std=0.02)
+                torch.nn.init.zeros_(lin.bias)
+                return lin
+
+            self.prosody_to_mel = _seeded_init(random_to_mel, seed=2)
+            if pros_to_mel is not None:
+                self.prosody_to_mel.load_state_dict(pros_to_mel)
+            self.prosody_to_mel.to(self.device).eval()
+            self.prosody_encoder = ProsodyEncoder.build(
+                cfg_path=prosody_cfg_path or self.config.prosody_cfg_path,
+                ckpt_path=prosody_ckpt_path or self.config.prosody_ckpt_path, device=self.device)
+
+        # ---- vocoder (the config's mel_spec_type)
+        self.vocoder = self._build_vocoder(mel, dtype, vocoder_local_path)
 
         for m in (self.dit, self.vocoder):
             cast_matrices(m, dtype).to(self.device).eval()
-        self.synth = Synthesizer(self.dit, self.vocoder, self.vocab, mel, device=self.device)
+        self.synth = Synthesizer(self.dit, self.vocoder, self.vocab, mel, device=self.device,
+                                 prosody_encoder=self.prosody_encoder,
+                                 prosody_to_mel=self.prosody_to_mel)
 
-    def load_weights(self, dit_state: dict, vocoder_state: Optional[dict] = None) -> None:
+    @staticmethod
+    def _build_vocoder(mel, dtype: torch.dtype, vocoder_local_path: Optional[str]):
+        """Vocos (the published ``pytorch_model.bin``) or BigVGAN (NVIDIA's
+        generator, weight norm folded); random weights from a seed when the
+        default path holds none, ``FileNotFoundError`` when a path that was
+        given holds none."""
+        from lemas_tts_tpu_torch.models.bigvgan import BigVGAN, BigVGANConfig
+        from lemas_tts_tpu_torch.models.vocos import Vocos
+        from lemas_tts_tpu_torch.weights import find_bigvgan_checkpoint, load_bigvgan_checkpoint
+
+        bigvgan = mel.mel_spec_type == "bigvgan"
+        default = "bigvgan_v2_24khz_100band_256x" if bigvgan else "vocos-mel-24khz"
+        voc_path = Path(vocoder_local_path if vocoder_local_path is not None
+                        else find_pretrained_root() / "ckpts" / default)
+        if bigvgan:
+            vocoder = _seeded_init(lambda: BigVGAN(BigVGANConfig.for_hop(
+                mel.hop_length, mel.n_mel_channels), compute_dtype=dtype), seed=1)
+            ckpt = find_bigvgan_checkpoint(voc_path)
+        else:
+            vocoder = _seeded_init(lambda: Vocos(input_channels=mel.n_mel_channels,
+                                                 n_fft=mel.n_fft, hop_length=mel.hop_length,
+                                                 compute_dtype=dtype), seed=1)
+            ckpt = voc_path / "pytorch_model.bin"
+            ckpt = ckpt if ckpt.is_file() else None
+        if ckpt is None:
+            if vocoder_local_path is not None:
+                raise FileNotFoundError(f"no vocoder weights at {voc_path}")
+            warnings.warn(f"no vocoder weights at {voc_path} — random init")
+            return vocoder
+        sd = (load_bigvgan_checkpoint(ckpt) if bigvgan
+              else torch.load(ckpt, map_location="cpu", weights_only=True))
+        keys = set(vocoder.state_dict())  # drops Vocos' mel extractor and istft window
+        vocoder.load_state_dict({k: v for k, v in sd.items() if k in keys})
+        return vocoder
+
+    def load_weights(self, dit_state: dict, vocoder_state: Optional[dict] = None,
+                     prosody_state: Optional[dict] = None,
+                     prosody_to_mel_state: Optional[dict] = None) -> None:
         """Replace the weights (e.g. from :mod:`lemas_tts_tpu_torch.weights`);
-        they are stored in the model's compute dtype on its device, and a
-        quantized model quantizes the float weights as they load."""
+        the backbone's and the vocoder's are stored in their compute dtype on
+        the device, the prosody encoder's and ``prosody_to_mel``'s in f32, and
+        a quantized model quantizes the float weights as they load."""
         self.dit.load_state_dict(dit_state)
         if vocoder_state is not None:
             self.vocoder.load_state_dict(vocoder_state)
+        if prosody_state is not None:
+            self.prosody_encoder.model.load_state_dict(prosody_state)
+        if prosody_to_mel_state is not None:
+            self.prosody_to_mel.load_state_dict(prosody_to_mel_state)
 
     def prepare_units(self, text: str):
         """One text -> frontend token units, exactly as :meth:`infer` prepares
@@ -226,14 +291,16 @@ class TTS:
               no_ref_audio: bool = False, cfg_strength: float = 2.0, nfe_step: int = 32,
               speed: float = 1.0, sway_sampling_coef: Optional[float] = 5,
               cfg_cutoff: Optional[float] = None, separate_langs: bool = False,
-              fix_duration: Optional[float] = None, file_wave: Optional[str] = None,
-              file_spec: Optional[str] = None, seed: Optional[int] = None,
-              transcribe_fn=None, block_cache: Optional[str] = None):
+              fix_duration: Optional[float] = None, use_prosody_encoder: bool = True,
+              file_wave: Optional[str] = None, file_spec: Optional[str] = None,
+              seed: Optional[int] = None, transcribe_fn=None,
+              block_cache: Optional[str] = None):
         """Zero-shot TTS. ``ref_file`` is a WAV path or a ``(wave, sr)``
         tuple. One chunk per line of ``gen_text`` with a frontend; the raw
         string path chunks by a byte budget. ``block_cache`` is a
-        ``"lo-hi:every[+hN][+tN]"`` block-range cache spec. Returns ``(wav,
-        sample_rate, spec)``."""
+        ``"lo-hi:every[+hN][+tN]"`` block-range cache spec;
+        ``use_prosody_encoder`` conditions a prosody model's request on the
+        reference's prosody. Returns ``(wav, sample_rate, spec)``."""
         from lemas_tts_tpu_torch.infer.pipeline import chunk_text
         from lemas_tts_tpu_torch.infer.preprocess import preprocess_ref_audio_text
 
@@ -258,6 +325,7 @@ class TTS:
                             block_cache=block_cache, ode_method=self.ode_method,
                             speed=speed, target_rms=target_rms,
                             cross_fade_duration=cross_fade_duration, use_acc_grl=use_acc_grl,
+                            use_prosody_encoder=use_prosody_encoder and self.use_prosody_encoder,
                             ref_ratio=ref_ratio, no_ref_audio=no_ref_audio,
                             fix_duration=fix_duration)
         wave, out_sr, spec = self.synth.synthesize_chunks(wav, sr, ref_units, gen_chunks,

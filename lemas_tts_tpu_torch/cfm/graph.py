@@ -3,7 +3,9 @@ JAX package's compiled sampler program (``make_sampler``, one program per
 settings and shape bucket).
 
 A ``GraphedSampler`` holds, for one ``SamplerSettings`` and one (batch,
-duration, text) bucket, static input buffers and a ``torch.cuda.CUDAGraph``
+duration, text) bucket, static input buffers (with a ``prosody_text``
+buffer ``[B, nt, 512]`` when it is a prosody graph: a prosody request and a
+plain request of the same shapes never share a graph) and a ``torch.cuda.CUDAGraph``
 of the whole ``sample_mel`` loop over them: the CFG prefix, the cond-only
 tail, the cached steps. A call copies its inputs into the buffers, replays
 the graph and clones the static output, all on the current stream without
@@ -51,7 +53,8 @@ class GraphedSampler:
     _capture_lock = threading.Lock()
 
     def __init__(self, model, settings: SamplerSettings, time_grid: np.ndarray, B: int, N: int,
-                 D: int, nt: int, device: torch.device, pool: GraphPool):
+                 D: int, nt: int, device: torch.device, pool: GraphPool,
+                 prosody_dim: Optional[int] = None):
         self.model, self.settings, self.time_grid, self.pool = model, settings, time_grid, pool
         zeros = torch.zeros(B, N, D, device=device)
         self.inputs = dict(cond=zeros,
@@ -59,6 +62,8 @@ class GraphedSampler:
                            text_ids=torch.full((B, nt), -1, dtype=torch.int32, device=device),
                            duration=torch.full((B,), N, dtype=torch.int64, device=device),
                            y0=torch.zeros_like(zeros), step_cond=torch.zeros_like(zeros))
+        if prosody_dim is not None:
+            self.inputs["prosody_text"] = torch.zeros(B, nt, prosody_dim, device=device)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.out: Optional[torch.Tensor] = None
         self.launches_per_replay: dict = {}
@@ -97,9 +102,15 @@ class GraphedSampler:
             self._capture()
             return True
 
-    def __call__(self, cond, cond_mask, text_ids, duration, y0, step_cond=None) -> torch.Tensor:
+    def __call__(self, cond, cond_mask, text_ids, duration, y0, step_cond=None,
+                 prosody_text=None) -> torch.Tensor:
         given = dict(cond=cond, cond_mask=cond_mask, text_ids=text_ids, duration=duration, y0=y0,
                      step_cond=cond if step_cond is None else step_cond)
+        if prosody_text is not None:
+            given["prosody_text"] = prosody_text
+        if given.keys() != self.inputs.keys():
+            raise ValueError("prosody_text given to a plain graph, or missing for a prosody "
+                             "graph")
         with self._lock:
             for k, v in given.items():
                 buf = self.inputs[k]

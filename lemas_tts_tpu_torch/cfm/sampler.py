@@ -16,6 +16,10 @@ classifier-free guidance, as a Python loop over the sway-warped time grid.
   add of the stored residual. The cache is 2B rows wide in the CFG prefix and
   B rows in the cond-only tail, whose first step always refreshes.
 - Kept frames are pasted back exactly at the end.
+- ``prosody_text`` ``[B, T_text, 512]`` (the prosody-conditioned DiT) goes
+  into every forward: both halves of the CFG pair (the uncond half keeps it),
+  the cond-only tail, the cached loop's refresh and cached steps, and both
+  evaluations of a midpoint step.
 
 Nothing in the loop reads the device from the host, and the time grid's
 device copy is made once per (grid, device), so the whole loop can be
@@ -227,11 +231,11 @@ def device_time_grid(time_grid: np.ndarray, device) -> torch.Tensor:
 
 @torch.no_grad()
 def sample_mel(model, *, cond, cond_mask, text_ids, duration, y0, time_grid,
-               settings: SamplerSettings, step_cond=None) -> torch.Tensor:
+               settings: SamplerSettings, step_cond=None, prosody_text=None) -> torch.Tensor:
     """CFG flow from noise to mel. cond, y0 [B, N, D] f32; cond_mask [B, N]
     bool (True = kept frame); text_ids [B, nt] (-1 padded); duration [B];
-    time_grid [steps+1] numpy. Returns [B, N, D] f32 with the kept frames
-    pasted from ``cond``."""
+    time_grid [steps+1] numpy; prosody_text [B, T_text, 512] or None.
+    Returns [B, N, D] f32 with the kept frames pasted from ``cond``."""
     B, N, _ = cond.shape
     keep = cond_mask[..., None]
     step_cond = torch.where(keep, cond if step_cond is None else step_cond, 0.0)
@@ -246,27 +250,31 @@ def sample_mel(model, *, cond, cond_mask, text_ids, duration, y0, time_grid,
         te2 = torch.cat([te_cond, model.embed_text(text_ids, N, drop_text=True)], dim=0)
         cond2 = torch.cat([step_cond, torch.zeros_like(step_cond)], dim=0)
         mask2 = torch.cat([attn_mask, attn_mask], dim=0)
-        cfg_pack = (te2, cond2, mask2)
+        pt2 = (None if prosody_text is None
+               else torch.cat([prosody_text, prosody_text], dim=0))
+        cfg_pack = (te2, cond2, mask2, pt2)
 
     steps = len(time_grid) - 1
     k = settings.cfg_active_steps(np.asarray(time_grid))
     if settings.block_cache_range is not None:
         y = _block_cached_loop(model, settings, grid, dts, k, y, step_cond=step_cond,
-                               attn_mask=attn_mask, te_cond=te_cond, cfg_pack=cfg_pack)
+                               attn_mask=attn_mask, te_cond=te_cond, prosody_text=prosody_text,
+                               cfg_pack=cfg_pack)
         return torch.where(keep, cond, y)  # exact paste of kept frames
 
     def velocity_cond_only(t, x, clamp):
-        v = model(x, step_cond, None, t.expand(B), attn_mask, text_embed=te_cond)
+        v = model(x, step_cond, None, t.expand(B), attn_mask, text_embed=te_cond,
+                  prosody_text=prosody_text)
         if clamp:
             v = torch.clamp(v, -settings.velocity_clamp, settings.velocity_clamp)
         return v
 
     if settings.use_cfg:
-        te2, cond2, mask2 = cfg_pack
+        te2, cond2, mask2, pt2 = cfg_pack
 
         def velocity(t, x):
             pred2 = model(torch.cat([x, x], dim=0), cond2, None, t.expand(2 * B), mask2,
-                          text_embed=te2)
+                          text_embed=te2, prosody_text=pt2)
             return cfg_velocity_combine(pred2, B, t, settings)
     else:
         def velocity(t, x):
@@ -286,7 +294,7 @@ def sample_mel(model, *, cond, cond_mask, text_ids, duration, y0, time_grid,
 
 
 def _block_cached_loop(model, settings: SamplerSettings, grid, dts, k: int, y, *, step_cond,
-                       attn_mask, te_cond, cfg_pack):
+                       attn_mask, te_cond, prosody_text, cfg_pack):
     """The Euler loop under the block-range residual cache (JAX
     ``make_cached_forward`` and ``_scan_block_cached``): the refresh
     schedule's regions run as [refresh step, (period−1) cached steps]; the
@@ -303,25 +311,26 @@ def _block_cached_loop(model, settings: SamplerSettings, grid, dts, k: int, y, *
     clamp = settings.velocity_clamp
     flags = block_cache_flags(settings, steps)
 
-    def fwd(x, cond_x, mask_x, te_x, t, cache, refresh: bool):
-        h, t_emb, angles = model.embed_inputs(x, cond_x, None, t.expand(x.shape[0]),
-                                              text_embed=te_x)
-        h = model.run_blocks(h, t_emb, mask_x, angles, 0, lo)
+    def fwd(x, cond_x, mask_x, te_x, pt_x, t, cache, refresh: bool):
+        h0, t_emb, angles = model.embed_inputs(x, cond_x, None, t.expand(x.shape[0]),
+                                               text_embed=te_x, prosody_text=pt_x)
+        h = model.run_blocks(h0, t_emb, mask_x, angles, 0, lo)
         if refresh:
             h_mid = model.run_blocks(h, t_emb, mask_x, angles, lo, hi)
             h, cache = h_mid, h_mid - h
         else:
             h = h + cache
         h = model.run_blocks(h, t_emb, mask_x, angles, hi, depth)
-        return model.head(h, t_emb), cache
+        return model.head(h, t_emb, residual=h0), cache
 
     def cond_only(t, x, cache, refresh, do_clamp):
-        pred, cache = fwd(x, step_cond, attn_mask, te_cond, t, cache, refresh)
+        pred, cache = fwd(x, step_cond, attn_mask, te_cond, prosody_text, t, cache, refresh)
         return (torch.clamp(pred, -clamp, clamp) if do_clamp else pred), cache
 
     def cfg_vel(t, x, cache, refresh):
-        te2, cond2, mask2 = cfg_pack
-        pred2, cache = fwd(torch.cat([x, x], dim=0), cond2, mask2, te2, t, cache, refresh)
+        te2, cond2, mask2, pt2 = cfg_pack
+        pred2, cache = fwd(torch.cat([x, x], dim=0), cond2, mask2, te2, pt2, t, cache,
+                           refresh)
         return cfg_velocity_combine(pred2, B, t, settings), cache
 
     def run(vel, start: int, part_flags, y):

@@ -1,7 +1,9 @@
 """Typed configuration: the dataclasses of ``lemas_tts_tpu/config.py``.
 
 The bundled configs ship as JSON (``configs/``: the flagship
-``multilingual`` and F5-TTS v0 ``f5tts_base``) so that the port needs no
+``multilingual``, the prosody-conditioned ``multilingual_prosody``, F5-TTS v0
+``f5tts_base`` and its BigVGAN-vocoded ``f5tts_base_bigvgan``, and the E2-TTS
+``e2tts_base`` on the UNetT backbone) so that the port needs no
 ``yaml`` at run time; ``yaml`` is imported only when a
 ``.yaml``/``.yml`` path is given.
 """
@@ -129,6 +131,7 @@ class SamplerConfig:
     target_rms: float = 0.1
     cross_fade_duration: float = 0.15
     use_acc_grl: bool = True
+    use_prosody_encoder: bool = True  # when the model has a prosody encoder
     ref_ratio: Optional[float] = None
     no_ref_audio: bool = False
     fix_duration: Optional[float] = None

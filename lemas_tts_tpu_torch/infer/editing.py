@@ -17,11 +17,14 @@ Alignment JSON schema (reference ``speech_edit_multilingual.py:232-258``):
   ``modified_text``: [orig_phrase, new_phrase]
   ``display_text``: full original transcript
 
+With a prosody model and ``cfg.use_prosody_encoder`` the utterance's
+prosody embedding conditions the edit as it does a synthesis: its
+``prosody_to_mel`` offset over the utterance's frames of the cond mel, the
+embedding as the DiT's prosody text.
+
 As in ``infer/pipeline.py``, the seeded noise comes from a
 ``torch.Generator``, so one seed gives other noise than in the JAX package;
-``noise_override`` pins it. The prosody branch is not ported
-(``lemas_tts_tpu/infer/editing.py:180-192``): the port's ``SamplerConfig``
-has no prosody switch, and the edit CLI refuses its prosody flag.
+``noise_override`` pins it.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from lemas_tts_tpu_torch.cfm.sampler import DURATION_BUCKETS, pick_bucket
 from lemas_tts_tpu_torch.config import SamplerConfig
 from lemas_tts_tpu_torch.infer.pipeline import (TEXT_BUCKETS, Synthesizer, clip_and_shuffle,
                                                 initial_noise, to_device)
+from lemas_tts_tpu_torch.models.dit import PROSODY_DIM
 from lemas_tts_tpu_torch.ops.resample import resample
 from lemas_tts_tpu_torch.utils.vocab import pad_text_batch, text_to_ids
 
@@ -161,6 +165,11 @@ def edit_speech(synth: Synthesizer, wav: np.ndarray, sr: int, text_tokens: Seque
     y0 = initial_noise(N, D, dev, seed, rng, noise_override)
 
     cond_mean = cond_mel[:frames].mean(axis=0, keepdims=True)
+    prosody_text = None
+    if synth.uses_prosody(cfg):
+        emb, offset = synth.prosody_embedding(audio)
+        cond[:, :frames] += offset[None, None, :]
+        prosody_text = np.broadcast_to(emb[None, None, :], (1, nt, PROSODY_DIM)).astype(np.float32)
     step_cond = None
     if cfg.use_acc_grl and cfg.ref_ratio is not None and cfg.ref_ratio < 1:
         shuffled = clip_and_shuffle(cond_mel[:frames], cfg.ref_ratio, int(tgt_sr / hop), rng)
@@ -173,7 +182,8 @@ def edit_speech(synth: Synthesizer, wav: np.ndarray, sr: int, text_tokens: Seque
     out = synth.run_sampler(
         synth._settings(cfg), to_device(cond, dev), to_device(keep, dev),
         to_device(text_ids, dev), to_device(np.asarray([duration], np.int64), dev), y0[None],
-        None if step_cond is None else to_device(step_cond, dev))
+        None if step_cond is None else to_device(step_cond, dev),
+        None if prosody_text is None else to_device(prosody_text, dev))
     out = out.cpu().numpy().astype(np.float32)  # [1, N, D]
     if cfg.no_ref_audio:  # mean re-alignment (cfm.py:464-467)
         gen = ~keep[0, :duration]

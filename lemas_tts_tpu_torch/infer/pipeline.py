@@ -17,12 +17,23 @@ one's results are read on the host. Inputs go up and results come down
 through pinned memory (``to_device``, ``to_host``), so queueing waits for
 nothing on the card and a read waits for its own batch only.
 
+With a prosody encoder (the prosody-conditioned model) and
+``cfg.use_prosody_encoder``, ``_prepare_ref`` embeds the reference's 16 kHz
+resample once a request; the sampler then sees ``prosody_to_mel`` of the
+embedding added over the reference frames of the cond mel and the embedding
+broadcast to ``[B, nt, 512]`` as the DiT's prosody text, each request of
+``synthesize_requests`` with its own.
+
+The vocoder gives ``vocoder_model.wave_length(frames)`` samples for a
+decoded mel: ``(frames - 1) * hop`` from Vocos' iSTFT head, ``frames * hop``
+from BigVGAN's conv stack; a BigVGAN mel has ``T // hop`` frames, a Vocos one
+``T // hop + 1``.
+
 Intentional difference from the JAX package: the seeded initial noise comes
 from ``torch.Generator(device).manual_seed(seed)``, not ``jax.random``, so
 the same seed gives different noise in the two packages. Parity checks pin
-the noise with ``noise_override``.
-
-Not ported yet: prosody conditioning.
+the noise with ``noise_override``. ``synthesize_requests`` conditions on
+prosody, which the JAX package's leaves out.
 """
 
 from __future__ import annotations
@@ -48,6 +59,7 @@ from lemas_tts_tpu_torch.cfm.sampler import (
     sway_time_grid,
 )
 from lemas_tts_tpu_torch.config import MelSpecConfig, SamplerConfig
+from lemas_tts_tpu_torch.models.dit import PROSODY_DIM
 from lemas_tts_tpu_torch.ops.mel import MelFrontend
 from lemas_tts_tpu_torch.ops.resample import resample
 from lemas_tts_tpu_torch.utils.vocab import Vocab, pad_text_batch, text_to_ids
@@ -219,9 +231,12 @@ class Synthesizer:
     bucket."""
 
     def __init__(self, dit_model, vocoder_model, vocab: Vocab,
-                 mel_cfg: MelSpecConfig = MelSpecConfig(), device="cpu"):
+                 mel_cfg: MelSpecConfig = MelSpecConfig(), device="cpu",
+                 prosody_encoder=None, prosody_to_mel=None):
         self.dit_model = dit_model
         self.vocoder_model = vocoder_model
+        self.prosody_encoder = prosody_encoder  # models/prosody.py:ProsodyEncoder
+        self.prosody_to_mel = prosody_to_mel  # f32 Linear(512 -> n_mels)
         self.vocab = vocab
         self.mel_cfg = mel_cfg
         self.device = torch.device(device)
@@ -239,8 +254,8 @@ class Synthesizer:
         """Block-cache ``SamplerSettings`` fields for this model: clamped to
         its depth, off under midpoint, and DiT-only; a spec that is dropped
         warns once (JAX ``_block_cache_kwargs``)."""
-        depth = len(self.dit_model.transformer_blocks)
         dit = hasattr(self.dit_model, "run_blocks")
+        depth = len(self.dit_model.transformer_blocks) if dit else None
         fields = block_cache_fields(cfg.block_cache, depth, cfg.ode_method) if dit else {}
         if (cfg.block_cache and parse_block_cache(cfg.block_cache) and not fields
                 and not self._warned_cache_drop):
@@ -260,10 +275,12 @@ class Synthesizer:
     def _pick_batch(self, b: int) -> int:
         return pick_bucket(b, BATCH_BUCKETS)
 
-    def _graph(self, settings: SamplerSettings, B: int, N: int, nt: int) -> GraphedSampler:
+    def _graph(self, settings: SamplerSettings, B: int, N: int, nt: int,
+               prosody: bool = False) -> GraphedSampler:
         # a graph keeps the kernels its capture chose: the head-pair switch
-        # (LEMAS_ATTN_PACK, read by the blocks) is part of the key
-        key = (settings, B, N, nt, os.environ.get("LEMAS_ATTN_PACK", "") == "1")
+        # (LEMAS_ATTN_PACK, read by the blocks) is part of the key, and so is
+        # whether the graph takes prosody text
+        key = (settings, B, N, nt, os.environ.get("LEMAS_ATTN_PACK", "") == "1", prosody)
         with self._graph_lock:
             g = self._graphs.get(key)
             if g is None:
@@ -271,38 +288,45 @@ class Synthesizer:
                                       settings.t_start)
                 g = self._graphs[key] = GraphedSampler(
                     self.dit_model, settings, grid, B, N, self.mel_cfg.n_mel_channels, nt,
-                    self.device, self._graph_pool)
+                    self.device, self._graph_pool, PROSODY_DIM if prosody else None)
         return g
 
     def run_sampler(self, settings: SamplerSettings, cond, cond_mask, text_ids, duration, y0,
-                    step_cond=None) -> torch.Tensor:
+                    step_cond=None, prosody_text=None) -> torch.Tensor:
         """The sampler on device tensors: on CUDA the bucket's graph (captured
         at its first use), on the CPU ``sample_mel``."""
         if self.device.type == "cuda":
             B, N, _ = cond.shape
-            return self._graph(settings, B, N, text_ids.shape[1])(
-                cond, cond_mask, text_ids, duration, y0, step_cond)
+            return self._graph(settings, B, N, text_ids.shape[1], prosody_text is not None)(
+                cond, cond_mask, text_ids, duration, y0, step_cond, prosody_text)
         return sample_mel(self.dit_model, cond=cond, cond_mask=cond_mask, text_ids=text_ids,
                           duration=duration, y0=y0,
                           time_grid=sway_time_grid(settings.steps, settings.sway_sampling_coef,
                                                    settings.t_start),
-                          settings=settings, step_cond=step_cond)
+                          settings=settings, step_cond=step_cond, prosody_text=prosody_text)
+
+    def uses_prosody(self, cfg: SamplerConfig) -> bool:
+        """Whether requests at ``cfg`` are prosody-conditioned."""
+        return (cfg.use_prosody_encoder and self.prosody_encoder is not None
+                and self.prosody_to_mel is not None)
 
     @torch.no_grad()
     def warmup(self, cfg: SamplerConfig = SamplerConfig(),
                duration_buckets: Sequence[int] = (1024,), text_buckets: Sequence[int] = (256,),
                batch_buckets: Sequence[int] = (1,)) -> int:
         """Capture the sampler graphs of these buckets ahead of the first
-        request (JAX ``warmup``, which compiles them). Returns the number of
+        request (JAX ``warmup``, which compiles them), the prosody graphs
+        when requests at ``cfg`` are prosody-conditioned. Returns the number of
         graphs captured; the CPU runs the sampler eagerly and captures none."""
         if self.device.type != "cuda":
             return 0
         settings = self._settings(cfg)
+        prosody = self.uses_prosody(cfg)
         n = 0
         for B in batch_buckets:
             for N in duration_buckets:
                 for nt in text_buckets:
-                    n += self._graph(settings, self._pick_batch(B), N, nt).capture()
+                    n += self._graph(settings, self._pick_batch(B), N, nt, prosody).capture()
         return n
 
     def estimate_bucket(self, ref_wav, ref_sr: int, ref_units, gen_units,
@@ -320,16 +344,23 @@ class Synthesizer:
             n_units = len((ref_units + gen_units).encode("utf-8"))
         else:
             n_units = len(ref_units) + len(gen_units)
-        cond_frames = ref_len + 1  # center=True STFT: T//hop + 1 frames
+        # the vocos mel (center=True STFT) has T//hop + 1 frames, the bigvgan one T//hop
+        cond_frames = ref_len + 1 if self.mel_cfg.mel_spec_type == "vocos" else ref_len
         dur = max(max(n_units, cond_frames) + 1, dur)
         dur = min(dur, cfg.max_duration, DURATION_BUCKETS[-1])
         return pick_bucket(dur, DURATION_BUCKETS)
 
     @torch.no_grad()
-    def ref_mel(self, wav: np.ndarray) -> np.ndarray:
-        """[T] float wave at the model rate -> [frames, n_mels] log-mel."""
-        x = torch.from_numpy(np.asarray(wav, np.float32)).to(self.device)
-        return self.mel_frontend(x[None, :])[0].T.cpu().numpy()
+    def _on_device(self, wav) -> torch.Tensor:
+        """A host array or a tensor as an f32 tensor on the model's device."""
+        if not torch.is_tensor(wav):
+            wav = torch.from_numpy(np.ascontiguousarray(wav, np.float32))
+        return wav.to(self.device, torch.float32)
+
+    def ref_mel(self, wav) -> np.ndarray:
+        """[T] float wave at the model rate (host array or tensor) ->
+        [frames, n_mels] log-mel."""
+        return self.mel_frontend(self._on_device(wav)[None, :])[0].T.cpu().numpy()
 
     # ------------------------------------------------------------ main entry
     def synthesize_chunks(self, ref_wav: np.ndarray, ref_sr: int,
@@ -377,7 +408,9 @@ class Synthesizer:
         return self._finalize_chunks(pending, cfg, return_parts=return_parts)
 
     def _prepare_ref(self, ref_wav: np.ndarray, ref_sr: int, cfg: SamplerConfig) -> dict:
-        """RMS normalise, resample to the model rate, reference mel."""
+        """RMS normalise, resample to the model rate, reference mel, and under
+        prosody the embedding of the 16 kHz resample with its
+        ``prosody_to_mel`` offset (host arrays)."""
         sr = self.mel_cfg.target_sample_rate
         hop = self.mel_cfg.hop_length
         audio = np.asarray(ref_wav, dtype=np.float32)
@@ -386,11 +419,22 @@ class Synthesizer:
         rms = float(np.sqrt(np.mean(np.square(audio)))) if audio.size else 0.0
         if 0 < rms < cfg.target_rms:
             audio = audio * (cfg.target_rms / rms)
-        if ref_sr != sr:
-            x = torch.from_numpy(np.ascontiguousarray(audio)).to(self.device)
-            audio = resample(x, ref_sr, sr).cpu().numpy()
-        return dict(audio=audio, rms=rms, ref_audio_len=audio.shape[-1] // hop,
-                    cond_mel=self.ref_mel(audio))
+        x = resample(self._on_device(audio), ref_sr, sr)  # the mel and the encoder share it
+        prep = dict(rms=rms, ref_audio_len=x.shape[-1] // hop, cond_mel=self.ref_mel(x),
+                    prosody_emb=None, prosody_offset=None)
+        if self.uses_prosody(cfg):
+            prep["prosody_emb"], prep["prosody_offset"] = self.prosody_embedding(x)
+        return prep
+
+    @torch.no_grad()
+    def prosody_embedding(self, audio) -> Tuple[np.ndarray, np.ndarray]:
+        """The prosody embedding ``[512]`` of ``audio`` (at the model rate,
+        host array or tensor; resampled to 16 kHz) and its ``prosody_to_mel``
+        offset ``[n_mels]``, as host arrays fetched in one copy."""
+        x = resample(self._on_device(audio), self.mel_cfg.target_sample_rate, 16000)
+        emb = self.prosody_encoder.embed(x)
+        both = torch.cat([emb, self.prosody_to_mel(emb)]).cpu().numpy()
+        return both[:emb.shape[0]], both[emb.shape[0]:]
 
     @torch.no_grad()
     def _dispatch_chunks(self, ref_wav, ref_sr, ref_text_units, gen_chunks,
@@ -463,6 +507,14 @@ class Synthesizer:
         cond_mean = cond_mel.mean(axis=0, keepdims=True)
         rng = np.random.default_rng(seed if seed is not None else None)
 
+        # prosody (JAX cfm.py:245-265, 451-455): the offset over the reference
+        # frames before masking, the embedding as every chunk's prosody text
+        prosody_text = None
+        if ref_prep["prosody_emb"] is not None:
+            cond[:, :ref_frames] += ref_prep["prosody_offset"][None, None, :]
+            prosody_text = np.broadcast_to(ref_prep["prosody_emb"][None, None, :],
+                                           (Bp, nt, PROSODY_DIM)).astype(np.float32)
+
         step_cond = None
         if cfg.use_acc_grl and cfg.ref_ratio is not None and cfg.ref_ratio < 1:
             shuffled = clip_and_shuffle(cond_mel, cfg.ref_ratio, int(sr / hop), rng)
@@ -486,7 +538,8 @@ class Synthesizer:
         out = self.run_sampler(
             self._settings(cfg, t_start), to_device(cond, dev), to_device(cond_mask, dev),
             to_device(text_ids, dev), to_device(dur_arr, dev), y0,
-            None if step_cond is None else to_device(step_cond, dev))
+            None if step_cond is None else to_device(step_cond, dev),
+            None if prosody_text is None else to_device(prosody_text, dev))
         pending = dict(B=B, sr=sr, rms=rms, durations=durations, ref_frames=ref_frames,
                        ref_audio_len=ref_audio_len)
         if cfg.no_ref_audio:
@@ -507,7 +560,6 @@ class Synthesizer:
         """Fetch the results, trim, restore the RMS, clip and stitch."""
         B, sr, rms = pending["B"], pending["sr"], pending["rms"]
         durations = pending["durations"]
-        hop = self.mel_cfg.hop_length
         host, copied = pending["host"]
         if copied is not None:
             copied.synchronize()  # this batch's copies only, not work queued after them
@@ -524,9 +576,8 @@ class Synthesizer:
         else:
             lens_l = pending["lens_l"]
             waves_np, mels_np = (h.numpy() for h in host)
-            # vocos iSTFT head: T frames -> (T-1)·hop samples
             gen_slices = [mels_np[i, :, : lens_l[i]].T for i in range(B)]
-            waves = [waves_np[i, : (lens_l[i] - 1) * hop] for i in range(B)]
+            waves = [waves_np[i, : self.vocoder_model.wave_length(lens_l[i])] for i in range(B)]
         if 0 < rms < cfg.target_rms:
             waves = [w * (rms / cfg.target_rms) for w in waves]
         if return_parts:
@@ -597,7 +648,6 @@ class Synthesizer:
                 out += self.synthesize_requests(requests[i: i + max_b], cfg)
             return out
         sr = self.mel_cfg.target_sample_rate
-        hop = self.mel_cfg.hop_length
         D = self.mel_cfg.n_mel_channels
         dev = self.device
 
@@ -619,7 +669,8 @@ class Synthesizer:
             # a reference longer than the duration cap keeps >= 1 generated frame
             rows.append(dict(ids=ids, duration=duration, cond_mel=cond_mel, rms=prep["rms"],
                              ref_audio_len=min(prep["ref_audio_len"], duration - 1),
-                             seed=r.get("seed")))
+                             seed=r.get("seed"), prosody_emb=prep["prosody_emb"],
+                             prosody_offset=prep["prosody_offset"]))
 
         B = len(rows)
         Bp = self._pick_batch(B)
@@ -635,12 +686,17 @@ class Synthesizer:
         dur_arr = np.asarray([r["duration"] for r in rows] + [2] * (Bp - B), dtype=np.int64)
         cond = np.zeros((Bp, N, D), dtype=np.float32)
         cond_mask = np.zeros((Bp, N), dtype=bool)
+        prosody = self.uses_prosody(cfg)
+        prosody_text = np.zeros((Bp, nt, PROSODY_DIM), np.float32) if prosody else None
         entropy = np.random.default_rng()  # an unseeded row draws its own seed
         seeds = []
         for i, r in enumerate(rows):
             f = min(r["cond_mel"].shape[0], N)
             cond[i, :f] = r["cond_mel"][:f]
             cond_mask[i, :f] = True
+            if prosody:  # each request its own embedding
+                cond[i, :f] += r["prosody_offset"][None, :]
+                prosody_text[i] = r["prosody_emb"][None, :]
             seeds.append(r["seed"] if r["seed"] is not None
                          else int(entropy.integers(2 ** 31 - 1)))
         seeds += [0] * (Bp - B)
@@ -648,7 +704,8 @@ class Synthesizer:
 
         mel = self.run_sampler(self._settings(cfg), to_device(cond, dev),
                                to_device(cond_mask, dev), to_device(text_ids, dev),
-                               to_device(dur_arr, dev), y0)
+                               to_device(dur_arr, dev), y0, None,
+                               None if prosody_text is None else to_device(prosody_text, dev))
         lens_l = [r["duration"] - r["ref_audio_len"] for r in rows]
         n_out = pick_bucket(max(lens_l), DURATION_BUCKETS)
         starts = to_device(np.asarray([r["ref_audio_len"] for r in rows] + [0] * (Bp - B),
@@ -659,7 +716,7 @@ class Synthesizer:
         mels_np = sliced.cpu().numpy()
         results = []
         for i, r in enumerate(rows):
-            w = waves[i, : (lens_l[i] - 1) * hop]  # vocos iSTFT: T frames -> (T-1)·hop
+            w = waves[i, : self.vocoder_model.wave_length(lens_l[i])]
             if 0 < r["rms"] < cfg.target_rms:
                 w = w * (r["rms"] / cfg.target_rms)
             results.append((np.clip(w, -0.999, 0.999), sr, mels_np[i, :, : lens_l[i]]))
@@ -674,7 +731,6 @@ class Synthesizer:
             for i in range(0, len(mels), max_b):
                 out += self.vocode_batch(mels[i: i + max_b])
             return out
-        hop = self.mel_cfg.hop_length
         lens = [m.shape[0] for m in mels]
         N = pick_bucket(max(lens), DURATION_BUCKETS)
         B = pick_bucket(len(mels), BATCH_BUCKETS)
@@ -685,4 +741,4 @@ class Synthesizer:
             mask[i, : m.shape[0]] = True
         waves = self.vocoder_model.decode(torch.from_numpy(batch).to(self.device),
                                           torch.from_numpy(mask).to(self.device)).cpu().numpy()
-        return [waves[i, : (lens[i] - 1) * hop] for i in range(len(mels))]
+        return [waves[i, : self.vocoder_model.wave_length(lens[i])] for i in range(len(mels))]

@@ -4,9 +4,15 @@
 The blocks are an ``nn.ModuleList`` run in a Python loop. Text embedding is
 a separate method so the sampler computes it once per utterance;
 ``embed_inputs``, ``run_blocks`` and ``head`` split the forward around the
-block stack (the sampler's block-range cache runs it in three ranges). The
-long skip connection, the prosody projection and sequence parallelism are
-not ported: a config that asks for them raises.
+block stack (the sampler's block-range cache runs it in three ranges).
+
+- ``use_prosody_encoder``: ``prosody_text_proj`` (Linear 512 -> text_dim)
+  projects the prosody text ``[B, T_text, 512]``, which is zero-padded or cut
+  to N and added to the text embedding (``embed_inputs``);
+- ``arch.long_skip_connection``: ``long_skip_connection`` (Linear 2 dim -> dim,
+  no bias) joins the blocks' output with their input before the head.
+
+Sequence parallelism and dropout (training) are not ported.
 """
 
 from __future__ import annotations
@@ -24,6 +30,8 @@ from lemas_tts_tpu_torch.models.modules import (
     dense,
 )
 from lemas_tts_tpu_torch.ops.rope import abs_pos_embedding, rope_angles
+
+PROSODY_DIM = 512  # the prosody encoder's embedding width
 
 
 class TextEmbedding(nn.Module):
@@ -80,10 +88,8 @@ class DiT(nn.Module):
     """CFM velocity transformer: v = DiT(x_t, cond, text, t)."""
 
     def __init__(self, arch: DiTArch, mel_dim: int = 100, text_num_embeds: int = 256,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32, use_prosody_encoder: bool = False):
         super().__init__()
-        if arch.long_skip_connection:
-            raise NotImplementedError("long_skip_connection is not ported yet")
         self.arch = arch
         self.mel_dim = mel_dim
         self.compute_dtype = compute_dtype
@@ -93,10 +99,14 @@ class DiT(nn.Module):
                                         mask_padding=arch.text_mask_padding,
                                         conv_layers=arch.conv_layers,
                                         conv_mult=arch.conv_mult)
+        self.prosody_text_proj = (nn.Linear(PROSODY_DIM, text_dim) if use_prosody_encoder
+                                  else None)
         self.input_embed = InputEmbedding(mel_dim, text_dim, arch.dim)
         self.transformer_blocks = nn.ModuleList([
             DiTBlock(arch.dim, arch.heads, arch.dim_head, arch.ff_mult, arch.qk_norm,
                      arch.pe_attn_head) for _ in range(arch.depth)])
+        self.long_skip_connection = (nn.Linear(arch.dim * 2, arch.dim, bias=False)
+                                     if arch.long_skip_connection else None)
         self.norm_out = AdaLayerNormFinal(arch.dim)
         self.proj_out = nn.Linear(arch.dim, mel_dim)
 
@@ -104,14 +114,24 @@ class DiT(nn.Module):
         """Text embedding [B, seq_len, text_dim], computed once per utterance."""
         return self.text_embed(text_ids, seq_len, drop_text=drop_text, dtype=self.compute_dtype)
 
-    def embed_inputs(self, x, cond, text_ids, time, drop_text: bool = False, text_embed=None):
-        """Everything before the block stack: returns ``(h, t_emb, angles)``."""
+    def embed_inputs(self, x, cond, text_ids, time, drop_text: bool = False, text_embed=None,
+                     prosody_text=None):
+        """Everything before the block stack: returns ``(h, t_emb, angles)``;
+        ``h`` is also the long skip's residual."""
         B, N, _ = x.shape
         if time.ndim == 0:
             time = time.expand(B)
         t_emb = self.time_embed(time, self.compute_dtype)
         if text_embed is None:
             text_embed = self.embed_text(text_ids, N, drop_text=drop_text)
+        if prosody_text is not None:
+            if self.prosody_text_proj is None:
+                raise ValueError("prosody_text given to a DiT built without "
+                                 "use_prosody_encoder")
+            pt = dense(prosody_text.to(self.compute_dtype), self.prosody_text_proj)
+            pt = nn.functional.pad(pt, (0, 0, 0, N - pt.shape[1])) if pt.shape[1] < N \
+                else pt[:, :N]
+            text_embed = text_embed + pt
         h = self.input_embed(x.to(self.compute_dtype), cond.to(self.compute_dtype), text_embed)
         return h, t_emb, rope_angles(N, self.arch.dim_head, device=x.device)
 
@@ -122,26 +142,31 @@ class DiT(nn.Module):
             h = blk(h, t_emb, mask=mask, angles=angles)
         return h
 
-    def head(self, h: torch.Tensor, t_emb: torch.Tensor) -> torch.Tensor:
-        """Final AdaLN and mel projection; returns f32 [B, N, mel_dim]."""
+    def head(self, h: torch.Tensor, t_emb: torch.Tensor, residual=None) -> torch.Tensor:
+        """The long skip (with ``residual``, the blocks' input), final AdaLN
+        and mel projection; returns f32 [B, N, mel_dim]."""
+        if self.long_skip_connection is not None:
+            h = dense(torch.cat([h, residual], dim=-1), self.long_skip_connection)
         return dense(self.norm_out(h, t_emb), self.proj_out).float()
 
     def forward(self, x, cond, text_ids, time, mask=None, drop_text: bool = False,
-                text_embed=None):
+                text_embed=None, prosody_text=None):
         """Velocity [B, N, mel_dim] (f32); ``mask`` [B, N] marks the valid
-        frames (keys)."""
+        frames (keys); ``prosody_text`` [B, T_text, 512] or None."""
         h, t_emb, angles = self.embed_inputs(x, cond, text_ids, time, drop_text=drop_text,
-                                             text_embed=text_embed)
-        h = self.run_blocks(h, t_emb, mask, angles, 0, len(self.transformer_blocks))
-        return self.head(h, t_emb)
+                                             text_embed=text_embed, prosody_text=prosody_text)
+        out = self.run_blocks(h, t_emb, mask, angles, 0, len(self.transformer_blocks))
+        return self.head(out, t_emb, residual=h)
 
 
 def cast_matrices(module: nn.Module, dtype: torch.dtype) -> nn.Module:
-    """Store the Linear, Conv1d and Embedding parameters of ``module`` in
-    ``dtype`` (the compute dtype), once, instead of casting them at every
-    use. LayerNorm, GRN and layer-scale parameters keep f32, as the JAX
-    package's do. Numerically the same as casting at use."""
+    """Store the Linear, Conv1d, ConvTranspose1d and Embedding parameters of
+    ``module`` in ``dtype`` (the compute dtype), once, instead of casting them
+    at every use. LayerNorm, GRN, layer-scale and snake parameters keep f32,
+    as the JAX package's do, and so does a layer marked ``keep_f32`` (one
+    that the JAX module runs in f32). Numerically the same as casting at use."""
     for m in module.modules():
-        if isinstance(m, (nn.Linear, nn.Conv1d, nn.Embedding)):
+        if (isinstance(m, (nn.Linear, nn.Conv1d, nn.ConvTranspose1d, nn.Embedding))
+                and not getattr(m, "keep_f32", False)):
             m.to(dtype)
     return module

@@ -185,9 +185,12 @@ class MMDiT(nn.Module):
         return self.text_embed(text_ids, drop_text=drop_text, dtype=self.compute_dtype)
 
     def forward(self, x, cond, text_ids, time, mask=None, drop_text: bool = False,
-                text_embed=None):
+                text_embed=None, prosody_text=None):
         """Velocity [B, N, mel_dim] (f32); ``mask`` [B, N] marks the valid
         frames."""
+        if prosody_text is not None:
+            raise NotImplementedError("MMDiT does not take prosody_text conditioning; the "
+                                      "prosody models use the DiT backbone")
         B, N, _ = x.shape
         if time.ndim == 0:
             time = time.expand(B)

@@ -77,6 +77,10 @@ class Vocos(nn.Module):
         self.backbone = VocosBackbone(input_channels, dim, intermediate_dim, num_layers)
         self.head = VocosHead(dim, n_fft)
 
+    def wave_length(self, n_frames: int) -> int:
+        """Samples a decode of ``n_frames`` frames gives (the iSTFT head)."""
+        return (n_frames - 1) * self.hop_length
+
     def decode(self, mel: torch.Tensor, frame_mask: Optional[torch.Tensor] = None):
         h = self.backbone(mel, frame_mask, self.compute_dtype)
         h = dense(h, self.head.out).float().transpose(1, 2)  # [B, n_fft+2, T]

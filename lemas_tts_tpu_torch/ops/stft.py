@@ -31,10 +31,11 @@ def hann_window(win_length: int, device=None) -> torch.Tensor:
     return w
 
 
-def stft(x, n_fft: int, hop_length: int, win_length=None) -> torch.Tensor:
+def stft(x, n_fft: int, hop_length: int, win_length=None, center: bool = True) -> torch.Tensor:
     """Complex STFT of ``x [..., T]`` -> ``[..., n_fft//2+1, n_frames]``
-    (``torch.stft(center=True, pad_mode="reflect", onesided=True)``
-    semantics, periodic Hann window of ``win_length`` centred in ``n_fft``)."""
+    (``torch.stft(pad_mode="reflect", onesided=True)`` semantics, periodic
+    Hann window of ``win_length`` centred in ``n_fft``; ``center`` reflect-pads
+    ``n_fft // 2`` on both ends)."""
     if win_length is None:
         win_length = n_fft
     window = hann_window(win_length, device=x.device).to(x.dtype)
@@ -42,15 +43,20 @@ def stft(x, n_fft: int, hop_length: int, win_length=None) -> torch.Tensor:
         lpad = (n_fft - win_length) // 2
         window = F.pad(window, (lpad, n_fft - win_length - lpad))
     lead = x.shape[:-1]
-    x = F.pad(x.reshape(-1, 1, x.shape[-1]), (n_fft // 2, n_fft // 2), mode="reflect")
+    x = x.reshape(-1, 1, x.shape[-1])
+    if center:
+        x = F.pad(x, (n_fft // 2, n_fft // 2), mode="reflect")
     frames = x[:, 0].unfold(-1, n_fft, hop_length) * window  # [B, n_frames, n_fft]
     spec = torch.fft.rfft(frames, n=n_fft, dim=-1)
     return spec.transpose(-1, -2).reshape(*lead, n_fft // 2 + 1, -1)
 
 
-def stft_magnitude(x, n_fft: int, hop_length: int, win_length=None) -> torch.Tensor:
-    spec = stft(x, n_fft, hop_length, win_length)
-    return torch.sqrt(spec.real ** 2 + spec.imag ** 2)
+def stft_magnitude(x, n_fft: int, hop_length: int, win_length=None, center: bool = True,
+                   eps: float = 0.0) -> torch.Tensor:
+    """``|STFT|``; ``eps`` gives the BigVGAN mel's ``sqrt(re^2 + im^2 + eps)``."""
+    spec = stft(x, n_fft, hop_length, win_length, center)
+    power = spec.real ** 2 + spec.imag ** 2
+    return torch.sqrt(power + eps) if eps else torch.sqrt(power)
 
 
 def _overlap_add(frames: torch.Tensor, hop_length: int) -> torch.Tensor:

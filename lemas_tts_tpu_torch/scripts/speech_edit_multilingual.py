@@ -54,7 +54,8 @@ def collect_pairs(wav: Optional[str], wav_dir: str, align_dir: str,
 
 def run_edit_for_pair(tts, wav_path: str, json_path: str, save_path: str, *, nfe_step: int,
                       cfg_strength: float, sway_sampling_coef: float, ref_ratio: float,
-                      no_ref_audio: bool, use_acc_grl: bool, seed: Optional[int]) -> None:
+                      no_ref_audio: bool, use_acc_grl: bool, use_prosody_encoder: bool,
+                      seed: Optional[int]) -> None:
     """Edit one utterance (reference ``:210-287``)."""
     import numpy as np
 
@@ -79,7 +80,8 @@ def run_edit_for_pair(tts, wav_path: str, json_path: str, save_path: str, *, nfe
 
     cfg = SamplerConfig(nfe_steps=nfe_step, cfg_strength=cfg_strength,
                         sway_sampling_coef=sway_sampling_coef, ode_method=tts.ode_method,
-                        use_acc_grl=use_acc_grl, ref_ratio=ref_ratio, no_ref_audio=no_ref_audio)
+                        use_acc_grl=use_acc_grl, use_prosody_encoder=use_prosody_encoder,
+                        ref_ratio=ref_ratio, no_ref_audio=no_ref_audio)
     t0 = time.time()
     out, out_sr, _mel = edit_speech(tts.synth, segment, sr, tokens, spec.parts_to_edit, cfg=cfg,
                                     seed=seed)
@@ -101,7 +103,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--frontend", type=str, default="phone", choices=["phone", "char", "none"])
     p.add_argument("--use_ema", action="store_true")
     # the reference spells this flag --use_prosody_encoder here but
-    # --enable_prosody_encoder in the TTS CLI; accept both (refused: not ported)
+    # --enable_prosody_encoder in the TTS CLI; accept both
     p.add_argument("--enable_prosody_encoder", "--use_prosody_encoder",
                    dest="enable_prosody_encoder", action="store_true")
     p.add_argument("--prosody_cfg_path", type=str, default="")
@@ -141,7 +143,7 @@ def main(argv=None) -> int:
                           cfg_strength=args.cfg_strength,
                           sway_sampling_coef=args.sway_sampling_coef, ref_ratio=args.ref_ratio,
                           no_ref_audio=args.no_ref_audio, use_acc_grl=args.use_acc_grl,
-                          seed=seed)
+                          use_prosody_encoder=args.enable_prosody_encoder, seed=seed)
         n_ok += 1
     print(f"[edit] done: {n_ok}/{len(pairs)} file(s)")
     return 0

@@ -31,7 +31,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--use_ema", action="store_true",
                    help="Use EMA weights from the checkpoint.")
     p.add_argument("--enable_prosody_encoder", action="store_true",
-                   help="Prosody encoder (not ported yet: refused).")
+                   help="Condition on the reference's prosody (random encoder weights "
+                        "without --prosody_ckpt_path).")
     p.add_argument("--prosody_cfg_path", type=str, default="")
     p.add_argument("--prosody_ckpt_path", type=str, default="")
     p.add_argument("--vocoder_local_path", type=str, default=None)
@@ -84,7 +85,6 @@ def refuse_unported(args) -> None:
     with their own parsers, hence ``getattr``)."""
     unported = [
         (getattr(args, "denoise", False), "--denoise (UVR5 denoising)"),
-        (args.enable_prosody_encoder, "--enable_prosody_encoder (the prosody encoder)"),
         (args.attn_backend is not None, "--attn_backend (the JAX attention backends)"),
         (hasattr(args, "ref_text") and not args.ref_text.strip(),
          "an empty --ref_text (ASR transcription of the reference)"),
@@ -102,7 +102,10 @@ def build_tts(args):
     refuse_unported(args)
     return TTS(model=args.model, ckpt_file=args.ckpt_file, vocab_file=args.vocab_file,
                ode_method=args.ode_method, use_ema=args.use_ema,
-               vocoder_local_path=args.vocoder_local_path, device=args.device,
+               vocoder_local_path=args.vocoder_local_path,
+               use_prosody_encoder=args.enable_prosody_encoder,
+               prosody_cfg_path=args.prosody_cfg_path, prosody_ckpt_path=args.prosody_ckpt_path,
+               device=args.device,
                frontend=None if args.frontend == "none" else args.frontend,
                compute_dtype=args.compute_dtype)
 
@@ -117,7 +120,8 @@ def main(argv=None) -> int:
         sway_sampling_coef=args.sway_sampling_coef, cfg_cutoff=args.cfg_cutoff,
         speed=args.speed, separate_langs=args.separate_langs, use_acc_grl=args.use_acc_grl,
         ref_ratio=args.ref_ratio, no_ref_audio=args.no_ref_audio,
-        fix_duration=args.fix_duration, seed=seed, file_wave=args.output_wave,
+        fix_duration=args.fix_duration, use_prosody_encoder=args.enable_prosody_encoder,
+        seed=seed, file_wave=args.output_wave,
         file_spec=args.output_spec or None, block_cache=args.block_cache)
     print(f"[tts] wrote {args.output_wave}: {len(wav) / sr:.2f} s @ {sr} Hz (seed {seed})")
     return 0

@@ -8,12 +8,20 @@ and the inverse of ``lemas_tts_tpu/models/vocos.py:convert_vocos`` apply:
 Dense kernels ``[in, out]`` become Linear weights ``[out, in]``; Conv kernels
 ``[K, Cin/g, Cout]`` become ``[Cout, Cin/g, K]``; LayerNorm ``scale``/``bias``
 become ``weight``/``bias``; the DiT's scan-stacked ``blocks`` (leading depth
-axis) and the MMDiT's ``block_{i}`` become ``transformer_blocks.{i}``. Inputs
-are nested dicts of numpy arrays (anything ``np.asarray`` takes).
+axis) and the MMDiT's ``block_{i}`` become ``transformer_blocks.{i}``, the
+UNetT's ``*_{i}`` layers ``layers.{i}.{0-4}``. Inputs are nested dicts of
+numpy arrays (anything ``np.asarray`` takes).
+
+Reference checkpoints: the CFM file's backbone (the DiT's
+``prosody_text_proj`` and ``long_skip_connection`` included) and its
+``prosody_to_mel`` (``load_reference_checkpoint``), the
+Pretssel prosody encoder (``load_prosody_checkpoint``) and NVIDIA's BigVGAN
+generator with its weight norm folded (``load_bigvgan_checkpoint``).
 """
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Any, Dict, Mapping
 
 import numpy as np
@@ -46,13 +54,12 @@ class _StateDict(dict):
         self[f"{key}.bias"] = _tensor(node["bias"])
 
     def embeddings(self, p: Mapping[str, Any], conv_pos_key: str, conv_pos: Mapping[str, Any]):
-        """The time MLP, the conv position embedding, the final AdaLN and
-        the mel projection: the parts DiT and MMDiT share."""
+        """The time MLP, the conv position embedding and the mel projection:
+        the parts DiT, MMDiT and UNetT share."""
         self.linear("time_embed.time_mlp.0", p["time_embed"]["mlp_in"])
         self.linear("time_embed.time_mlp.2", p["time_embed"]["mlp_out"])
         self.conv(f"{conv_pos_key}.conv1d.0", conv_pos["conv1"])
         self.conv(f"{conv_pos_key}.conv1d.2", conv_pos["conv2"])
-        self.linear("norm_out.linear", p["norm_out"]["mod"])
         self.linear("proj_out", p["proj_out"])
 
     def feed_forward(self, key: str, node: Mapping[str, Any]) -> None:
@@ -64,25 +71,34 @@ class _StateDict(dict):
             if name in node:
                 self[f"{key}.{name}.weight"] = _tensor(node[name]["weight"])
 
+    def text_embedding(self, te: Mapping[str, Any]) -> None:
+        """The DiT/UNetT ``TextEmbedding``: the table and its ConvNeXt stack."""
+        self["text_embed.text_embed.weight"] = _tensor(te["embed"]["embedding"])
+        for name, node in te.items():
+            if name.startswith("block_"):
+                key = f"text_embed.text_blocks.{int(name.split('_')[1])}"
+                self.conv(f"{key}.dwconv", node["dwconv"])
+                self.layer_norm(f"{key}.norm", node["norm"])
+                self.linear(f"{key}.pwconv1", node["pwconv1"])
+                self[f"{key}.grn.gamma"] = _tensor(node["grn"]["gamma"])
+                self[f"{key}.grn.beta"] = _tensor(node["grn"]["beta"])
+                self.linear(f"{key}.pwconv2", node["pwconv2"])
+
+    def attention(self, key: str, node: Mapping[str, Any]) -> None:
+        for proj in ("to_q", "to_k", "to_v"):
+            self.linear(f"{key}.{proj}", node[proj])
+        self.linear(f"{key}.to_out.0", node["to_out"])
+        self.qk_norms(key, node, ("q_norm", "k_norm"))
+
 
 def dit_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX ``DiT`` params -> ``lemas_tts_tpu_torch.models.dit.DiT`` state dict."""
     p = _params(params)
     sd = _StateDict()
     sd.embeddings(p, "input_embed.conv_pos_embed", p["input_embed"]["conv_pos"])
+    sd.linear("norm_out.linear", p["norm_out"]["mod"])
     sd.linear("input_embed.proj", p["input_embed"]["proj"])
-
-    te = p["text_embed"]
-    sd["text_embed.text_embed.weight"] = _tensor(te["embed"]["embedding"])
-    for name, node in te.items():
-        if name.startswith("block_"):
-            key = f"text_embed.text_blocks.{int(name.split('_')[1])}"
-            sd.conv(f"{key}.dwconv", node["dwconv"])
-            sd.layer_norm(f"{key}.norm", node["norm"])
-            sd.linear(f"{key}.pwconv1", node["pwconv1"])
-            sd[f"{key}.grn.gamma"] = _tensor(node["grn"]["gamma"])
-            sd[f"{key}.grn.beta"] = _tensor(node["grn"]["beta"])
-            sd.linear(f"{key}.pwconv2", node["pwconv2"])
+    sd.text_embedding(p["text_embed"])
 
     blocks = p["blocks"]["block"]
     if "kernel_q" in blocks.get("attn", {}).get("to_q", {}):
@@ -97,9 +113,10 @@ def dit_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     for i in range(depth):
         for k, v in dit_block_state_from_jax(layer(blocks, i)).items():
             sd[f"transformer_blocks.{i}.{k}"] = v
-    for unported in ("long_skip", "prosody_text_proj"):
-        if unported in p:
-            raise NotImplementedError(f"{unported} is not ported yet")
+    if "long_skip" in p:
+        sd.linear("long_skip_connection", p["long_skip"])
+    if "prosody_text_proj" in p:
+        sd.linear("prosody_text_proj", p["prosody_text_proj"])
     return dict(sd)
 
 
@@ -107,11 +124,100 @@ def dit_block_state_from_jax(blk: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """One JAX ``DiTBlock``'s params -> ``DiTBlock`` state dict."""
     sd = _StateDict()
     sd.linear("attn_norm.linear", blk["attn_norm"]["mod"])
-    for proj in ("to_q", "to_k", "to_v"):
-        sd.linear(f"attn.{proj}", blk["attn"][proj])
-    sd.linear("attn.to_out.0", blk["attn"]["to_out"])
+    sd.attention("attn", blk["attn"])
     sd.feed_forward("ff", blk["ff"])
-    sd.qk_norms("attn", blk["attn"], ("q_norm", "k_norm"))
+    return dict(sd)
+
+
+def unett_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``UNetT`` params -> ``lemas_tts_tpu_torch.models.unett.UNetT``
+    state dict (the reference F5-TTS ``unett.py`` key names)."""
+    p = _params(params)
+    sd = _StateDict()
+    sd.embeddings(p, "input_embed.conv_pos_embed", p["input_embed"]["conv_pos"])
+    sd["norm_out.weight"] = _tensor(p["norm_out"]["weight"])  # RMSNorm, not AdaLN
+    sd.linear("input_embed.proj", p["input_embed"]["proj"])
+    sd.text_embedding(p["text_embed"])
+    i = 0
+    while f"attn_{i}" in p:
+        key = f"layers.{i}"
+        if f"skip_proj_{i}" in p:
+            sd.linear(f"{key}.0", p[f"skip_proj_{i}"])
+        sd[f"{key}.1.weight"] = _tensor(p[f"attn_norm_{i}"]["weight"])
+        sd.attention(f"{key}.2", p[f"attn_{i}"])
+        sd[f"{key}.3.weight"] = _tensor(p[f"ff_norm_{i}"]["weight"])
+        sd.feed_forward(f"{key}.4", p[f"ff_{i}"])
+        i += 1
+    return dict(sd)
+
+
+def prosody_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``ECAPA_TDNN`` params -> ``lemas_tts_tpu_torch.models.prosody.ECAPA_TDNN``
+    state dict (the reference key names; the inverse of the JAX
+    ``convert_prosody_encoder``)."""
+    p = params.get("params", params)
+    sd = _StateDict()
+
+    def tdnn(key, node):
+        sd.conv(f"{key}.conv", node["conv"])
+        sd.layer_norm(f"{key}.norm", node["norm"])
+
+    tdnn("blocks.0", p["block_0"])
+    i = 1
+    while f"block_{i}" in p:
+        blk, key = p[f"block_{i}"], f"blocks.{i}"
+        tdnn(f"{key}.tdnn1", blk["tdnn1"])
+        tdnn(f"{key}.tdnn2", blk["tdnn2"])
+        sd.conv(f"{key}.se_block.conv1", blk["se"]["conv1"])
+        sd.conv(f"{key}.se_block.conv2", blk["se"]["conv2"])
+        for name, node in blk["res2net"].items():
+            tdnn(f"{key}.res2net_block.blocks.{int(name.split('_')[1])}", node)
+        if "shortcut" in blk:
+            sd.conv(f"{key}.shortcut", blk["shortcut"])
+        i += 1
+    tdnn("mfa", p["mfa"])
+    tdnn("asp.tdnn", p["asp"]["tdnn"])
+    sd.conv("asp.conv", p["asp"]["conv"])
+    sd.layer_norm("asp_norm", p["asp_norm"])
+    sd.conv("fc", p["fc"])
+    return dict(sd)
+
+
+def prosody_to_mel_from_jax(node: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX ``prosody_to_mel`` Dense (``{"kernel": [512, D], "bias"}``) ->
+    a ``Linear(512, D)`` state dict."""
+    return {"weight": _tensor(np.asarray(node["kernel"]).T), "bias": _tensor(node["bias"])}
+
+
+def bigvgan_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``BigVGAN`` params -> ``lemas_tts_tpu_torch.models.bigvgan.BigVGAN``
+    state dict (NVIDIA's key names, weight norm folded)."""
+    p = params.get("params", params)
+    sd = _StateDict()
+
+    def act(key, node):
+        for name in ("alpha", "beta"):
+            if name in node:
+                sd[f"{key}.act.{name}"] = _tensor(node[name])
+
+    sd.conv("conv_pre", p["conv_pre"])
+    sd.conv("conv_post", p["conv_post"])
+    act("activation_post", p["act_post"])
+    n_res = sum(1 for name in p if name.startswith("res_0_"))
+    i = 0
+    while f"up_{i}" in p:
+        # a transposed conv's [K, Cout, Cin] kernel -> torch [Cin, Cout, K]
+        sd.conv(f"ups.{i}.0", p[f"up_{i}"])
+        for j in range(n_res):
+            blk, key = p[f"res_{i}_{j}"], f"resblocks.{i * n_res + j}"
+            d = 0
+            while f"conv1_{d}" in blk:
+                sd.conv(f"{key}.convs1.{d}", blk[f"conv1_{d}"])
+                sd.conv(f"{key}.convs2.{d}", blk[f"conv2_{d}"])
+                act(f"{key}.activations.{2 * d}", blk[f"act1_{d}"])
+                act(f"{key}.activations.{2 * d + 1}", blk[f"act2_{d}"])
+                d += 1
+        i += 1
     return dict(sd)
 
 
@@ -121,6 +227,7 @@ def mmdit_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     p = _params(params)
     sd = _StateDict()
     sd.embeddings(p, "audio_embed.conv_pos_embed", p["audio_embed"]["conv_pos"])
+    sd.linear("norm_out.linear", p["norm_out"]["mod"])
     sd.linear("audio_embed.linear", p["audio_embed"]["linear"])
     sd["text_embed.text_embed.weight"] = _tensor(p["text_embed"]["embed"]["embedding"])
     i = 0
@@ -164,11 +271,11 @@ def vocos_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return dict(sd)
 
 
-def load_reference_state_dict(path: str, use_ema: bool = True,
-                              prefix: str = "transformer.") -> Dict[str, torch.Tensor]:
-    """A reference CFM checkpoint (``.pt`` or ``.safetensors``) -> the DiT
-    state dict: EMA or plain weights (``use_ema``, falling back to whichever
-    exists) and the ``transformer.`` prefix stripped."""
+def load_reference_checkpoint(path: str, use_ema: bool = True):
+    """A reference CFM checkpoint (``.pt`` or ``.safetensors``) -> (the
+    backbone's state dict, its ``prosody_to_mel`` Linear's state dict or None
+    when it has none): EMA or plain weights (``use_ema``, falling back to
+    whichever exists), ``ema_model.`` and ``transformer.`` stripped."""
     if path.endswith(".safetensors"):
         from safetensors.torch import load_file
 
@@ -180,7 +287,64 @@ def load_reference_state_dict(path: str, use_ema: bool = True,
                              else ("model_state_dict", "ema_model_state_dict"))
             sd = sd.get(first, sd.get(second))
     has_ema = any(k.startswith("ema_model.") for k in sd)
-    has_plain = any(k.startswith(prefix) for k in sd)
+    has_plain = any(k.startswith("transformer.") for k in sd)
     if has_ema and (use_ema or not has_plain):
         sd = {k[len("ema_model."):]: v for k, v in sd.items() if k.startswith("ema_model.")}
-    return {k[len(prefix):]: v.float() for k, v in sd.items() if k.startswith(prefix)}
+    prefix = "transformer."
+    backbone = {k[len(prefix):]: v.float() for k, v in sd.items() if k.startswith(prefix)}
+    to_mel = ({k: sd[f"prosody_to_mel.{k}"].float() for k in ("weight", "bias")}
+              if "prosody_to_mel.weight" in sd else None)
+    return backbone, to_mel
+
+
+def _torch_file(path: str) -> Dict[str, Any]:
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if "ema_model_state_dict" in obj or "model_state_dict" in obj:
+        obj = obj.get("ema_model_state_dict", obj.get("model_state_dict"))
+    return obj
+
+
+def load_prosody_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """The Pretssel prosody encoder's checkpoint (``prosody_encoder_UnitY2.pt``)
+    -> an ``ECAPA_TDNN`` state dict (prefixes stripped, f32)."""
+    from lemas_tts_tpu_torch.models.prosody import remap_prosody_state_dict
+
+    return {k: v.float() for k, v in remap_prosody_state_dict(_torch_file(path)).items()}
+
+
+def fold_weight_norm(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Fold every weight-normed pair ``{p}.weight_g`` / ``{p}.weight_v`` into
+    ``{p}.weight = g * v / ||v||``, the norm over all but the first axis
+    (torch ``weight_norm(dim=0)``), clamped at 1e-12."""
+    out = {}
+    for k, v in sd.items():
+        if k.endswith(".weight_v"):
+            p = k[: -len(".weight_v")]
+            v = v.double()
+            norm = torch.sqrt((v ** 2).sum(dim=tuple(range(1, v.dim())), keepdim=True))
+            out[f"{p}.weight"] = (sd[f"{p}.weight_g"].double() * v
+                                  / torch.clamp(norm, min=1e-12)).float()
+        elif not k.endswith(".weight_g"):
+            out[k] = v.float()
+    return out
+
+
+def find_bigvgan_checkpoint(path):
+    """NVIDIA's BigVGAN generator file in directory ``path`` (``bigvgan_generator.pt``,
+    ``pytorch_model.bin`` or ``g_05000000``), ``path`` itself if it is a file,
+    else None."""
+    p = Path(path)
+    return next((q for q in (p / "bigvgan_generator.pt", p / "pytorch_model.bin",
+                             p / "g_05000000", p) if q.is_file()), None)
+
+
+def load_bigvgan_checkpoint(path) -> Dict[str, torch.Tensor]:
+    """NVIDIA's BigVGAN generator file -> a ``BigVGAN`` state dict with the
+    weight norm folded; the alias-free filters it stores are dropped (the
+    port makes its own taps)."""
+    sd = _torch_file(str(path))
+    if isinstance(sd.get("generator"), Mapping):
+        sd = sd["generator"]
+    if any(k.startswith("generator.") for k in sd):
+        sd = {k[len("generator."):]: v for k, v in sd.items() if k.startswith("generator.")}
+    return {k: v for k, v in fold_weight_norm(sd).items() if not k.endswith(".filter")}

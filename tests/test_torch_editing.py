@@ -238,13 +238,25 @@ def test_cli_without_cuda_fails(pair, cli):
     ("edit", ["--attn_backend", "xla"], "attn_backend")])
 def test_cli_refuses_unported_flags(pair, cli, flags, feature, monkeypatch):
     """Flags of what is not ported raise ``NotImplementedError`` naming it.
-    ``--block_cache`` and ``--ode_method midpoint``, once refused, are ported:
-    the CLI runs end to end on the CPU, and hands the sampler the settings
-    the JAX CLI hands its sampler for the same flags."""
+    ``--block_cache``, ``--ode_method midpoint`` and the prosody flags
+    (``--enable_prosody_encoder`` / ``--use_prosody_encoder``), once refused,
+    are ported: the CLI runs end to end on the CPU, and hands the sampler the
+    settings the JAX CLI hands its sampler for the same flags. The prosody
+    runs take a Pretssel config at narrow widths (``--prosody_cfg_path``) in
+    both packages, and the port's synthesizer then conditions on prosody."""
     _edit_dirs(pair[2])
     main, args = _cli_args(pair[2], cli)
     argv = args + flags + ["--device", "cpu", "--nfe_step", "2"]
-    if feature not in ("block_cache", "midpoint"):
+    if feature == "prosody":
+        cfg = pair[2] / "pretssel_cfg.json"
+        cfg.write_text(json.dumps({"model": {
+            "prosody_channels": [32, 32, 32, 96], "prosody_kernel_sizes": [5, 3, 3, 1],
+            "prosody_dilations": [1, 2, 3, 1], "prosody_attention_channels": 16,
+            "prosody_res2net_scale": 4, "prosody_se_channels": 16,
+            "prosody_global_context": True, "prosody_groups": [1, 1, 1, 1],
+            "prosody_embed_dim": 512, "input_feat_per_channel": 80}}))
+        argv += ["--prosody_cfg_path", str(cfg)]
+    if feature not in ("block_cache", "midpoint", "prosody"):
         with pytest.raises(NotImplementedError, match=feature):
             main(argv)
         return
@@ -261,7 +273,7 @@ def test_cli_refuses_unported_flags(pair, cli, flags, feature, monkeypatch):
 
     def spy(key, fn=None):
         def wrapped(*a, **kw):
-            seen[key] = kw["cfg"]
+            seen[key], seen[f"{key} synth"] = kw["cfg"], a[0]
             if fn is None:  # the JAX side: the settings are all it is asked for
                 raise Seen
             return fn(*a, **kw)
@@ -282,11 +294,14 @@ def test_cli_refuses_unported_flags(pair, cli, flags, feature, monkeypatch):
         with pytest.raises(Seen):
             jmain(argv)
     fields = ("nfe_steps", "cfg_strength", "sway_sampling_coef", "cfg_cutoff", "block_cache",
-              "ode_method")
+              "ode_method", "use_prosody_encoder")
     got = {f: getattr(seen["port"], f) for f in fields}
     assert got == {f: getattr(seen["jax"], f) for f in fields}
-    assert got["block_cache" if feature == "block_cache" else "ode_method"] == (
-        "0-2:2" if feature == "block_cache" else "midpoint")
+    field, value = {"block_cache": ("block_cache", "0-2:2"),
+                    "midpoint": ("ode_method", "midpoint"),
+                    "prosody": ("use_prosody_encoder", True)}[feature]
+    assert got[field] == value
+    assert seen["port synth"].uses_prosody(seen["port"]) == (feature == "prosody")
     out = pair[2] / ("x.wav" if cli == "tts" else "x/utt1.wav")
     w, sr = read_audio(str(out))
     assert sr == 8000 and w.size > 0 and np.isfinite(w).all()

@@ -31,7 +31,8 @@ def test_import_leaves_jax_out():
         " 'lemas_tts_tpu_torch.')]\n"
         "for sub in ('text.frontend', 'text.en_ipa', 'scripts.tts_multilingual',"
         " 'scripts.speech_edit_multilingual', 'scripts.g2p', 'infer.editing',"
-        " 'scripts.serve_http', 'serve.engine', 'serve.batcher', 'cfm.graph', 'ops.quant'):\n"
+        " 'scripts.serve_http', 'serve.engine', 'serve.batcher', 'cfm.graph', 'ops.quant',"
+        " 'ops.fbank', 'models.prosody', 'models.bigvgan', 'models.unett'):\n"
         "    assert 'lemas_tts_tpu_torch.' + sub in names, sub\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
@@ -187,7 +188,10 @@ def test_text_frontends_build(frontend):
 
 
 @pytest.mark.parametrize("name", ["multilingual", "tests/data/tiny.yaml",
-                                  "lemas_tts_tpu_torch/configs/f5tts_base.json"])
+                                  "lemas_tts_tpu_torch/configs/f5tts_base.json",
+                                  "multilingual_prosody",
+                                  "lemas_tts_tpu_torch/configs/f5tts_base_bigvgan.json",
+                                  "lemas_tts_tpu_torch/configs/e2tts_base.json"])
 def test_config_matches_jax(name):
     """The bundled JSON configs and a YAML config load to the same fields as
     the JAX package's YAML loader gives (JSON is YAML)."""
@@ -210,17 +214,23 @@ def test_f5tts_base_config_is_the_published_v0_arch():
 
 @pytest.mark.parametrize("backbone", ["MMDiT", "UNetT"])
 def test_backbones(backbone, tmp_path):
-    """MMDiT is ported; UNetT (which runs no TPU kernel) is not yet."""
+    """Both other backbones are ported (UNetT, once refused, runs on the
+    port's split-head attention): the config's backbone is the model built,
+    at the config's depth, and neither takes prosody conditioning."""
     from lemas_tts_tpu_torch import TTS
     from lemas_tts_tpu_torch.models.mmdit import MMDiT
+    from lemas_tts_tpu_torch.models.unett import UNetT
 
     cfg = tmp_path / "cfg.yaml"
     cfg.write_text((REPO / "tests/data/tiny.yaml").read_text()
                    .replace("backbone: DiT", f"backbone: {backbone}"))
-    if backbone == "UNetT":
-        with pytest.raises(NotImplementedError, match="UNetT"):
-            TTS(model=str(cfg), device="cpu")
-        return
     with pytest.warns(UserWarning):
         tts = TTS(model=str(cfg), device="cpu")
-    assert isinstance(tts.dit, MMDiT) and len(tts.dit.transformer_blocks) == 2
+    cls, blocks = {"MMDiT": (MMDiT, "transformer_blocks"), "UNetT": (UNetT, "layers")}[backbone]
+    assert isinstance(tts.dit, cls) and len(getattr(tts.dit, blocks)) == 2
+    with pytest.raises(NotImplementedError, match="prosody"):
+        TTS(model=str(cfg), device="cpu", use_prosody_encoder=True)
+    x = torch.zeros(1, 8, tts.dit.proj_out.out_features)
+    with pytest.raises(NotImplementedError, match="prosody"):
+        tts.dit(x, x, torch.zeros(1, 3, dtype=torch.long), torch.zeros(1),
+                prosody_text=torch.zeros(1, 3, 512))
