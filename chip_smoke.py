@@ -75,6 +75,18 @@ Phases, in order (any failure raises; the exit code is then non-zero):
  12. unett: a depth-2 full-width ``e2tts_base`` UNetT card against CPU (K5
      once a block at N 1025), then requests at full depth (K5 24 x 32 = 768
      times) and a profiled request.
+ 13. uvr5: the MDX STFT pair (n_fft 7680, hop 1024, symmetric Hann) and
+     ``ConvTDFNet`` at ``MDXConfig()`` on 2 chunk rows, card against CPU
+     (f32); ``UVR5.denoise`` of a 10 s 24 kHz reference with seeded weights
+     from a ``.pt`` (the 44.1 kHz length, finite; the match-mix demix returns
+     its input; wall, the network's card ms, a profiled call); the flagship
+     ``tts_multilingual.main --denoise --uvr5_model`` (exit 0, the 44.1 kHz
+     ``_vocal.wav``, K1-K3 depth x 32 each); ``scripts/denoise.main -b`` over
+     3 WAVs (3 vocal and 3 background stems, then a run with nothing left);
+     ``CascadedNet`` and ``CascadedASPPNet(123821)`` on one 512-frame window
+     card against CPU (masks and logits), ``VRSeparator.separate_full``
+     single-band and 2-band (``2band_48000``) on the reference, each
+     profiled.
 On CUDA every request's sampler is a graph replay (its first request of a
 bucket runs eagerly and captures), so every count above is launches on the
 card. The line before the last is the ``kernels`` JSON record; the last line
@@ -1783,6 +1795,276 @@ def phase_unett(dev: dict) -> dict:
     return totals
 
 
+UVR5_SECONDS = 10.0  # the synthetic reference UVR5 denoises, at 24 kHz
+
+
+def _uvr5_nets(dev: dict) -> None:
+    """The STFT pair at MDX's n_fft 7680 / hop 1024 with its symmetric window
+    (cuFFT at a size that is not a power of two) and ``ConvTDFNet`` at
+    ``MDXConfig()`` on 2 chunk rows, card against CPU in f32."""
+    import numpy as np
+    import torch
+
+    from lemas_tts_tpu_torch.ops.stft import istft, stft
+    from lemas_tts_tpu_torch.uvr5.inference import hann_symmetric
+    from lemas_tts_tpu_torch.uvr5.mdxnet import ConvTDFNet, MDXConfig, seeded_init_
+
+    cfg = MDXConfig()
+    chunk = cfg.hop * (cfg.dim_t - 1)
+    x = torch.from_numpy(np.tile(_reference_wave(44100, 6.0, seed=3)[:chunk], (4, 1)))
+    out = {}
+    for d in ("cpu", "cuda"):
+        win = hann_symmetric(cfg.n_fft, d)
+        spec = stft(x.to(d), cfg.n_fft, cfg.hop, window=win)
+        out[d] = (spec, istft(spec, cfg.n_fft, cfg.hop, window=win))
+    spec_rl2 = rel_l2(torch.view_as_real(out["cuda"][0]).cpu(), torch.view_as_real(out["cpu"][0]))
+    wave_rl2 = rel_l2(out["cuda"][1].cpu(), out["cpu"][1])
+    inner = slice(cfg.n_fft, -cfg.n_fft)  # the symmetric window is 0 at both ends
+    trip = rel_l2(out["cuda"][1][:, inner].cpu(), x[:, inner])
+    print(f"[uvr5] STFT -> iSTFT, n_fft {cfg.n_fft} hop {cfg.hop}, symmetric Hann, 4 x {chunk} "
+          f"samples, f32: card vs CPU rel-L2 spectrogram {spec_rl2:.3e}, wave {wave_rl2:.3e} "
+          f"(tol {TOL_REL_L2['f32']:.0e}); card round trip vs input rel-L2 {trip:.3e}", flush=True)
+    check(max(spec_rl2, wave_rl2, trip) <= TOL_REL_L2["f32"],
+          f"MDX STFT pair: card vs CPU {spec_rl2:.3e} / {wave_rl2:.3e}, round trip {trip:.3e}")
+
+    model = seeded_init_(ConvTDFNet(cfg), torch.Generator().manual_seed(0)).eval()
+    n = sum(p.numel() for p in model.parameters())
+    spek = torch.randn(2, cfg.dim_c, cfg.dim_t, cfg.dim_f,
+                       generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        ref = model(spek)
+        cpu_s = time.perf_counter() - t0
+        got = model.cuda()(spek.cuda()).cpu()
+    rl2 = rel_l2(got, ref)
+    print(f"[uvr5] ConvTDFNet at MDXConfig() (dim_f {cfg.dim_f}, dim_t {cfg.dim_t}, "
+          f"{cfg.num_blocks} blocks, l {cfg.l}, g {cfg.g}, bn {cfg.bn}, GroupNorm): "
+          f"{n / 1e6:.3f} M parameters; 2 chunk rows [2, 4, {cfg.dim_t}, {cfg.dim_f}], f32: card "
+          f"vs CPU rel-L2 {rl2:.3e} max-abs {max_abs(got, ref):.3e} (tol {TOL_REL_L2['f32']:.0e}; "
+          f"the CPU took {cpu_s:.1f} s)", flush=True)
+    check(bool(torch.isfinite(got).all()) and rl2 <= TOL_REL_L2["f32"],
+          f"ConvTDFNet card vs CPU rel-L2 {rl2:.3e}")
+
+
+def _mdx_flops(cfg) -> float:
+    """Multiply-adds x 2 of one ``ConvTDFNet`` forward on one chunk row:
+    the TFC convs, the TDF Linears and the strided/transposed convs."""
+    total, f, t, ch = 0.0, cfg.dim_f, cfg.dim_t, cfg.g
+    total += 2 * cfg.dim_c * ch * f * t * 2  # first and final 1x1 convs
+
+    def tfc_tdf(ch, f, t):
+        tdf = 2 * f * f * ch * t if cfg.bn == 0 else 2 * 2 * f * (f // cfg.bn) * ch * t
+        return cfg.l * 2 * cfg.k * cfg.k * ch * ch * f * t + tdf
+
+    for _ in range(cfg.n):
+        total += 2 * tfc_tdf(ch, f, t)  # encoder and decoder blocks of this level
+        total += 2 * 2 * 4 * ch * (ch + cfg.g) * (f // 2) * (t // 2)  # ds and us 2x2 convs
+        f, t, ch = f // 2, t // 2, ch + cfg.g
+    return total + tfc_tdf(ch, f, t)
+
+
+def phase_uvr5(dev: dict) -> dict:
+    """UVR5 denoising at full width, random weights from a seed: the MDX
+    STFT pair and ``ConvTDFNet`` card against CPU; ``UVR5.denoise`` of a 10 s
+    24 kHz reference (length at 44.1 kHz, finite, the match-mix pass returns
+    its input; wall, the network's card ms, a profiled call); the flagship
+    ``tts_multilingual.main --denoise --uvr5_model`` (exit 0, the 44.1 kHz
+    ``_vocal.wav``, depth x 32 launches of K1-K3, counts set to 0 just before
+    and read just after); ``scripts/denoise.main`` over 3 WAVs with
+    ``-b`` (3 vocal and 3 background stems, then a run with nothing to do);
+    ``CascadedNet`` and ``CascadedASPPNet(123821)`` on one 512-frame window
+    card against CPU, and ``VRSeparator.separate_full`` single-band and
+    2-band (``2band_48000``) on the reference. Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from lemas_tts_tpu_torch.ops.resample import resample
+    from lemas_tts_tpu_torch.uvr5 import UVR5
+    from lemas_tts_tpu_torch.uvr5.mdxnet import ConvTDFNet, MDXConfig, seeded_init_
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    _uvr5_nets(dev)
+    totals = dict.fromkeys(kernel_counters(), 0)
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        pt = d / "mdx_seed0.pt"
+        torch.save(seeded_init_(ConvTDFNet(MDXConfig()), torch.Generator().manual_seed(0))
+                   .state_dict(), pt)
+        uvr = UVR5(model_path=str(pt))
+        sep = uvr.sep
+        check(sep.device.type == "cuda" and sep.cfg == MDXConfig() and sep.batch_size == 8,
+              "UVR5() did not build the MDXConfig() denoiser on the card at batch 8")
+        wav = _reference_wave(24000, UVR5_SECONDS, seed=4)
+        uvr.denoise(wav, 24000)  # warm-up
+        (den, sr), wall = _timed(lambda: uvr.denoise(wav, 24000))
+        want = int(np.ceil(len(wav) * 44100 / 24000))
+        n_chunks = sep.initialize_mix(np.zeros((2, want), np.float32))[0].shape[0]
+        print(f"[uvr5] UVR5.denoise of {UVR5_SECONDS:.0f} s at 24 kHz: {len(den)} samples at {sr} "
+              f"Hz (want {want}); {n_chunks} chunks of {sep.chunk_size} padded to batch "
+              f"{sep.batch_size}, x 2 for the sign flip; wall {wall:.3f} s = "
+              f"{UVR5_SECONDS / wall:.1f} x real time on {dev['card']}", flush=True)
+        check(sr == 44100 and den.shape == (want,) and bool(np.isfinite(den).all()),
+              "UVR5.denoise: wrong length, rate or not finite")
+        x44 = resample(torch.from_numpy(np.stack([wav, wav])).cuda(), 24000, 44100).cpu().numpy()
+        mm = sep.demix({0: x44}, is_match_mix=True)
+        inner = slice(sep.trim, -sep.trim)
+        mm_err = float(np.abs(mm[:, inner] - x44[:, inner]).max())
+        mm_rl2 = float(np.linalg.norm(mm - x44) / np.linalg.norm(x44))
+        print(f"[uvr5] match-mix demix returns its input: max-abs {mm_err:.3e} inside the "
+              f"edges (bound 5e-2), rel-L2 {mm_rl2:.3e} (the 3 lowest bins are zeroed)",
+              flush=True)
+        check(mm.shape == x44.shape and mm_err < 5e-2, f"match-mix demix: max-abs {mm_err:.3e}")
+        spek = torch.randn(sep.batch_size, 4, sep.cfg.dim_t, sep.cfg.dim_f, device="cuda")
+        net_ms = device_ms([lambda: sep.spec_to_spec(spek)], iters=3)
+        flops = 2 * sep.batch_size * _mdx_flops(sep.cfg)
+        print(f"[uvr5] network of one demix batch (B {sep.batch_size} x 2 sign-flip rows, f32, "
+              f"TF32 off): card ms {net_ms:.2f} (device_ms) for {flops / 1e12:.2f} TFLOP = "
+              f"{flops / net_ms / 1e9:.1f} TFLOP/s against the {H100_F32_FLOPS / 1e12:.0f} "
+              f"TFLOP/s f32 peak, on {dev['card']}", flush=True)
+        profiled(lambda: uvr.denoise(wav, 24000), f"UVR5.denoise, {UVR5_SECONDS:.0f} s at 24 kHz",
+                 top=8)
+        del uvr, sep, spek
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        totals = _uvr5_clis(dev, d, pt)
+        _uvr5_vr(dev, d, wav)
+    return totals
+
+
+def _uvr5_clis(dev: dict, d: Path, pt: Path) -> dict:
+    """``tts_multilingual.main --denoise`` on the flagship (char vocab, NFE
+    32) and ``scripts/denoise.main -b`` over 3 WAVs, with the seeded MDX
+    weights file ``pt``. Returns the launch counts of the TTS request."""
+    import numpy as np
+    import torch
+
+    from lemas_tts_tpu_torch.config import load_model_config
+    from lemas_tts_tpu_torch.scripts import denoise as denoise_cli
+    from lemas_tts_tpu_torch.scripts import tts_multilingual
+    from lemas_tts_tpu_torch.utils.audio_io import read_audio, write_wav
+
+    vocab = d / "vocab.txt"
+    vocab.write_text("\n".join(CHAR_VOCAB) + "\n")
+    ref = d / "ref.wav"
+    write_wav(str(ref), _reference_wave(24000, 3.0, seed=0), 24000)
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = tts_multilingual.main(["--ref_audio", str(ref), "--ref_text", REF_TEXT, "--text",
+                                GEN_TEXT, "--model", "multilingual", "--vocab_file", str(vocab),
+                                "--frontend", "none", "--nfe_step", "32", "--seed", "0",
+                                "--output_wave", str(d / "out.wav"), "--denoise",
+                                "--uvr5_model", str(pt)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    want = expected_launches(FLAGSHIP_KERNELS, load_model_config("multilingual").arch.depth * 32)
+    check(rc == 0 and (d / "ref_vocal.wav").is_file(),
+          f"tts_multilingual --denoise returned {rc} or wrote no ref_vocal.wav")
+    vocal, vsr = read_audio(str(d / "ref_vocal.wav"))
+    wave, osr = read_audio(str(d / "out.wav"))
+    print(f"[uvr5] tts_multilingual.main(--denoise --uvr5_model, NFE 32) on the flagship: rc "
+          f"{rc}, ref_vocal.wav {vocal.shape[-1]} samples at {vsr} Hz, output {wave.shape[-1]} "
+          f"samples at {osr} Hz, {wall:.2f} s wall (model builds included) on {dev['card']}; "
+          f"launches {launches}", flush=True)
+    check(vsr == 44100 and vocal.shape[-1] == 3 * 44100 and bool(np.isfinite(vocal).all()),
+          "the denoised reference is not 3 s at 44.1 kHz")
+    check(osr == 24000 and wave.size > 0 and bool(np.isfinite(wave).all()), "the TTS wave is bad")
+    check(launches == want, f"tts --denoise: launches {launches}, expected {want}")
+
+    src, out = d / "batch_in", d / "batch_out"
+    src.mkdir()
+    for i in range(3):
+        write_wav(str(src / f"clip{i}.wav"), _reference_wave(24000, 2.0, seed=10 + i), 24000)
+    argv = ["-a", str(src), "-r", str(out), "-m", str(pt), "-b"]
+    written, wall = _timed(lambda: denoise_cli.main(argv))
+    stems = sorted(p.name for p in out.iterdir())
+    again = denoise_cli.main(argv)
+    print(f"[uvr5] scripts/denoise.main -b over 3 x 2 s WAVs: {len(written)} written, stems "
+          f"{stems}, {wall:.2f} s wall (model load included); a second run processed "
+          f"{len(again)} files", flush=True)
+    names = sorted(f"clip{i}_{k}.wav" for i in range(3) for k in ("vocal", "background"))
+    check(len(written) == 3 and stems == names and again == [],
+          f"denoise CLI: wrote {stems}, second run {again}")
+    for name in names:
+        w, sr = read_audio(str(out / name))
+        check(sr == 44100 and w.shape == (2, 2 * 44100) and bool(np.isfinite(w).all()),
+              f"{name}: {w.shape} at {sr} Hz")
+    return launches
+
+
+def _uvr5_vr(dev: dict, d: Path, wav) -> None:
+    """The VR nets at their default widths on one 512-frame window, card
+    against CPU in f32 (the sigmoid masks and the logits before them), with
+    their card ms; ``VRSeparator.separate_full`` single-band (``CascadedNet``,
+    n_fft 2048, hop 1024) and 2-band (``CascadedASPPNet(123821)`` through
+    ``from_file``: with no band param it takes the default 2-band param, and
+    with ``2band_48000`` it separates) on the reference."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from lemas_tts_tpu_torch.uvr5 import vr_legacy, vr_network
+    from lemas_tts_tpu_torch.uvr5.band_params import load_band_params
+
+    g = torch.Generator().manual_seed(0)
+    nets = [("CascadedNet (n_fft 2048, nout 32, LSTM 128)", vr_network.CascadedNet(2048), 1025),
+            ("CascadedASPPNet 123821 (hp, n_fft 1536)", vr_legacy.CascadedASPPNet(1536, 123821),
+             769)]
+    for name, net, bins in nets:
+        net = vr_network.random_vr_init_(net, g).eval()
+        x = torch.rand(1, 2, bins, 512, generator=g)
+        logits = []
+        net.out.register_forward_hook(lambda m, i, o: logits.append(o.detach().cpu()))
+        with torch.no_grad():
+            ref = net(x)
+            got = net.cuda()(x.cuda()).cpu()
+            xc = x.cuda()
+            ms = device_ms([lambda: net(xc)], iters=3)
+        rl2, lrl2 = rel_l2(got, ref), rel_l2(logits[1], logits[0])
+        print(f"[uvr5] {name}, {sum(p.numel() for p in net.parameters()) / 1e6:.2f} M "
+              f"parameters, one window [1, 2, {bins}, 512], f32: card vs CPU rel-L2 mask "
+              f"{rl2:.3e}, logits {lrl2:.3e} (std {float(logits[0].std()):.3f}; tol "
+              f"{TOL_REL_L2['f32']:.0e}); card ms {ms:.2f} (device_ms) on {dev['card']}",
+              flush=True)
+        check(max(rl2, lrl2) <= TOL_REL_L2["f32"], f"{name}: card vs CPU {rl2:.3e} / {lrl2:.3e}")
+        if isinstance(net, vr_legacy.CascadedASPPNet):
+            torch.save(net.state_dict(), d / "vr_123821.pth")
+        del net
+    x = np.stack([wav, wav])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # random init, on purpose
+        single = vr_network.VRSeparator()
+    default = vr_network.VRSeparator.from_file(str(d / "vr_123821.pth"))
+    check(single.device.type == default.device.type == "cuda"
+          and isinstance(default.model, vr_legacy.CascadedASPPNet)
+          and default.model.nn_architecture == 123821 and default.n_fft == 1536
+          and default.mp == load_band_params(None),
+          "the VR separators are not the defaults on the card")
+    # the default 2-band param (reference model_param_init.py) has no lpf_stop /
+    # hpf_stop, which the band synthesis reads, so it cannot synthesize (nor can
+    # the JAX package or the reference with it): the 48 kHz 2-band config at the
+    # same 768 bins (n_fft 1536) does
+    two_band = vr_network.VRSeparator.from_file(str(d / "vr_123821.pth"),
+                                                band_params="2band_48000")
+    check(two_band.n_fft == 1536, "2band_48000 is not at n_fft 1536")
+    for label, sep, want_sr in (("single-band", single, 24000), ("2-band", two_band, 48000)):
+        sep.separate_full(x, 24000)  # warm-up: cuDNN picks its algorithms per shape
+        (p, s, sr), wall = _timed(lambda: sep.separate_full(x, 24000))
+        want = int(round(x.shape[-1] * want_sr / 24000))
+        print(f"[uvr5] VRSeparator.separate_full {label} of {UVR5_SECONDS:.0f} s at 24 kHz: "
+              f"stems {p.shape} and {s.shape} at {sr} Hz (want ~{want}), {wall:.3f} s wall",
+              flush=True)
+        check(sr == want_sr and p.shape == s.shape and p.shape[0] == 2
+              and abs(p.shape[1] - want) <= sep.n_fft and bool(np.isfinite(p).all())
+              and bool(np.isfinite(s).all()), f"separate_full {label}: {p.shape} at {sr} Hz")
+        profiled(lambda: sep.separate_full(x, 24000), f"VRSeparator.separate_full {label}",
+                 top=6)
+
+
 def main() -> int:
     if not (REPO / "lemas_tts_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -1801,7 +2083,7 @@ def main() -> int:
     launches = phase_slice(dev)
     graphed, profiles = phase_graph(dev)
     for more in (phase_frontend(dev), graphed, phase_serve(dev, profiles["eager"]),
-                 phase_prosody(dev), phase_bigvgan(dev), phase_unett(dev)):
+                 phase_prosody(dev), phase_bigvgan(dev), phase_unett(dev), phase_uvr5(dev)):
         launches = {k: launches[k] + more[k] for k in launches}
     kernels = [records[k] for k in ("qkv_block", "vmem_attention_nhd", "ffn_block",
                                      "vmem_attention_nhd_pack", "vmem_attention")]

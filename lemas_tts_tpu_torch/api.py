@@ -83,7 +83,7 @@ def select_device(device: Optional[str]) -> torch.device:
     return dev
 
 
-def _seeded_init(build, seed: int):
+def seeded_init(build, seed: int):
     """Build a module with random weights from ``seed`` without touching the
     global torch RNG."""
     with torch.random.fork_rng(devices=[]):
@@ -161,7 +161,7 @@ class TTS:
         # ---- acoustic model (the config's backbone)
         mel = self.config.mel_spec
         backbone = backbones[self.config.backbone]
-        self.dit = _seeded_init(lambda: backbone(self.config.arch, mel_dim=mel.n_mel_channels,
+        self.dit = seeded_init(lambda: backbone(self.config.arch, mel_dim=mel.n_mel_channels,
                                                  text_num_embeds=self.vocab.size,
                                                  compute_dtype=dtype), seed=0)
         pros_to_mel = None
@@ -184,7 +184,7 @@ class TTS:
                 torch.nn.init.zeros_(lin.bias)
                 return lin
 
-            self.prosody_to_mel = _seeded_init(random_to_mel, seed=2)
+            self.prosody_to_mel = seeded_init(random_to_mel, seed=2)
             if pros_to_mel is not None:
                 self.prosody_to_mel.load_state_dict(pros_to_mel)
             self.prosody_to_mel.to(self.device).eval()
@@ -216,11 +216,11 @@ class TTS:
         voc_path = Path(vocoder_local_path if vocoder_local_path is not None
                         else find_pretrained_root() / "ckpts" / default)
         if bigvgan:
-            vocoder = _seeded_init(lambda: BigVGAN(BigVGANConfig.for_hop(
+            vocoder = seeded_init(lambda: BigVGAN(BigVGANConfig.for_hop(
                 mel.hop_length, mel.n_mel_channels), compute_dtype=dtype), seed=1)
             ckpt = find_bigvgan_checkpoint(voc_path)
         else:
-            vocoder = _seeded_init(lambda: Vocos(input_channels=mel.n_mel_channels,
+            vocoder = seeded_init(lambda: Vocos(input_channels=mel.n_mel_channels,
                                                  n_fft=mel.n_fft, hop_length=mel.hop_length,
                                                  compute_dtype=dtype), seed=1)
             ckpt = voc_path / "pytorch_model.bin"

@@ -31,14 +31,17 @@ def hann_window(win_length: int, device=None) -> torch.Tensor:
     return w
 
 
-def stft(x, n_fft: int, hop_length: int, win_length=None, center: bool = True) -> torch.Tensor:
+def stft(x, n_fft: int, hop_length: int, win_length=None, center: bool = True,
+         window=None) -> torch.Tensor:
     """Complex STFT of ``x [..., T]`` -> ``[..., n_fft//2+1, n_frames]``
     (``torch.stft(pad_mode="reflect", onesided=True)`` semantics, periodic
-    Hann window of ``win_length`` centred in ``n_fft``; ``center`` reflect-pads
-    ``n_fft // 2`` on both ends)."""
+    Hann window of ``win_length`` centred in ``n_fft`` unless ``window`` is
+    given; ``center`` reflect-pads ``n_fft // 2`` on both ends)."""
     if win_length is None:
         win_length = n_fft
-    window = hann_window(win_length, device=x.device).to(x.dtype)
+    if window is None:
+        window = hann_window(win_length, device=x.device)
+    window = window.to(x.dtype)
     if win_length < n_fft:
         lpad = (n_fft - win_length) // 2
         window = F.pad(window, (lpad, n_fft - win_length - lpad))
@@ -69,12 +72,15 @@ def _overlap_add(frames: torch.Tensor, hop_length: int) -> torch.Tensor:
 
 
 def istft(spec, n_fft: int, hop_length: int, frame_mask=None,
-          eps: float = 1e-11) -> torch.Tensor:
+          eps: float = 1e-11, window=None, length=None) -> torch.Tensor:
     """Inverse STFT of a complex spectrogram ``[B, n_bins, n_frames]``:
-    Hann-windowed overlap-add normalised by the summed squared window,
-    trimmed by ``n_fft//2`` on both ends (``torch.istft(center=True)``).
+    windowed (periodic Hann unless ``window`` is given) overlap-add
+    normalised by the summed squared window, trimmed by ``n_fft//2`` on both
+    ends (``torch.istft(center=True)``); ``length`` keeps that many samples
+    after the leading trim, zero-padded if fewer are left.
     ``frame_mask [B, n_frames]`` marks the valid frames."""
-    window = hann_window(n_fft, device=spec.device)
+    if window is None:
+        window = hann_window(n_fft, device=spec.device)
     frames = torch.fft.irfft(spec.transpose(-1, -2), n=n_fft, dim=-1) * window
     B, n_frames, _ = frames.shape
     wsq = (window * window).expand(B, n_frames, n_fft)
@@ -85,4 +91,7 @@ def istft(spec, n_fft: int, hop_length: int, frame_mask=None,
     out = _overlap_add(frames, hop_length) / torch.clamp(
         _overlap_add(wsq.contiguous(), hop_length), min=eps)
     half = n_fft // 2
-    return out[..., half:-half]
+    if length is None:
+        return out[..., half:-half]
+    out = out[..., half:half + length]
+    return F.pad(out, (0, length - out.shape[-1]))

@@ -51,6 +51,16 @@ from typing import Optional, Sequence
 import numpy as np
 
 
+class HTTPServer(ThreadingHTTPServer):
+    """A thread per connection, with room for a burst of connects: the
+    standard library's listen backlog of 5 is less than one wave of
+    ``--max_batch`` 8 clients, and a network stack that answers a connect
+    past the backlog with a reset (not a retry) drops a request of the
+    wave."""
+
+    request_queue_size = 128
+
+
 def _wav_bytes(wav: np.ndarray, sr: int) -> bytes:
     pcm = (np.clip(np.asarray(wav, np.float32), -1.0, 1.0) * 32767.0).astype("<i2")
     buf = io.BytesIO()
@@ -433,8 +443,8 @@ def serve(args, *, ready_event: Optional[threading.Event] = None,
         print(f"[serve_http] dispatch-path warmup: {n} dispatches")
     engine = ServingEngine(tts.synth, cfg=cfg, max_batch=args.max_batch,
                            trace_requests=True if args.trace_requests else None)
-    httpd = ThreadingHTTPServer((args.host, args.port),
-                                make_handler(tts, engine, max_streams=args.max_streams))
+    httpd = HTTPServer((args.host, args.port),
+                       make_handler(tts, engine, max_streams=args.max_streams))
     if server_box is not None:
         server_box.append((httpd, engine))
     print(f"[serve_http] listening on {args.host}:{httpd.server_address[1]}", flush=True)

@@ -45,8 +45,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--output_spec", type=str, default="",
                    help="Optional spectrogram PNG path.")
     p.add_argument("--denoise", action="store_true",
-                   help="UVR5 denoising of the reference (not ported yet: refused).")
-    p.add_argument("--uvr5_model", type=str, default="")
+                   help="UVR5 (MDX-Net) denoising of the reference before synthesis: "
+                        "needs --uvr5_model; writes <ref stem>_vocal.wav at 44.1 kHz.")
+    p.add_argument("--uvr5_model", type=str, default="",
+                   help="MDX weights (.onnx/.ckpt/.pt) for --denoise.")
     # sampling
     p.add_argument("--nfe_step", type=int, default=64, help="Number of sampling steps (NFE).")
     p.add_argument("--cfg_strength", type=float, default=5.0, help="CFG strength.")
@@ -82,9 +84,8 @@ def build_parser() -> argparse.ArgumentParser:
 def refuse_unported(args) -> None:
     """Raise ``NotImplementedError`` naming the first flag of ``args`` that
     asks for a feature the port does not have yet (other CLIs share this
-    with their own parsers, hence ``getattr``)."""
+    with their own parsers, hence ``hasattr``)."""
     unported = [
-        (getattr(args, "denoise", False), "--denoise (UVR5 denoising)"),
         (args.attn_backend is not None, "--attn_backend (the JAX attention backends)"),
         (hasattr(args, "ref_text") and not args.ref_text.strip(),
          "an empty --ref_text (ASR transcription of the reference)"),
@@ -110,12 +111,36 @@ def build_tts(args):
                compute_dtype=args.compute_dtype)
 
 
+def denoise_reference(args) -> str | None:
+    """``--denoise``: the reference through UVR5 on ``--device``, written
+    beside it as ``<stem>_vocal.wav``; None (after saying why) without a
+    weights file: a random network must not clean the reference."""
+    from pathlib import Path
+
+    if not (args.uvr5_model and Path(args.uvr5_model).is_file()):
+        print("[tts] --denoise requires --uvr5_model pointing at MDX weights "
+              "(.onnx/.ckpt); refusing to denoise with a randomly initialized network",
+              file=sys.stderr)
+        return None
+    from lemas_tts_tpu_torch.uvr5 import UVR5
+
+    path = UVR5(model_path=args.uvr5_model, device=args.device).denoise_file(args.ref_audio)
+    print(f"[tts] denoised reference → {path}")
+    return path
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     seed = args.seed if args.seed >= 0 else random.randint(0, 2 ** 31 - 1)
+    refuse_unported(args)
+    ref_audio = args.ref_audio
+    if args.denoise:
+        ref_audio = denoise_reference(args)
+        if ref_audio is None:
+            return 2
     tts = build_tts(args)
     wav, sr, _spec = tts.infer(
-        ref_file=args.ref_audio, ref_text=args.ref_text, gen_text=args.text,
+        ref_file=ref_audio, ref_text=args.ref_text, gen_text=args.text,
         nfe_step=args.nfe_step, cfg_strength=args.cfg_strength,
         sway_sampling_coef=args.sway_sampling_coef, cfg_cutoff=args.cfg_cutoff,
         speed=args.speed, separate_langs=args.separate_langs, use_acc_grl=args.use_acc_grl,

@@ -17,6 +17,12 @@ Reference checkpoints: the CFM file's backbone (the DiT's
 ``prosody_to_mel`` (``load_reference_checkpoint``), the
 Pretssel prosody encoder (``load_prosody_checkpoint``) and NVIDIA's BigVGAN
 generator with its weight norm folded (``load_bigvgan_checkpoint``).
+
+UVR5: the JAX MDX ``ConvTDFNet`` and ``Mixer`` params and the VR nets'
+variables become the reference's state dicts (``mdx_state_from_jax``,
+``mixer_state_from_jax``, ``cascadednet_state_from_jax``,
+``cascaded_aspp_state_from_jax``), the inverses of the JAX package's
+``convert_*`` functions.
 """
 
 from __future__ import annotations
@@ -297,7 +303,14 @@ def load_reference_checkpoint(path: str, use_ema: bool = True):
     return backbone, to_mel
 
 
-def _torch_file(path: str) -> Dict[str, Any]:
+def load_torch_file(path: str) -> Dict[str, Any]:
+    """A ``.safetensors`` or torch (``.pt``/``.ckpt``/``.pth``) file -> its
+    dict; of a training file's ``ema_model_state_dict`` and
+    ``model_state_dict``, the first there is."""
+    if str(path).endswith(".safetensors"):
+        from safetensors.torch import load_file
+
+        return dict(load_file(str(path)))
     obj = torch.load(path, map_location="cpu", weights_only=True)
     if "ema_model_state_dict" in obj or "model_state_dict" in obj:
         obj = obj.get("ema_model_state_dict", obj.get("model_state_dict"))
@@ -309,7 +322,7 @@ def load_prosody_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     -> an ``ECAPA_TDNN`` state dict (prefixes stripped, f32)."""
     from lemas_tts_tpu_torch.models.prosody import remap_prosody_state_dict
 
-    return {k: v.float() for k, v in remap_prosody_state_dict(_torch_file(path)).items()}
+    return {k: v.float() for k, v in remap_prosody_state_dict(load_torch_file(path)).items()}
 
 
 def fold_weight_norm(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -342,9 +355,197 @@ def load_bigvgan_checkpoint(path) -> Dict[str, torch.Tensor]:
     """NVIDIA's BigVGAN generator file -> a ``BigVGAN`` state dict with the
     weight norm folded; the alias-free filters it stores are dropped (the
     port makes its own taps)."""
-    sd = _torch_file(str(path))
+    sd = load_torch_file(str(path))
     if isinstance(sd.get("generator"), Mapping):
         sd = sd["generator"]
     if any(k.startswith("generator.") for k in sd):
         sd = {k[len("generator."):]: v for k, v in sd.items() if k.startswith("generator.")}
     return {k: v for k, v in fold_weight_norm(sd).items() if not k.endswith(".filter")}
+
+
+# ------------------------------------------------------------------- UVR5
+def _conv2d(sd: Dict[str, torch.Tensor], key: str, node: Mapping[str, Any]) -> None:
+    """flax ``Conv``/``ConvTranspose(transpose_kernel=True)`` kernel
+    ``[kh, kw, a, b]`` -> torch ``[b, a, kh, kw]`` (the inverse of the JAX
+    package's ``_conv2d``/``_convT2d``, which share the permutation)."""
+    sd[f"{key}.weight"] = _tensor(np.transpose(np.asarray(node["kernel"]), (3, 2, 0, 1)))
+    if "bias" in node:
+        sd[f"{key}.bias"] = _tensor(node["bias"])
+
+
+def _batch_norm(sd: Dict[str, torch.Tensor], key: str, scale, bias, mean, var) -> None:
+    sd[f"{key}.weight"], sd[f"{key}.bias"] = _tensor(scale), _tensor(bias)
+    sd[f"{key}.running_mean"], sd[f"{key}.running_var"] = _tensor(mean), _tensor(var)
+    sd[f"{key}.num_batches_tracked"] = torch.tensor(0)
+
+
+def _mdx_norm(sd: Dict[str, torch.Tensor], key: str, node: Mapping[str, Any]) -> None:
+    """``GroupNorm`` (``gn``) -> ``.weight``/``.bias``; the folded affine of
+    ``norm="affine"`` -> an eval-mode ``BatchNorm2d`` that computes it
+    (mean 0, variance 1 - eps)."""
+    if "gn" in node:
+        sd[f"{key}.weight"], sd[f"{key}.bias"] = _tensor(node["gn"]["scale"]), _tensor(
+            node["gn"]["bias"])
+        return
+    c = np.asarray(node["scale"]).shape[0]
+    _batch_norm(sd, key, node["scale"], node["bias"], np.zeros(c), np.full(c, 1.0 - 1e-5))
+
+
+def _tfc_tdf(sd: Dict[str, torch.Tensor], key: str, node: Mapping[str, Any]) -> None:
+    tfc, tdf = node["tfc"], node["tdf"]
+    j = 0
+    while f"conv_{j}" in tfc:
+        _conv2d(sd, f"{key}.tfc.H.{j}.0", tfc[f"conv_{j}"])
+        _mdx_norm(sd, f"{key}.tfc.H.{j}.1", tfc[f"norm_{j}"])
+        j += 1
+    for lin, norm, idx in (("lin0", "norm_0", 0), ("lin1", "norm_1", 3)):
+        if f"{lin}_w" in tdf:
+            sd[f"{key}.tdf.{idx}.weight"] = _tensor(np.asarray(tdf[f"{lin}_w"]).T)
+            if f"{lin}_b" in tdf:
+                sd[f"{key}.tdf.{idx}.bias"] = _tensor(tdf[f"{lin}_b"])
+            _mdx_norm(sd, f"{key}.tdf.{idx + 1}", tdf[norm])
+
+
+def mdx_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``ConvTDFNet`` params -> ``uvr5.mdxnet.ConvTDFNet`` state dict
+    (the reference names: the inverse of ``convert_convtdfnet``)."""
+    p = _params(params)
+    sd: Dict[str, torch.Tensor] = {}
+    _conv2d(sd, "first_conv.0", p["first_conv"])
+    _mdx_norm(sd, "first_conv.1", p["first_norm"])
+    i = 0
+    while f"enc_{i}" in p:
+        _tfc_tdf(sd, f"encoding_blocks.{i}", p[f"enc_{i}"])
+        _conv2d(sd, f"ds.{i}.0", p[f"ds_conv_{i}"])
+        _mdx_norm(sd, f"ds.{i}.1", p[f"ds_norm_{i}"])
+        _conv2d(sd, f"us.{i}.0", p[f"us_conv_{i}"])
+        _mdx_norm(sd, f"us.{i}.1", p[f"us_norm_{i}"])
+        _tfc_tdf(sd, f"decoding_blocks.{i}", p[f"dec_{i}"])
+        i += 1
+    _tfc_tdf(sd, "bottleneck_block", p["bottleneck"])
+    _conv2d(sd, "final_conv.0", p["final_conv"])
+    return sd
+
+
+def mixer_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``Mixer`` params -> ``uvr5.mdxnet.Mixer`` state dict."""
+    return {"linear.weight": _tensor(np.asarray(_params(params)["linear"]["kernel"]).T)}
+
+
+class _VRState(dict):
+    """The VR nets' params and batch statistics (``{"params", "batch_stats"}``)
+    -> the reference's names."""
+
+    def conv_bn(self, key: str, p: Mapping[str, Any], s: Mapping[str, Any]) -> None:
+        """``ConvBNActiv`` -> ``{key}.conv.0`` (conv) / ``{key}.conv.1`` (BN)."""
+        self.conv_bn_pair(f"{key}.conv.0", f"{key}.conv.1", p["conv"], p["bn"], s["bn"])
+
+    def conv_bn_pair(self, conv_key: str, bn_key: str, conv, bn, stats) -> None:
+        _conv2d(self, conv_key, conv)
+        _batch_norm(self, bn_key, bn["scale"], bn["bias"], stats["mean"], stats["var"])
+
+    def lstm(self, key: str, fwd: Mapping[str, Any], bwd: Mapping[str, Any]) -> None:
+        """Two flax ``OptimizedLSTMCell``s (per-gate Dense, the input side
+        bias-free) -> one bidirectional ``nn.LSTM`` (gates stacked i, f, g,
+        o; the hidden side's bias as ``bias_hh``, ``bias_ih`` zero)."""
+        for sfx, cell in (("", fwd), ("_reverse", bwd)):
+            gates = "ifgo"
+            self[f"{key}.weight_ih_l0{sfx}"] = _tensor(np.concatenate(
+                [np.asarray(cell[f"i{g}"]["kernel"]).T for g in gates]))
+            self[f"{key}.weight_hh_l0{sfx}"] = _tensor(np.concatenate(
+                [np.asarray(cell[f"h{g}"]["kernel"]).T for g in gates]))
+            b = np.concatenate([np.asarray(cell[f"h{g}"]["bias"]) for g in gates])
+            self[f"{key}.bias_ih_l0{sfx}"] = _tensor(np.zeros_like(b))
+            self[f"{key}.bias_hh_l0{sfx}"] = _tensor(b)
+
+    def base_net(self, key: str, p: Mapping[str, Any], s: Mapping[str, Any]) -> None:
+        """One new-arch ``BaseNet`` stage."""
+        self.conv_bn(f"{key}.enc1", p["enc1"], s["enc1"])
+        for enc in ("enc2", "enc3", "enc4", "enc5"):
+            for c in ("conv1", "conv2"):
+                self.conv_bn(f"{key}.{enc}.{c}", p[enc][c], s[enc][c])
+        a, sa = p["aspp"], s["aspp"]
+        self.conv_bn(f"{key}.aspp.conv1.1", a["conv1"], sa["conv1"])
+        self.conv_bn(f"{key}.aspp.conv2", a["conv2"], sa["conv2"])
+        for i in (3, 4, 5):
+            self.conv_bn_pair(f"{key}.aspp.conv{i}.conv.0", f"{key}.aspp.conv{i}.conv.1",
+                              a[f"conv{i}_conv"], a[f"conv{i}_bn"], sa[f"conv{i}_bn"])
+        self.conv_bn(f"{key}.aspp.bottleneck", a["bottleneck"], sa["bottleneck"])
+        for dec in ("dec4", "dec3", "dec2", "dec1"):
+            self.conv_bn(f"{key}.{dec}.conv1", p[dec]["conv1"], s[dec]["conv1"])
+        m, sm = p["lstm_dec2"], s["lstm_dec2"]
+        self.conv_bn(f"{key}.lstm_dec2.conv", m["conv"], sm["conv"])
+        self.lstm(f"{key}.lstm_dec2.lstm", m["OptimizedLSTMCell_0"], m["OptimizedLSTMCell_1"])
+        self.linear_bn(f"{key}.lstm_dec2.dense", m["dense"], m["dense_bn"], sm["dense_bn"])
+
+    def linear_bn(self, key: str, dense, bn, stats) -> None:
+        self[f"{key}.0.weight"] = _tensor(np.asarray(dense["kernel"]).T)
+        self[f"{key}.0.bias"] = _tensor(dense["bias"])
+        _batch_norm(self, f"{key}.1", bn["scale"], bn["bias"], stats["mean"], stats["var"])
+
+    def base_aspp_net(self, key: str, p: Mapping[str, Any], s: Mapping[str, Any]) -> None:
+        """One legacy ``BaseASPPNet``: its stages and ASPP branches are the
+        ones its params hold."""
+        for name in ("enc1", "enc2", "enc3", "enc4", "enc5"):
+            if name in p:
+                for c in ("conv1", "conv2"):
+                    self.conv_bn(f"{key}.{name}.{c}", p[name][c], s[name][c])
+        for name in ("dec5", "dec4", "dec3", "dec2", "dec1"):
+            if name in p:
+                self.conv_bn(f"{key}.{name}.conv", p[name]["conv"], s[name]["conv"])
+        a, sa = p["aspp"], s["aspp"]
+        self.conv_bn(f"{key}.aspp.conv1.1", a["conv1"], sa["conv1"])
+        self.conv_bn(f"{key}.aspp.conv2", a["conv2"], sa["conv2"])
+        i = 3
+        while f"conv{i}" in a:
+            b, sb = a[f"conv{i}"], sa[f"conv{i}"]
+            _conv2d(self, f"{key}.aspp.conv{i}.conv.0", b["depthwise"])
+            _conv2d(self, f"{key}.aspp.conv{i}.conv.1", b["pointwise"])
+            _batch_norm(self, f"{key}.aspp.conv{i}.conv.2", b["bn"]["scale"], b["bn"]["bias"],
+                        sb["bn"]["mean"], sb["bn"]["var"])
+            i += 1
+        self.conv_bn(f"{key}.aspp.bottleneck.0", a["bottleneck"], sa["bottleneck"])
+
+    def zero_conv(self, key: str, nin: int) -> None:
+        """A training-only 1×1 head the JAX package drops: zeros, never run."""
+        self[f"{key}.weight"] = torch.zeros(2, nin, 1, 1)
+
+
+def cascadednet_state_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``CascadedNet`` variables (``params`` + ``batch_stats``) ->
+    ``uvr5.vr_network.CascadedNet`` state dict (the inverse of
+    ``convert_cascadednet``; the training-only ``aux_out`` head, which the
+    JAX net lacks, is zero)."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd = _VRState()
+    sd.base_net("stg1_low_band_net.0", p["stg1_low"], s["stg1_low"])
+    sd.conv_bn("stg1_low_band_net.1", p["stg1_low_out"], s["stg1_low_out"])
+    sd.base_net("stg1_high_band_net", p["stg1_high"], s["stg1_high"])
+    sd.base_net("stg2_low_band_net.0", p["stg2_low"], s["stg2_low"])
+    sd.conv_bn("stg2_low_band_net.1", p["stg2_low_out"], s["stg2_low_out"])
+    sd.base_net("stg2_high_band_net", p["stg2_high"], s["stg2_high"])
+    sd.base_net("stg3_full_band_net", p["stg3_full"], s["stg3_full"])
+    _conv2d(sd, "out", p["out"])
+    nout = sd["out.weight"].shape[1]
+    sd.zero_conv("aux_out", 3 * nout // 4)
+    return dict(sd)
+
+
+def cascaded_aspp_state_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``CascadedASPPNet`` variables -> ``uvr5.vr_legacy.CascadedASPPNet``
+    state dict (the inverse of ``convert_cascaded_aspp``; the training-only
+    ``aux1_out``/``aux2_out`` heads are zero). ``vr_legacy.infer_architecture``
+    of the result gives the ``nn_architecture`` to build."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd = _VRState()
+    for ours, theirs in (("stg1_low", "stg1_low_band_net"), ("stg1_high", "stg1_high_band_net"),
+                         ("stg2_full", "stg2_full_band_net"),
+                         ("stg3_full", "stg3_full_band_net")):
+        sd.base_aspp_net(theirs, p[ours], s[ours])
+    sd.conv_bn("stg2_bridge", p["stg2_bridge"], s["stg2_bridge"])
+    sd.conv_bn("stg3_bridge", p["stg3_bridge"], s["stg3_bridge"])
+    _conv2d(sd, "out", p["out"])
+    ch = sd["stg1_low_band_net.enc1.conv1.conv.0.weight"].shape[0]
+    sd.zero_conv("aux1_out", ch)
+    sd.zero_conv("aux2_out", ch)
+    return dict(sd)

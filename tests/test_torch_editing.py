@@ -10,7 +10,8 @@ JAX package on the CPU.
 - The CLIs run end to end with ``--device cpu``, fail without CUDA when no
   device is given, refuse each unported flag with ``NotImplementedError``,
   and pass ``--block_cache`` and ``--ode_method midpoint`` to the sampler as
-  the JAX CLIs do.
+  the JAX CLIs do; ``--denoise --uvr5_model`` cleans the reference as the
+  JAX CLI does.
 - 24-bit and float32 WAV (and EXTENSIBLE headers) read equal to the JAX
   package's WAV decoder, ``audioproc_wav_decode`` of ``native/audioproc.cpp``,
   which the test compiles into its own directory.
@@ -243,10 +244,14 @@ def test_cli_refuses_unported_flags(pair, cli, flags, feature, monkeypatch):
     are ported: the CLI runs end to end on the CPU, and hands the sampler the
     settings the JAX CLI hands its sampler for the same flags. The prosody
     runs take a Pretssel config at narrow widths (``--prosody_cfg_path``) in
-    both packages, and the port's synthesizer then conditions on prosody."""
+    both packages, and the port's synthesizer then conditions on prosody.
+    ``--denoise``, once refused, is ported: see ``_denoise_case``."""
     _edit_dirs(pair[2])
     main, args = _cli_args(pair[2], cli)
     argv = args + flags + ["--device", "cpu", "--nfe_step", "2"]
+    if feature == "denoise":
+        _denoise_case(pair[2], argv, monkeypatch)
+        return
     if feature == "prosody":
         cfg = pair[2] / "pretssel_cfg.json"
         cfg.write_text(json.dumps({"model": {
@@ -304,6 +309,66 @@ def test_cli_refuses_unported_flags(pair, cli, flags, feature, monkeypatch):
     assert seen["port synth"].uses_prosody(seen["port"]) == (feature == "prosody")
     out = pair[2] / ("x.wav" if cli == "tts" else "x/utt1.wav")
     w, sr = read_audio(str(out))
+    assert sr == 8000 and w.size > 0 and np.isfinite(w).all()
+
+
+def _denoise_case(d, argv, monkeypatch):
+    """``--denoise`` without ``--uvr5_model`` returns 2 in both CLIs, as the
+    JAX CLI refuses a random network. With a tiny MDX ``.pt`` (random from a
+    seed, at the 7680-point STFT ``infer_config_from_state_dict`` assumes)
+    the port's CLI runs end to end on the CPU: it writes the reference's
+    ``_vocal.wav`` at 44.1 kHz and synthesizes from it; its denoised
+    reference equals the JAX CLI's (f32, ``rtol=2e-4, atol=2e-5`` of the
+    peak)."""
+    import torch
+
+    from lemas_tts_tpu.infer.pipeline import Synthesizer as JSynthesizer
+    from lemas_tts_tpu.scripts import tts_multilingual as jtts_cli
+    from lemas_tts_tpu.uvr5 import inference as jinference
+    from lemas_tts_tpu_torch.infer.pipeline import Synthesizer
+    from lemas_tts_tpu_torch.uvr5 import inference, mdxnet
+
+    assert tts_multilingual.main(argv) == 2
+    assert jtts_cli.main(argv) == 2
+    cfg = mdxnet.MDXConfig(dim_f=24, num_blocks=5, l=2, g=4, bn=2)
+    model = mdxnet.seeded_init_(mdxnet.ConvTDFNet(cfg), torch.Generator().manual_seed(0))
+    torch.save(model.state_dict(), d / "tiny_mdx.pt")
+    argv = argv + ["--uvr5_model", str(d / "tiny_mdx.pt")]
+
+    class Seen(Exception):
+        pass
+
+    seen = {}
+
+    def record(key, fn):
+        def wrapped(self, *a, **kw):
+            seen[key] = fn(self, *a, **kw)
+            return seen[key]
+        return wrapped
+
+    def synth_spy(self, wav, sr, *a, **kw):
+        seen["synth sr"] = sr
+        return synthesize_chunks(self, wav, sr, *a, **kw)
+
+    def stop(*a, **kw):
+        raise Seen
+
+    synthesize_chunks = Synthesizer.synthesize_chunks
+    monkeypatch.setattr(inference.UVR5, "denoise", record("port", inference.UVR5.denoise))
+    monkeypatch.setattr(jinference.UVR5, "denoise", record("jax", jinference.UVR5.denoise))
+    monkeypatch.setattr(Synthesizer, "synthesize_chunks", synth_spy)
+    monkeypatch.setattr(JSynthesizer, "synthesize_chunks", stop)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        assert tts_multilingual.main(argv) == 0
+        vocal, vsr = read_audio(str(d / "wavs" / "utt1_vocal.wav"))
+        with pytest.raises(Seen):
+            jtts_cli.main(argv)
+    (got, got_sr), (want, want_sr) = seen["port"], seen["jax"]
+    assert got_sr == want_sr == vsr == seen["synth sr"] == 44100
+    assert got.shape == want.shape == (vocal.shape[-1],) == (3 * 44100,)
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5 * np.abs(want).max())
+    w, sr = read_audio(str(d / "x.wav"))
     assert sr == 8000 and w.size > 0 and np.isfinite(w).all()
 
 

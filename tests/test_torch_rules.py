@@ -22,8 +22,8 @@ PKG = REPO / "lemas_tts_tpu_torch"
 
 def test_import_leaves_jax_out():
     """Importing every module of the port (and building nothing), its
-    ``text/`` and ``scripts/`` subpackages included, pulls in neither jax nor
-    lemas_tts_tpu."""
+    ``text/``, ``scripts/`` and ``uvr5/`` subpackages included, pulls in
+    neither jax nor lemas_tts_tpu (nor the tests' torch mirrors)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import lemas_tts_tpu_torch, lemas_tts_tpu_torch.api\n"
@@ -32,12 +32,14 @@ def test_import_leaves_jax_out():
         "for sub in ('text.frontend', 'text.en_ipa', 'scripts.tts_multilingual',"
         " 'scripts.speech_edit_multilingual', 'scripts.g2p', 'infer.editing',"
         " 'scripts.serve_http', 'serve.engine', 'serve.batcher', 'cfm.graph', 'ops.quant',"
-        " 'ops.fbank', 'models.prosody', 'models.bigvgan', 'models.unett'):\n"
+        " 'ops.fbank', 'models.prosody', 'models.bigvgan', 'models.unett', 'scripts.denoise',"
+        " 'uvr5.mdxnet', 'uvr5.inference', 'uvr5.onnx_weights', 'uvr5.band_params',"
+        " 'uvr5.spec_utils', 'uvr5.pyrb', 'uvr5.vr_network', 'uvr5.vr_legacy'):\n"
         "    assert 'lemas_tts_tpu_torch.' + sub in names, sub\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax',"
-        " 'lemas_tts_tpu'))\n"
+        " 'lemas_tts_tpu', 'tests'))\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -56,7 +58,8 @@ def test_sources_name_no_jax_module():
             else:
                 continue
             for name in names:
-                assert name.split(".")[0] not in ("jax", "flax", "lemas_tts_tpu"), (path, name)
+                assert name.split(".")[0] not in ("jax", "flax", "lemas_tts_tpu", "tests"), \
+                    (path, name)
 
 
 def test_entry_points_match_c_sources():
