@@ -10,7 +10,8 @@ Phases, in order (any failure raises; the exit code is then non-zero):
      SASS;
   3. kernels: each kernel (K1-K5) against its plain PyTorch version on the
      card, at the shapes of the paths below (K5 also at N 1000 and 1025, K1
-     also at rows 3, N 1088, where 128-row tiles straddle batch rows), with
+     also at rows 3, N 1088, where 128-row tiles straddle batch rows; K1-K3
+     at rows 1, a distilled student's, and K3 there also with 8 x 128 heads), with
      times, the bound and the library yardstick (sdpa for K3-K5, the cuBLAS
      products alone for K1 and K2); every design of the bf16 K1 timed (both
      LN-modulate forms, bit for bit equal, at each tile width); K4 also
@@ -87,6 +88,22 @@ Phases, in order (any failure raises; the exit code is then non-zero):
      card against CPU (masks and logits), ``VRSeparator.separate_full``
      single-band and 2-band (``2band_48000``) on the reference, each
      profiled.
+ 14. train: a K1 call on CUDA inputs that require grad raises (the kernels
+     define no backward); ``cfm_training_loss`` (accent and CTC heads) and
+     a ``Distiller`` loss at the flagship's width, depth 2, f32, card
+     against CPU with the same weights, batch and draws (loss and the worst
+     per-parameter gradient rel-L2); ``Trainer`` at full width and depth
+     on one repeated batch (the loss falls), and timed at a 39 x 1024-frame
+     batch (the 40,000-frame budget); ``scripts/train.main`` at full
+     width on ``--synthetic`` data at the reference's 40,000-frame budget
+     with ``--checkpoint_activations`` (step time, frames/s, TFLOP/s, peak
+     memory), its ``model_last`` restored bit for bit, ``--resume`` carrying
+     the step count on; ``scripts/distill.main`` from it (stages 16, 8, and
+     an 8 x 128 wide-head stage 8); ``TTS`` on each student directory
+     (pinned to steps K, CFG 0; K1-K3 depth x K launches per request, eager
+     and graphed, the graphed mel equal to the eager one); and
+     ``scripts/evaluate.main`` over their output with a random-init speaker
+     encoder (finite metrics).
 On CUDA every request's sampler is a graph replay (its first request of a
 bucket runs eagerly and captures), so every count above is launches on the
 card. The line before the last is the ``kernels`` JSON record; the last line
@@ -338,6 +355,8 @@ def phase_kernels() -> dict:
     cases = [("bf16", torch.bfloat16, rows, n, H, DH) for rows in (2, 16) for n in (1024, 4096)]
     cases += [("f32", torch.float32, 2, 1024, H, DH), ("bf16", torch.bfloat16, 2, 1024, 8, 128),
               ("f32", torch.float32, 2, 1024, 8, 128)]
+    # a distilled student's rows (no CFG), 16 x 64 and the wide 8 x 128 heads
+    cases += [("bf16", torch.bfloat16, 1, 1024, H, DH), ("bf16", torch.bfloat16, 1, 1024, 8, 128)]
     for tag, dtype, rows, n, heads, dh in cases:
         main_shape = tag == "bf16" and rows == 2 and n == 1024 and dh == 64
         sets = [_kernel_inputs(torch, rows, n, D, FF, heads, dh, dtype, seed)
@@ -2065,6 +2084,373 @@ def _uvr5_vr(dev: dict, d: Path, wav) -> None:
                  top=6)
 
 
+# ------------------------------------------------------------- [train] phase
+TRAIN_TOL = {"loss": 1e-4, "grad": 1e-3}  # card vs CPU, f32, TF32 off
+TRAIN_SYNTHETIC = 200  # --synthetic samples: 40-299 frames each, batches of 64 at the budget
+
+
+def _train_step_flop(arch, B: int, N: int) -> float:
+    """FLOP of one training step with activation checkpointing: 4 x the
+    block stack's forward (forward, the recompute, and a backward of twice
+    the forward); per block the dense products 2 x (4 d² + 2 d f) per frame
+    and the attention's 4 x B x N² x inner. The embeddings, the heads and the
+    loss are left out."""
+    d, f, inner = arch.dim, arch.dim * arch.ff_mult, arch.heads * arch.dim_head
+    return 4.0 * arch.depth * (2 * (4 * d * d + 2 * d * f) * B * N + 4 * B * N * N * inner)
+
+
+def _train_flops(log_path: Path, arch) -> list:
+    """(batch [B, T], step seconds, FLOP) of each logged training step after
+    the first (the log's timestamps, each after a sync on the loss)."""
+    events = [json.loads(line) for line in log_path.read_text().splitlines()]
+    steps = [e for e in events if e["event"] == "train_step"]
+    return [(e["batch"], e["ts"] - prev["ts"], _train_step_flop(arch, *e["batch"]))
+            for prev, e in zip(steps, steps[1:])]
+
+
+def _train_vs_cpu(dev: dict) -> None:
+    """One ``cfm_training_loss`` (accent and CTC heads) and one ``Distiller``
+    loss at the flagship's width and depth 2, f32, dropout 0 (the card's and
+    the CPU's dropout generators draw different masks), on the card and on
+    the CPU with the same weights, batch and draws; the losses and the worst
+    per-parameter gradient rel-L2."""
+    import dataclasses
+
+    import torch
+
+    from lemas_tts_tpu_torch.cfm.distill import Distiller
+    from lemas_tts_tpu_torch.cfm.loss import AccentClassifier, CTCHead, cfm_training_loss
+    from lemas_tts_tpu_torch.config import load_model_config
+    from lemas_tts_tpu_torch.models.dit import DiT
+
+    cfg = load_model_config("multilingual")
+    arch = dataclasses.replace(cfg.arch, depth=2, dropout=0.0)
+    mel, vocab, B, T, nt = cfg.mel_spec.n_mel_channels, 64, 4, 512, 128
+    g = torch.Generator().manual_seed(0)
+    torch.manual_seed(0)
+    models = {"dit": DiT(arch, mel_dim=mel, text_num_embeds=vocab),
+              "accent": AccentClassifier(mel, arch.dim), "ctc": CTCHead(mel, arch.dim, vocab)}
+    text = torch.randint(0, vocab, (B, nt), generator=g)
+    text[:, 100:] = -1
+    batch = {"mel": torch.randn(B, T, mel, generator=g), "mel_lengths": torch.tensor(
+        [512, 480, 450, 400]), "text": text, "langs": torch.tensor([0, 3, 7, 11])}
+    draws = {"frac": 0.7 + 0.3 * torch.rand(B, generator=g), "span": torch.rand(B, generator=g),
+             "x0": torch.randn(B, T, mel, generator=g), "time": torch.tensor([0.6, 0.7, 0.8, 0.3]),
+             "seg": torch.tensor([0, 5, 9, 15])}
+
+    def run(device, which):
+        mods = {k: v.to(device) for k, v in models.items()}
+        b = {k: v.to(device) for k, v in batch.items()}
+        dr = {k: v.to(device) for k, v in draws.items()}
+        for m in mods.values():
+            m.zero_grad(set_to_none=True)
+        if which == "loss":
+            total, _ = cfm_training_loss(mods["dit"], {"accent": mods["accent"], "ctc": mods["ctc"]},
+                                         b, draws=dr, vocab_size=vocab)
+            named = {f"{n}.{k}": p for n, m in mods.items() for k, p in m.named_parameters()}
+        else:
+            dist = Distiller(mods["dit"], 16, sway_sampling_coef=1.0)
+            st = dist.init_state(mods["dit"].state_dict())
+            total, _ = dist.loss(st.params, st.teacher_params, b, draws=dr)
+            named = dict(st.params.named_parameters())
+        total.backward()
+        return float(total.detach()), {k: p.grad.detach().cpu() for k, p in named.items()}
+
+    for which in ("loss", "distill"):
+        (l_cpu, g_cpu), (l_gpu, g_gpu) = run("cpu", which), run("cuda", which)
+        dl = abs(l_gpu - l_cpu) / max(abs(l_cpu), 1e-30)
+        worst = max((rel_l2(g_gpu[k], g_cpu[k]), k) for k in g_cpu
+                    if float(g_cpu[k].norm()) > 0)
+        label = "cfm_training_loss (accent + CTC)" if which == "loss" else "Distiller loss (NFE 16)"
+        print(f"[train] {label}, flagship width, depth 2, B {B} x N {T}, f32, TF32 off: card "
+              f"{l_gpu:.7f} vs CPU {l_cpu:.7f} (rel {dl:.2e}, tol {TRAIN_TOL['loss']:.0e}); worst "
+              f"gradient rel-L2 {worst[0]:.2e} ({worst[1]}; tol {TRAIN_TOL['grad']:.0e}) over "
+              f"{len(g_cpu)} tensors", flush=True)
+        check(dl <= TRAIN_TOL["loss"], f"{label}: card vs CPU loss rel {dl:.2e}")
+        check(worst[0] <= TRAIN_TOL["grad"], f"{label}: gradient rel-L2 {worst}")
+    for m in models.values():
+        m.to("cpu")
+
+
+def _overfit(dev: dict) -> None:
+    """``Trainer`` at full width and depth on one repeated batch (B 8 x N 256)
+    with the same draws every step, lr 1e-4 after a 1-step warmup: the loss
+    must fall."""
+    import numpy as np
+    import torch
+
+    from lemas_tts_tpu_torch.api import seeded_init
+    from lemas_tts_tpu_torch.cfm.train import Trainer
+    from lemas_tts_tpu_torch.config import TrainConfig, load_model_config
+    from lemas_tts_tpu_torch.models.dit import DiT
+
+    cfg = load_model_config("multilingual")
+    mel, vocab, B, T = cfg.mel_spec.n_mel_channels, len(CHAR_VOCAB), 8, 256
+    dit = seeded_init(lambda: DiT(cfg.arch, mel_dim=mel, text_num_embeds=vocab), 0).cuda()
+    tcfg = TrainConfig(learning_rate=1e-4, num_warmup_updates=1, audio_drop_prob=0.0,
+                       text_drop_prob=0.0)
+    tr = Trainer(dit, vocab_size=vocab, mel_dim=mel, cfg=tcfg)
+    state = tr.init_state(0)
+    g = torch.Generator().manual_seed(1)
+    batch = {"mel": torch.randn(B, T, mel, generator=g).cuda(),
+             "mel_lengths": torch.full((B,), T).cuda(),
+             "text": torch.randint(0, vocab, (B, 40), generator=g).cuda(),
+             "langs": torch.randint(0, 12, (B,), generator=g).cuda()}
+    losses = []
+    for _ in range(12):
+        state, m = tr.train_step(state, batch, torch.Generator("cuda").manual_seed(5), None,
+                                 {"dropout": torch.Generator().manual_seed(5)})
+        losses.append(float(m["flow_loss"]))
+    print(f"[train] one repeated batch (B {B} x N {T}), full width and depth, lr 1e-4: flow loss "
+          f"{' '.join(f'{x:.4f}' for x in losses)}", flush=True)
+    check(all(np.isfinite(losses)) and losses[-1] < 0.95 * losses[1],
+          f"the loss did not fall on a repeated batch: {losses}")
+    del tr, state, dit, batch
+
+
+def _step_at_budget(dev: dict) -> None:
+    """``Trainer.train_step`` at full width and depth on a batch that fills
+    the reference's 40,000-frame budget (39 utterances of 1024 frames, ~10.9
+    s each), with ``checkpoint_activations``: one warm-up step, then two
+    timed steps (host clock, ending in a sync); frames/s, TFLOP/s by
+    ``_train_step_flop``, peak memory."""
+    import dataclasses
+
+    import torch
+
+    from lemas_tts_tpu_torch.api import seeded_init
+    from lemas_tts_tpu_torch.cfm.train import Trainer
+    from lemas_tts_tpu_torch.config import TrainConfig, load_model_config
+    from lemas_tts_tpu_torch.models.dit import DiT
+
+    cfg = load_model_config("multilingual")
+    arch = dataclasses.replace(cfg.arch, checkpoint_activations=True)
+    mel, vocab, B, T = cfg.mel_spec.n_mel_channels, len(CHAR_VOCAB), 39, 1024
+    check(B * T <= TrainConfig().batch_size_per_gpu, "over the frame budget")
+    dit = seeded_init(lambda: DiT(arch, mel_dim=mel, text_num_embeds=vocab), 0).cuda()
+    tr = Trainer(dit, vocab_size=vocab, mel_dim=mel)
+    state = tr.init_state(0)
+    g = torch.Generator().manual_seed(2)
+    batch = {"mel": torch.randn(B, T, mel, generator=g).cuda(),
+             "mel_lengths": torch.randint(700, T + 1, (B,), generator=g).cuda(),
+             "text": torch.randint(0, vocab, (B, 256), generator=g).cuda(),
+             "langs": torch.randint(0, 12, (B,), generator=g).cuda()}
+    tr.train_step(state, batch, torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for i in range(2):
+        t0 = time.perf_counter()
+        _, m = tr.train_step(state, batch, torch.Generator("cuda").manual_seed(1 + i))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    flop = _train_step_flop(arch, B, T)
+    sec = min(walls)
+    print(f"[train] Trainer.train_step at the 40,000-frame budget: batch {B} x {T} = {B * T} "
+          f"frames, 22 x 1024 f32, checkpoint_activations, TF32 off: {walls[0]:.3f} / "
+          f"{walls[1]:.3f} s a step, {B * T / sec:.0f} frames/s, {flop / sec / 1e12:.1f} TFLOP/s "
+          f"({flop / 1e12:.1f} TFLOP counted a step; f32 peak {H100_F32_FLOPS / 1e12:.0f}); peak "
+          f"torch.cuda.max_memory_allocated {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB;"
+          f" loss {float(m['loss']):.4f}, on {dev['card']}", flush=True)
+    check(bool(torch.isfinite(m["loss"])), "loss at the budget not finite")
+    del tr, state, dit, batch
+
+
+def phase_train(dev: dict) -> dict:
+    """Training and distillation on the card, ending in distilled students
+    served on K1-K3. Returns the launch counts of the student requests."""
+    import numpy as np
+    import torch
+
+    from lemas_tts_tpu_torch import TTS
+    from lemas_tts_tpu_torch.cfm.checkpoint import CheckpointManager
+    from lemas_tts_tpu_torch.cfm.train import Trainer
+    from lemas_tts_tpu_torch.config import TrainConfig, load_model_config
+    from lemas_tts_tpu_torch.models.dit import DiT
+    from lemas_tts_tpu_torch.models.speaker import SpeakerEncoder
+    from lemas_tts_tpu_torch.ops import ffn
+    from lemas_tts_tpu_torch.scripts import distill, evaluate, train
+    from lemas_tts_tpu_torch.utils.audio_io import write_wav
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 1. the grad guard: K1 on CUDA inputs that require grad raises
+    args = [torch.randn(1, 64, 1024, device="cuda", requires_grad=True),
+            *(torch.zeros(1, 1024, device="cuda") for _ in range(2)),
+            *(t for _ in range(3) for t in (torch.randn(1024, 1024, device="cuda") * 0.02,
+                                            torch.zeros(1024, device="cuda")))]
+    raised = None
+    try:
+        ffn.qkv_block(*args)
+    except RuntimeError as e:
+        raised = str(e)
+    print(f"[train] qkv_block (K1) on CUDA inputs that require grad: raised {raised!r}",
+          flush=True)
+    check(raised is not None and "no backward" in raised, "K1 ran under grad")
+    with torch.no_grad():
+        check(ffn.qkv_block(*args)[0].grad_fn is None, "K1 under no_grad")
+
+    # 2. card against CPU: the training loss and the distill loss with their gradients
+    _train_vs_cpu(dev)
+    _overfit(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _step_at_budget(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = load_model_config("multilingual")
+    depth = cfg.arch.depth
+    totals = dict.fromkeys(kernel_counters(), 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        vocab = d / "vocab.txt"
+        vocab.write_text("\n".join(CHAR_VOCAB) + "\n")
+        ck, log = d / "ck", d / "train.jsonl"
+        common = ["--config", "multilingual", "--vocab_file", str(vocab), "--synthetic",
+                  str(TRAIN_SYNTHETIC), "--ckpt_dir", str(ck), "--log_every", "1",
+                  "--log_file", str(log), "--checkpoint_activations"]
+
+        # 3. scripts/train at full width, the reference frame budget, remat on; then --resume
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        check(train.main([*common, "--steps", "3"]) == 0, "train.main failed")
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        gc.collect()
+        torch.cuda.empty_cache()
+        events = [json.loads(line) for line in log.read_text().splitlines()]
+        losses = [e["loss"] for e in events if e["event"] == "train_step"]
+        check(len(losses) == 3 and all(np.isfinite(losses)), f"train losses {losses}")
+        for (b, sec, flop) in _train_flops(log, cfg.arch):
+            print(f"[train] step, batch {b[0]} x {b[1]} = {b[0] * b[1]} padded frames (budget "
+                  f"{TrainConfig().batch_size_per_gpu}): {sec:.3f} s, "
+                  f"{b[0] * b[1] / sec:.0f} frames/s, {flop / sec / 1e12:.1f} TFLOP/s "
+                  f"({flop / 1e12:.1f} TFLOP counted) on {dev['card']}", flush=True)
+        print(f"[train] scripts/train.main: 22 x 1024 flagship, f32, checkpoint_activations, "
+              f"3 steps in {wall:.1f} s wall (build, data and the model_last write included); "
+              f"losses {losses}; peak torch.cuda.max_memory_allocated {peak:.2f} GiB on "
+              f"{dev['card']}", flush=True)
+
+        # the resume point restores bit for bit, and the step count carries on
+        mgr = CheckpointManager(str(ck), TrainConfig())
+        saved = mgr.restore()
+        dit = DiT(cfg.arch, mel_dim=100, text_num_embeds=len(CHAR_VOCAB)).cuda()
+        tr = Trainer(dit, vocab_size=len(CHAR_VOCAB), mel_dim=100)
+        state = tr.restore_state(tr.init_state(0), saved)
+        same = all(torch.equal(v.cpu(), saved["model_state_dict"][f"transformer.{k}"])
+                   for k, v in state.params["dit"].state_dict().items())
+        same &= all(torch.equal(v.cpu(), saved["ema_model_state_dict"]
+                                [f"ema_model.transformer.{k}"])
+                    for k, v in state.ema_params.state_dict().items())
+        check(same and state.step == saved["step"] == 3, "restored state differs from the saved")
+        del saved, dit, tr, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        check(train.main([*common, "--steps", "5", "--resume"]) == 0, "train.main --resume failed")
+        events = [json.loads(line) for line in log.read_text().splitlines()]
+        steps = [e["step"] for e in events if e["event"] == "train_step"]
+        check(any(e["event"] == "resumed" and e["step"] == 3 for e in events)
+              and steps == [1, 2, 3, 4, 5], f"resume did not carry on: {steps}")
+        print(f"[train] --resume: restored step 3 bit for bit (params and EMA), ran steps 4-5, "
+              f"losses {[e['loss'] for e in events if e['event'] == 'train_step'][3:]}",
+              flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 4. scripts/distill from that checkpoint: stages 16, 8; a wide-head stage 8
+        dlog = d / "distill.jsonl"
+        dcommon = ["--config", "multilingual", "--vocab_file", str(vocab), "--synthetic",
+                   str(TRAIN_SYNTHETIC), "--teacher", str(ck), "--steps_per_stage", "2",
+                   "--log_every", "1", "--log_file", str(dlog)]
+        t0 = time.perf_counter()
+        check(distill.main([*dcommon, "--stages", "16,8", "--ckpt_dir", str(d / "dd")]) == 0,
+              "distill.main failed")
+        gc.collect()
+        torch.cuda.empty_cache()
+        check(distill.main([*dcommon, "--stages", "8", "--ckpt_dir", str(d / "dw"),
+                            "--student_heads", "8", "--student_dim_head", "128"]) == 0,
+              "distill.main (wide head) failed")
+        events = [json.loads(line) for line in dlog.read_text().splitlines()]
+        dl = [(e["stage"], e["batch"], round(e["loss"], 5)) for e in events
+              if e["event"] == "distill_step"]
+        print(f"[train] scripts/distill.main: stages 16, 8 and a wide-head (8 x 128) stage 8, "
+              f"2 steps each, in {time.perf_counter() - t0:.1f} s wall; (stage, batch, loss) "
+              f"{dl}", flush=True)
+        check(all(np.isfinite(x[2]) for x in dl) and len(dl) == 6, f"distill losses {dl}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 5. TTS on each student directory: pinned settings, exact launches, graph = eager
+        ref_path = str(d / "ref.wav")
+        write_wav(ref_path, _reference_wave(24000, 3.0, seed=0), 24000)
+        rows = []
+        for stage, heads, k in ((d / "dd" / "stage_16", 16, 16), (d / "dd" / "stage_8", 16, 8),
+                                (d / "dw" / "stage_8", 8, 8)):
+            meta = json.loads((stage / "student.json").read_text())
+            tts = TTS(model="multilingual", ckpt_file=str(stage), vocab_file=str(vocab),
+                      frontend=None)
+            a = tts.dit.transformer_blocks[0].attn
+            check((a.heads, a.dim_head) == (heads, 1024 // heads) and meta["student_steps"] == k,
+                  f"{stage.name}: heads {a.heads} x {a.dim_head}")
+            seen, real = [], tts.synth.synthesize_chunks
+
+            def spy(*args, cfg, **kw):
+                seen.append(cfg)
+                return real(*args, cfg=cfg, **kw)
+
+            tts.synth.synthesize_chunks = spy
+            want = expected_launches(FLAGSHIP_KERNELS, depth * k)
+            outs = []
+            for i, route in enumerate(("eager (first of its bucket)", "graph replay")):
+                reset_counters()
+                (wave, sr, spec), wall = _timed(lambda: tts.infer(
+                    ref_path, REF_TEXT, GEN_TEXT, seed=7, nfe_step=32, cfg_strength=2.0,
+                    show_info=lambda *_: None))
+                got = read_counters()
+                for kk in totals:
+                    totals[kk] += got[kk]
+                audio = len(wave) / sr
+                print(f"[train] student {stage.parent.name}/{stage.name} ({heads} x "
+                      f"{1024 // heads} heads) request {i}, {route}: pinned to steps "
+                      f"{seen[-1].nfe_steps}, cfg {seen[-1].cfg_strength}; {audio:.3f} audio-s "
+                      f"in {wall:.3f} s = {audio / wall:.2f} audio-s/s on {dev['card']}; "
+                      f"launches {got}", flush=True)
+                check((seen[-1].nfe_steps, seen[-1].cfg_strength, seen[-1].cfg_cutoff)
+                      == (k, 0.0, None), f"student settings not pinned: {seen[-1]}")
+                check(got == want, f"{stage.name}: launches {got}, expected {want}")
+                check(bool(np.isfinite(wave).all()) and wave.size > 0, "student wave not finite")
+                outs.append(spec)
+            same = bool(np.array_equal(outs[0], outs[1]))
+            err = float(np.linalg.norm(outs[1] - outs[0]) / max(np.linalg.norm(outs[0]), 1e-30))
+            print(f"[train] student {stage.name}: graphed mel against the eager one: equal bit "
+                  f"for bit {same}, rel-L2 {err:.3e}", flush=True)
+            check(same or err <= 1e-6, f"student graph replay differs from eager: {err:.3e}")
+            hyp = d / f"{stage.parent.name}_{stage.name}.wav"
+            write_wav(str(hyp), wave, sr)
+            rows.append({"ref": ref_path, "hyp": str(hyp)})
+            del tts
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        # 6. scripts/evaluate over the students' output with a random-init speaker encoder
+        spk = d / "speaker.pt"
+        torch.manual_seed(0)
+        torch.save(SpeakerEncoder().state_dict(), spk)
+        manifest = d / "eval.jsonl"
+        manifest.write_text("".join(json.dumps(r) + "\n" for r in rows))
+        out = d / "summary.json"
+        check(evaluate.main(["--manifest", str(manifest), "--out", str(out), "--dtw",
+                             "--speaker_ckpt", str(spk)]) == 0, "evaluate.main failed")
+        summary = json.loads(out.read_text())
+        print(f"[train] scripts/evaluate.main over the 3 students' output (random weights): "
+              f"{summary}", flush=True)
+        check(summary["n_utterances"] == 3 and all(
+            np.isfinite(summary[k]) for k in ("mel_mse", "mel_mae", "mcd_db", "speaker_cos")),
+            f"evaluate: {summary}")
+    return totals
+
+
 def main() -> int:
     if not (REPO / "lemas_tts_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -2083,7 +2469,8 @@ def main() -> int:
     launches = phase_slice(dev)
     graphed, profiles = phase_graph(dev)
     for more in (phase_frontend(dev), graphed, phase_serve(dev, profiles["eager"]),
-                 phase_prosody(dev), phase_bigvgan(dev), phase_unett(dev), phase_uvr5(dev)):
+                 phase_prosody(dev), phase_bigvgan(dev), phase_unett(dev), phase_uvr5(dev),
+                 phase_train(dev)):
         launches = {k: launches[k] + more[k] for k in launches}
     kernels = [records[k] for k in ("qkv_block", "vmem_attention_nhd", "ffn_block",
                                      "vmem_attention_nhd_pack", "vmem_attention")]

@@ -27,7 +27,10 @@ Differences from the JAX package:
    with a zero bias, as the JAX package draws it); ``infer(use_prosody_encoder=
    False)`` turns the conditioning off for one request. The encoder and
    ``prosody_to_mel`` run in f32 whatever the compute dtype.
- - Not ported yet: native orbax checkpoints, distilled-student sidecars, ``mesh``,
+ - A distilled student's directory (``scripts/distill.py``: ``model.pt`` with
+   ``student.json`` beside it) pins the sampler to the student's settings in
+   ``infer`` (``apply_student_settings``), with the sidecar's head split.
+ - Not ported yet: native orbax checkpoints, ``mesh``,
    ``hf://`` checkpoint URIs, ``transcribe`` (ASR) and
    ``export_wav(remove_silence=...)`` have no keyword here, so passing one
    gives a ``TypeError``.
@@ -157,6 +160,26 @@ class TTS:
             self.frontend = TextNorm(dtype=frontend)
         else:
             self.frontend = None
+
+        # ---- a distilled student's sidecar, read before the backbone is built:
+        # its head split (same parameters) and, at infer time, its sampler settings
+        self.student: Optional[dict] = None
+        if ckpt_file:
+            from lemas_tts_tpu_torch.weights import checkpoint_file
+
+            sidecar = (Path(ckpt_file) if os.path.isdir(ckpt_file)
+                       else Path(ckpt_file).parent) / "student.json"
+            ckpt_file = str(checkpoint_file(ckpt_file))
+            if sidecar.is_file():
+                import dataclasses
+                import json
+
+                self.student = json.loads(sidecar.read_text())
+                if self.student.get("arch"):
+                    arch = dataclasses.replace(
+                        self.config.arch,
+                        **{k: int(v) for k, v in self.student["arch"].items()})
+                    self.config = dataclasses.replace(self.config, arch=arch)
 
         # ---- acoustic model (the config's backbone)
         mel = self.config.mel_spec
@@ -328,6 +351,7 @@ class TTS:
                             use_prosody_encoder=use_prosody_encoder and self.use_prosody_encoder,
                             ref_ratio=ref_ratio, no_ref_audio=no_ref_audio,
                             fix_duration=fix_duration)
+        cfg = self.apply_student_settings(cfg, show_info=show_info)
         wave, out_sr, spec = self.synth.synthesize_chunks(wav, sr, ref_units, gen_chunks,
                                                           cfg=cfg, seed=seed)
         if file_wave is not None:
@@ -335,6 +359,27 @@ class TTS:
         if file_spec is not None:
             self.export_spectrogram(spec, file_spec)
         return wave, out_sr, spec
+
+    def apply_student_settings(self, cfg: SamplerConfig, show_info=None) -> SamplerConfig:
+        """For a distilled student (a ``student.json`` sidecar), the sampler
+        settings it was trained for: ``steps=K``, ``cfg_strength=0`` (the
+        guidance is in the weights), its sway, no CFG cutoff, and the block
+        cache only when the sidecar names one. The caller's NFE and CFG are
+        overridden. ``cfg`` unchanged for other checkpoints."""
+        if self.student is None:
+            return cfg
+        import dataclasses
+
+        new = dataclasses.replace(
+            cfg, nfe_steps=int(self.student["student_steps"]),
+            cfg_strength=float(self.student.get("cfg_strength", 0.0)),
+            sway_sampling_coef=self.student.get("sway_sampling_coef"), cfg_cutoff=None,
+            block_cache=self.student.get("block_cache"))
+        if show_info is not None and (cfg.nfe_steps != new.nfe_steps
+                                      or cfg.cfg_strength != new.cfg_strength):
+            show_info(f"distilled student checkpoint: sampler pinned to steps={new.nfe_steps}, "
+                      "cfg_strength=0 (baked-in guidance)")
+        return new
 
 
 def process_phone_list(parts: Sequence[str], langs=LANGS) -> List[str]:

@@ -22,7 +22,8 @@ The graphs of one ``Synthesizer`` capture into one memory pool
 bucket's), not one a graph. That is safe because the graphs run one at a
 time in the order they are queued on one stream, each reads only what it
 wrote in the same replay or its static inputs, and each output is cloned
-right after its replay.
+right after its replay. A ``return_trajectory`` graph returns the pair
+(mel, trajectory), both cloned.
 """
 
 from __future__ import annotations
@@ -35,6 +36,10 @@ import torch
 
 from lemas_tts_tpu_torch.cfm.sampler import SamplerSettings, device_time_grid, sample_mel
 from lemas_tts_tpu_torch.ops import launches
+
+
+def _tensors(out) -> tuple:
+    return out if isinstance(out, tuple) else (out,)
 
 
 class GraphPool:
@@ -83,7 +88,8 @@ class GraphedSampler:
         with torch.cuda.stream(side):
             eager = self._sample()
         cur.wait_stream(side)
-        eager.record_stream(cur)
+        for t in _tensors(eager):
+            t.record_stream(cur)
         graph = torch.cuda.CUDAGraph()
         with GraphedSampler._capture_lock, launches.recording() as record:
             with torch.cuda.graph(graph, pool=self.pool.handle, capture_error_mode="thread_local"):
@@ -122,4 +128,6 @@ class GraphedSampler:
                 return self._capture()
             self.graph.replay()
             launches.add(self.launches_per_replay)
+            if isinstance(self.out, tuple):  # return_trajectory: (mel, trajectory)
+                return tuple(t.clone() for t in self.out)
             return self.out.clone()

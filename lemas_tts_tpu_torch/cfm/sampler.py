@@ -21,10 +21,12 @@ classifier-free guidance, as a Python loop over the sway-warped time grid.
   the cond-only tail, the cached loop's refresh and cached steps, and both
   evaluations of a midpoint step.
 
+- ``return_trajectory`` also returns the state after every step
+  ``[steps, B, N, D]`` (before the paste), on every route.
+
 Nothing in the loop reads the device from the host, and the time grid's
 device copy is made once per (grid, device), so the whole loop can be
-captured as one CUDA graph (``cfm/graph.py``). Trajectories are not ported:
-asking for them raises.
+captured as one CUDA graph (``cfm/graph.py``).
 """
 
 from __future__ import annotations
@@ -68,12 +70,19 @@ def resolve_sway_coef(steps: int, sway_sampling_coef: Optional[float],
     return max(coef, -1.0)
 
 
-def sway_time_grid(steps: int, sway_sampling_coef: Optional[float],
-                   t_start: float = 0.0) -> np.ndarray:
-    """Warped time grid [steps+1] ``linspace(t_start, 1)**(1+coef)`` (f32)."""
-    coef = resolve_sway_coef(steps, sway_sampling_coef, t_start=t_start)
+def warped_time_grid(steps: int, coef: float, t_start: float = 0.0) -> np.ndarray:
+    """[steps+1] grid ``linspace(t_start, 1)**(1+coef)`` (f32) for a resolved
+    coefficient (distillation nests its coarse and fine grids on one)."""
     t = np.linspace(t_start, 1.0, steps + 1, dtype=np.float64)
     return (t ** (1.0 + coef)).astype(np.float32)
+
+
+def sway_time_grid(steps: int, sway_sampling_coef: Optional[float],
+                   t_start: float = 0.0) -> np.ndarray:
+    """Warped time grid [steps+1] with the coefficient resolved by
+    ``resolve_sway_coef``."""
+    coef = resolve_sway_coef(steps, sway_sampling_coef, t_start=t_start)
+    return warped_time_grid(steps, coef, t_start=t_start)
 
 
 @dataclass(frozen=True)
@@ -104,8 +113,6 @@ class SamplerSettings:
                 raise ValueError("block_cache_range requires method='euler'")
             if self.block_cache_every < 1:
                 raise ValueError("block_cache_every must be >= 1")
-        if self.return_trajectory:
-            raise NotImplementedError("trajectories are not ported yet")
 
     @property
     def use_cfg(self) -> bool:
@@ -235,7 +242,9 @@ def sample_mel(model, *, cond, cond_mask, text_ids, duration, y0, time_grid,
     """CFG flow from noise to mel. cond, y0 [B, N, D] f32; cond_mask [B, N]
     bool (True = kept frame); text_ids [B, nt] (-1 padded); duration [B];
     time_grid [steps+1] numpy; prosody_text [B, T_text, 512] or None.
-    Returns [B, N, D] f32 with the kept frames pasted from ``cond``."""
+    Returns [B, N, D] f32 with the kept frames pasted from ``cond``, and
+    with ``settings.return_trajectory`` also the states after each step
+    ``[steps, B, N, D]``."""
     B, N, _ = cond.shape
     keep = cond_mask[..., None]
     step_cond = torch.where(keep, cond if step_cond is None else step_cond, 0.0)
@@ -256,11 +265,17 @@ def sample_mel(model, *, cond, cond_mask, text_ids, duration, y0, time_grid,
 
     steps = len(time_grid) - 1
     k = settings.cfg_active_steps(np.asarray(time_grid))
+    traj = [] if settings.return_trajectory else None
+
+    def finish(y):
+        out = torch.where(keep, cond, y)  # exact paste of kept frames
+        return (out, torch.stack(traj)) if traj is not None else out
+
     if settings.block_cache_range is not None:
         y = _block_cached_loop(model, settings, grid, dts, k, y, step_cond=step_cond,
                                attn_mask=attn_mask, te_cond=te_cond, prosody_text=prosody_text,
-                               cfg_pack=cfg_pack)
-        return torch.where(keep, cond, y)  # exact paste of kept frames
+                               cfg_pack=cfg_pack, traj=traj)
+        return finish(y)
 
     def velocity_cond_only(t, x, clamp):
         v = model(x, step_cond, None, t.expand(B), attn_mask, text_embed=te_cond,
@@ -290,16 +305,19 @@ def sample_mel(model, *, cond, cond_mask, text_ids, duration, y0, time_grid,
             y = y + dt * vel(t + half, y_mid)
         else:
             y = y + dt * vel(t, y)
-    return torch.where(keep, cond, y)  # exact paste of kept frames
+        if traj is not None:
+            traj.append(y)
+    return finish(y)
 
 
 def _block_cached_loop(model, settings: SamplerSettings, grid, dts, k: int, y, *, step_cond,
-                       attn_mask, te_cond, prosody_text, cfg_pack):
+                       attn_mask, te_cond, prosody_text, cfg_pack, traj=None):
     """The Euler loop under the block-range residual cache (JAX
     ``make_cached_forward`` and ``_scan_block_cached``): the refresh
     schedule's regions run as [refresh step, (period−1) cached steps]; the
     cond-only tail after a CFG prefix refreshes at its first step, since the
-    batch width halves there."""
+    batch width halves there. ``traj``, a list, takes the state after each
+    step."""
     if not hasattr(model, "run_blocks"):
         raise ValueError("the block cache supports the DiT backbone only")
     lo, hi = settings.block_cache_range
@@ -340,6 +358,8 @@ def _block_cached_loop(model, settings: SamplerSettings, grid, dts, k: int, y, *
                 for j in range(period):
                     v, cache = vel(grid[i], y, cache, j == 0)
                     y = y + dts[i] * v
+                    if traj is not None:
+                        traj.append(y)
                     i += 1
         return y
 

@@ -139,6 +139,27 @@ class SamplerConfig:
     t_inter: float = 0.1
 
 
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training fields mirrored from the reference ``optim:``/``datasets:``
+    sections (``lemas_tts_tpu/config.py:TrainConfig``)."""
+
+    epochs: int = 100
+    learning_rate: float = 1e-5
+    num_warmup_updates: int = 1000
+    grad_accumulation_steps: int = 1
+    max_grad_norm: float = 1.0
+    batch_size_per_gpu: int = 40000
+    batch_size_type: str = "frame"
+    max_samples: int = 64
+    audio_drop_prob: float = 0.3
+    text_drop_prob: float = 0.1
+    frac_lengths_mask: tuple[float, float] = (0.7, 1.0)
+    save_per_updates: int = 1000
+    keep_last_n_checkpoints: int = -1
+    last_per_updates: int = 1000
+
+
 def _filter_kwargs(cls, d: dict[str, Any]) -> dict[str, Any]:
     names = {f.name for f in dataclasses.fields(cls)}
     return {k: v for k, v in d.items() if k in names}

@@ -12,13 +12,23 @@ block stack (the sampler's block-range cache runs it in three ranges).
 - ``arch.long_skip_connection``: ``long_skip_connection`` (Linear 2 dim -> dim,
   no bias) joins the blocks' output with their input before the head.
 
-Sequence parallelism and dropout (training) are not ported.
+The training route (``forward(..., deterministic=False)`` or
+``autograd=True``) is the JAX DiT on its XLA route: every block takes the
+unfused, differentiable chain (``DiTBlock.forward(train=...)``), the
+dropouts of ``arch.dropout`` are live when not ``deterministic``, and under
+grad ``arch.checkpoint_activations`` recomputes each block in the backward
+pass (``torch.utils.checkpoint``, as ``nn.remat`` does). ``drop_audio_cond``
+zeroes the cond mel (the CFG audio drop). Sequence parallelism is not
+ported.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from lemas_tts_tpu_torch.config import DiTArch
 from lemas_tts_tpu_torch.models.modules import (
@@ -27,6 +37,7 @@ from lemas_tts_tpu_torch.models.modules import (
     ConvPositionEmbedding,
     DiTBlock,
     TimestepEmbedding,
+    TrainRoute,
     dense,
 )
 from lemas_tts_tpu_torch.ops.rope import abs_pos_embedding, rope_angles
@@ -115,7 +126,7 @@ class DiT(nn.Module):
         return self.text_embed(text_ids, seq_len, drop_text=drop_text, dtype=self.compute_dtype)
 
     def embed_inputs(self, x, cond, text_ids, time, drop_text: bool = False, text_embed=None,
-                     prosody_text=None):
+                     prosody_text=None, drop_audio_cond: bool = False):
         """Everything before the block stack: returns ``(h, t_emb, angles)``;
         ``h`` is also the long skip's residual."""
         B, N, _ = x.shape
@@ -132,15 +143,37 @@ class DiT(nn.Module):
             pt = nn.functional.pad(pt, (0, 0, 0, N - pt.shape[1])) if pt.shape[1] < N \
                 else pt[:, :N]
             text_embed = text_embed + pt
+        if drop_audio_cond:
+            cond = torch.zeros_like(cond)
         h = self.input_embed(x.to(self.compute_dtype), cond.to(self.compute_dtype), text_embed)
         return h, t_emb, rope_angles(N, self.arch.dim_head, device=x.device)
 
-    def run_blocks(self, h, t_emb, mask, angles, start: int, stop: int) -> torch.Tensor:
+    def run_blocks(self, h, t_emb, mask, angles, start: int, stop: int,
+                   train: Optional[list] = None) -> torch.Tensor:
         """Blocks ``[start, stop)`` of the stack over ``h`` (the block-range
-        cache runs the stack in three such ranges)."""
-        for blk in self.transformer_blocks[start:stop]:
-            h = blk(h, t_emb, mask=mask, angles=angles)
+        cache runs the stack in three such ranges). ``train``: one
+        ``TrainRoute`` a block, for the training route."""
+        for i, blk in enumerate(self.transformer_blocks[start:stop]):
+            if train is None:
+                h = blk(h, t_emb, mask=mask, angles=angles)
+            elif self.arch.checkpoint_activations and torch.is_grad_enabled():
+                h = checkpoint(blk, h, t_emb, mask, angles, train[start + i],
+                               use_reentrant=False)
+            else:
+                h = blk(h, t_emb, mask, angles, train[start + i])
         return h
+
+    def train_routes(self, deterministic: bool,
+                     generator: Optional[torch.Generator]) -> list:
+        """One ``TrainRoute`` a block: dropout ``arch.dropout`` unless
+        ``deterministic``, each block's dropout seed drawn from ``generator``
+        (a CPU generator; the global one when None)."""
+        depth = len(self.transformer_blocks)
+        p = 0.0 if deterministic else float(self.arch.dropout)
+        if p <= 0:
+            return [TrainRoute() for _ in range(depth)]
+        seeds = torch.randint(0, 2 ** 62, (depth,), generator=generator).tolist()
+        return [TrainRoute(p, s) for s in seeds]
 
     def head(self, h: torch.Tensor, t_emb: torch.Tensor, residual=None) -> torch.Tensor:
         """The long skip (with ``residual``, the blocks' input), final AdaLN
@@ -150,12 +183,20 @@ class DiT(nn.Module):
         return dense(self.norm_out(h, t_emb), self.proj_out).float()
 
     def forward(self, x, cond, text_ids, time, mask=None, drop_text: bool = False,
-                text_embed=None, prosody_text=None):
+                text_embed=None, prosody_text=None, drop_audio_cond: bool = False,
+                deterministic: bool = True, autograd: bool = False,
+                generator: Optional[torch.Generator] = None):
         """Velocity [B, N, mel_dim] (f32); ``mask`` [B, N] marks the valid
-        frames (keys); ``prosody_text`` [B, T_text, 512] or None."""
+        frames (keys); ``prosody_text`` [B, T_text, 512] or None.
+        ``deterministic=False`` (dropout live, its draws from ``generator``)
+        or ``autograd=True`` (no dropout) take the training route; the
+        default is the kernels."""
         h, t_emb, angles = self.embed_inputs(x, cond, text_ids, time, drop_text=drop_text,
-                                             text_embed=text_embed, prosody_text=prosody_text)
-        out = self.run_blocks(h, t_emb, mask, angles, 0, len(self.transformer_blocks))
+                                             text_embed=text_embed, prosody_text=prosody_text,
+                                             drop_audio_cond=drop_audio_cond)
+        train = (self.train_routes(deterministic, generator)
+                 if autograd or not deterministic else None)
+        out = self.run_blocks(h, t_emb, mask, angles, 0, len(self.transformer_blocks), train)
         return self.head(out, t_emb, residual=h)
 
 

@@ -19,6 +19,13 @@ its TPU path, on either device (the CPU runs each kernel's plain version):
 - FF side: ``ffn_block`` (K2) whenever it takes the widths, else the
   unfused chain.
 
+The training route (``DiTBlock.forward(..., train=...)``, the JAX XLA
+route that ``cfm/loss.py`` and ``cfm/distill.py`` differentiate through)
+takes the unfused chain on either device: AdaLN in PyTorch, attention by
+``sdpa_train`` and the dropouts of ``arch.dropout`` where the JAX modules
+apply them (after the FF GELU and after ``to_out``). The kernels define no
+backward, so it runs none of them.
+
 Under W8A8 int8 (``ops/quant.py``, the JAX ``int8``/``int8_ff`` split of
 ``models/modules.py:488-495``) the quantized products are ``QuantLinear``s:
 ``int8`` quantizes q/k/v, the output projection and both FF products, so the
@@ -41,6 +48,42 @@ from lemas_tts_tpu_torch.ops.ffn import (ffn_block, ffn_block_supported, qkv_blo
                                          qkv_block_supported)
 from lemas_tts_tpu_torch.ops.quant import QuantLinear, int8_dense_shared
 from lemas_tts_tpu_torch.ops.rope import apply_rope
+
+
+class TrainRoute:
+    """How a block runs on the training route: the dropout rate (0 when
+    deterministic) and the seed of the block's own dropout generator, so a
+    recomputed block (activation checkpointing) draws the same masks."""
+
+    def __init__(self, dropout: float = 0.0, seed: Optional[int] = None):
+        self.dropout = dropout
+        self.seed = seed
+        self.generator: Optional[torch.Generator] = None
+
+    def start(self, device: torch.device) -> "TrainRoute":
+        """A fresh generator from the seed, for one (re)run of the block."""
+        if self.dropout > 0:
+            self.generator = torch.Generator(device=device).manual_seed(self.seed)
+        return self
+
+    def drop(self, x: torch.Tensor) -> torch.Tensor:
+        """flax ``nn.Dropout``: keep with probability 1 - p, scale by 1 / (1 - p)."""
+        if self.dropout <= 0:
+            return x
+        keep = 1.0 - self.dropout
+        mask = torch.rand(x.shape, generator=self.generator, device=x.device) < keep
+        return torch.where(mask, x / keep, 0.0)
+
+
+def sdpa_train(q, k, v, mask=None):
+    """Differentiable attention of the training route (the JAX XLA ``sdpa``,
+    ``lemas_tts_tpu/ops/attention.py:28-47``): q, k, v [B, H, N, D]; mask
+    [B, N] keys (True = keep). ``F.scaled_dot_product_attention`` keeps the
+    scores out of memory. A query row whose keys are all masked gives NaN
+    here where the JAX ``sdpa`` gives the mean of v; training never has one
+    while every length is >= 1 (``cfm/loss.py`` checks it)."""
+    m = None if mask is None else mask[:, None, None, :]
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=m)
 
 
 def dense(x: torch.Tensor, lin: nn.Module) -> torch.Tensor:
@@ -179,8 +222,11 @@ class FeedForward(nn.Module):
         self.ff = nn.Sequential(nn.Sequential(nn.Linear(dim, inner), nn.GELU(approximate="tanh")),
                                 nn.Dropout(0.0), nn.Linear(inner, dim))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return dense(F.gelu(dense(x, self.ff[0][0]), approximate="tanh"), self.ff[2])
+    def forward(self, x: torch.Tensor, train: Optional[TrainRoute] = None) -> torch.Tensor:
+        h = F.gelu(dense(x, self.ff[0][0]), approximate="tanh")
+        if train is not None:
+            h = train.drop(h)
+        return dense(h, self.ff[2])
 
 
 class Attention(nn.Module):
@@ -204,9 +250,13 @@ class Attention(nn.Module):
         else:
             self.q_norm = self.k_norm = None
 
-    def forward(self, x, mask=None, angles=None):
-        """Unfused chain: x is the modulated, normalised residual stream."""
+    def forward(self, x, mask=None, angles=None, train: Optional[TrainRoute] = None):
+        """Unfused chain: x is the modulated, normalised residual stream.
+        ``train``: the training route (``sdpa_train``, dropout after
+        ``to_out``)."""
         B, N, _ = x.shape
+        if train is not None:
+            return self.forward_train(x, mask, angles, train)
         if isinstance(self.to_q, QuantLinear):  # int8: x quantized once for q, k, v
             q, k, v = int8_dense_shared(x, (self.to_q, self.to_k, self.to_v))
         else:
@@ -214,6 +264,15 @@ class Attention(nn.Module):
         if angles is not None and nhd_supported(self.heads, self.dim_head, N, self.qk_norm,
                                                 self.pe_attn_head):
             return self.project_out(vmem_attention_nhd(q, k, v, mask, angles, self.heads), mask)
+
+        q, k, v = self.split_rope(q, k, v, angles)
+        out = attention(q, k, v, mask).transpose(1, 2).reshape(B, N, -1)
+        return self.project_out(out, mask)
+
+    def split_rope(self, q, k, v, angles):
+        """q, k, v [B, N, H*D] -> [B, H, N, D], with the qk norm and the rope
+        on the first ``pe_attn_head`` heads (all by default)."""
+        B, N, _ = q.shape
 
         def split(t):
             return t.view(B, N, self.heads, self.dim_head).transpose(1, 2)
@@ -225,8 +284,17 @@ class Attention(nn.Module):
             pn = self.heads if self.pe_attn_head is None else self.pe_attn_head
             q = torch.cat([apply_rope(q[:, :pn], angles), q[:, pn:]], dim=1)
             k = torch.cat([apply_rope(k[:, :pn], angles), k[:, pn:]], dim=1)
-        out = attention(q, k, v, mask).transpose(1, 2).reshape(B, N, -1)
-        return self.project_out(out, mask)
+        return q, k, v
+
+    def forward_train(self, x, mask, angles, train: TrainRoute):
+        B, N, _ = x.shape
+        q, k, v = self.split_rope(*(dense(x, lin) for lin in (self.to_q, self.to_k, self.to_v)),
+                                  angles)
+        out = sdpa_train(q, k, v, mask).transpose(1, 2).reshape(B, N, -1)
+        out = train.drop(dense(out, self.to_out[0]))
+        if mask is not None:
+            out = torch.where(mask[..., None], out, 0.0)  # zero padded queries
+        return out
 
     def project_out(self, out, mask):
         out = dense(out, self.to_out[0])
@@ -284,8 +352,15 @@ class DiTBlock(nn.Module):
         return (not isinstance(down, QuantLinear)
                 and ffn_block_supported(n, down.out_features, down.in_features))
 
-    def forward(self, x, t_emb, mask=None, angles=None):
+    def forward(self, x, t_emb, mask=None, angles=None, train: Optional[TrainRoute] = None):
+        """``train``: the training route (unfused, differentiable, with
+        dropout), else the kernels as the shapes allow."""
         sh_a, sc_a, g_a, sh_m, sc_m, g_m = self.attn_norm(t_emb)
+        if train is not None:
+            train.start(x.device)
+            x = x + g_a[:, None] * self.attn(adaln_modulate(x, sc_a, sh_a), mask=mask,
+                                             angles=angles, train=train)
+            return x + g_m[:, None] * self.ff(adaln_modulate(x, sc_m, sh_m), train)
         n, cdt = x.shape[1], x.dtype
         x = x.contiguous()  # the conv position embedding leaves a transposed layout
         if angles is not None and self.fused_attn_ok(n):

@@ -127,3 +127,18 @@ def dtype_code(t: torch.Tensor) -> int:
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
+
+
+def refuse_grad(kernel: str, *tensors) -> None:
+    """The kernels define no backward: a launch writes into a fresh tensor
+    through raw pointers, so autograd would see no ``grad_fn`` and the
+    weights behind it would get no gradient. Under grad, with an input that
+    requires one, raise instead (the plain version is not taken in its
+    place: that would hide the route change)."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: the CUDA kernel defines no backward and cannot run under grad on "
+            "inputs that require it; train on the differentiable route "
+            "(DiT.forward(..., deterministic=False) or autograd=True, as "
+            "cfm.loss.cfm_training_loss and cfm.distill.Distiller call it), or run "
+            "inference under torch.no_grad()")

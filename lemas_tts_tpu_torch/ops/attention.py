@@ -66,6 +66,7 @@ def vmem_attention(q, k, v, mask=None):
     if q.device.type == "cpu":
         return vmem_attention_plain(q, k, v, mask)
     _cuda.require(q.device.type == "cuda", f"no kernel for device {q.device}")
+    _cuda.refuse_grad("vmem_attention (K5)", q, k, v)
     _cuda.require(q.dim() == 4, f"q must be [B, H, N, D], got {tuple(q.shape)}")
     B, H, N, D = q.shape
     _cuda.require(D in (64, 128),
@@ -187,6 +188,7 @@ def vmem_attention_nhd(q, k, v, mask, angles, heads: int, pack_pair: bool = Fals
     if q.device.type == "cpu":
         return vmem_attention_nhd_plain(q, k, v, mask, angles, heads,
                                         start_max=nhd_start_max(q.shape[1]))
+    _cuda.refuse_grad("vmem_attention_nhd (K3)", q, k, v, angles)
     out = _launch_nhd("lemas_attention_nhd", q, k, v, mask, angles, heads)
     launches.count(vmem_attention_nhd)
     return out
@@ -201,6 +203,7 @@ def vmem_attention_nhd_pack(q, k, v, mask, angles, heads: int):
     if q.device.type == "cpu":
         return vmem_attention_nhd_plain(q, k, v, mask, angles, heads,
                                         start_max=nhd_start_max(q.shape[1], pack_pair=True))
+    _cuda.refuse_grad("vmem_attention_nhd_pack (K4)", q, k, v, angles)
     _cuda.require(q.shape[-1] == heads * 64 and heads % 2 == 0,
                   f"the head-pair kernel takes d64 heads in pairs, not {heads} heads of "
                   f"{q.shape[-1] / heads:g}")

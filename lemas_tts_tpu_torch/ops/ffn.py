@@ -100,6 +100,7 @@ def qkv_block(x, scale, shift, wq, bq, wk, bk, wv, bv, *, ln_pass=QKV_LN_PASS):
     if x.device.type == "cpu":
         return qkv_block_plain(x, scale, shift, wq, bq, wk, bk, wv, bv)
     _cuda.require(x.device.type == "cuda", f"no kernel for device {x.device}")
+    _cuda.refuse_grad("qkv_block (K1)", x, scale, shift, wq, bq, wk, bk, wv, bv)
     _check_cuda(x, scale, shift, wq, bq, wk, bk, wv, bv)
     B, N, D = x.shape
     inner = wq.shape[0]
@@ -136,6 +137,7 @@ def ffn_block(x, scale, shift, gate, w1, b1, w2, b2):
     if x.device.type == "cpu":
         return ffn_block_plain(x, scale, shift, gate, w1, b1, w2, b2)
     _cuda.require(x.device.type == "cuda", f"no kernel for device {x.device}")
+    _cuda.refuse_grad("ffn_block (K2)", x, scale, shift, gate, w1, b1, w2, b2)
     _check_cuda(x, scale, shift, gate, w1, b1, w2, b2)
     B, N, D = x.shape
     Fh = w1.shape[0]

@@ -5,6 +5,10 @@
  - ``speech_edit_multilingual`` — alignment-JSON-driven speech editing
  - ``g2p``                      — offline batch text → phone strings
  - ``serve_http``               — the HTTP server on the batching engine
+ - ``denoise``                  — UVR5 denoising of WAV files
+ - ``train``                    — CFM training with checkpoints and resume
+ - ``distill``                  — progressive distillation into few-step students
+ - ``evaluate``                 — objective metrics of synthesized audio
 
 Run as modules: ``python -m lemas_tts_tpu_torch.scripts.tts_multilingual
 --help``. They run on CUDA unless ``--device cpu`` is given, and never fall

@@ -26,7 +26,9 @@ Endpoints:
 Run: ``python -m lemas_tts_tpu_torch.scripts.serve_http --port 8080
 --vocab_file vocab.txt`` (on CUDA; ``--device cpu`` serves on the CPU).
 Defaults as in the JAX server: NFE 32, CFG 3, sway 1, CFG cutoff 0.5, block
-cache "0-22:2+t2", int8 (``config.SERVING_*``). ``--multihost`` raises:
+cache "0-22:2+t2", int8 (``config.SERVING_*``); a distilled student's
+checkpoint (``student.json``) pins its own settings instead, and ``/config``
+reports the sidecar under ``student``. ``--multihost`` raises:
 multi-GPU serving is not ported.
 """
 
@@ -206,8 +208,8 @@ def make_handler(tts, engine, max_streams: int = 2):
                     "sway_sampling_coef": c.sway_sampling_coef, "cfg_cutoff": c.cfg_cutoff,
                     "block_cache": c.block_cache, "ode_method": c.ode_method,
                     "quant": tts.quant, "max_batch": engine.batcher.max_batch,
-                    "max_streams": max_streams, "device": str(tts.device),
-                    "multihost": False})
+                    "max_streams": max_streams, "student": tts.student,
+                    "device": str(tts.device), "multihost": False})
             else:
                 self._reply_json(404, {"error": "not found"})
 
@@ -433,6 +435,10 @@ def serve(args, *, ready_event: Optional[threading.Event] = None,
         print("[serve_http] backbone does not support quantization — serving float")
         tts = TTS(**kwargs)
     cfg = sampler_config_from_args(args)
+    if tts.student:
+        # a distilled student: the server's defaults pin its settings (steps=K,
+        # cfg 0); per-request overrides still work, off its training grid
+        cfg = tts.apply_student_settings(cfg, show_info=print)
     if not args.no_warmup:
         print(f"[serve_http] warmup: {tts.synth.warmup(cfg)} sampler graphs captured")
     if args.warmup_batches:

@@ -18,6 +18,11 @@ Reference checkpoints: the CFM file's backbone (the DiT's
 Pretssel prosody encoder (``load_prosody_checkpoint``) and NVIDIA's BigVGAN
 generator with its weight norm folded (``load_bigvgan_checkpoint``).
 
+Training state: the accent and CTC heads (``accent_state_from_jax``,
+``ctc_state_from_jax``), the speaker encoder with its BatchNorm statistics
+(``speaker_state_from_jax``) and a whole JAX ``TrainState.params``
+(``train_params_from_jax``).
+
 UVR5: the JAX MDX ``ConvTDFNet`` and ``Mixer`` params and the VR nets'
 variables become the reference's state dicts (``mdx_state_from_jax``,
 ``mixer_state_from_jax``, ``cascadednet_state_from_jax``,
@@ -195,6 +200,80 @@ def prosody_to_mel_from_jax(node: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return {"weight": _tensor(np.asarray(node["kernel"]).T), "bias": _tensor(node["bias"])}
 
 
+def accent_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``AccentClassifier`` params -> ``cfm.loss.AccentClassifier`` state dict."""
+    p = params.get("params", params)
+    sd = _StateDict()
+    sd.linear("fc1", p["fc1"])
+    sd.linear("fc2", p["fc2"])
+    return dict(sd)
+
+
+def ctc_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``CTCHead`` params -> ``cfm.loss.CTCHead`` state dict (the
+    reference's ``proj.0`` / ``ctc_proj`` names)."""
+    p = params.get("params", params)
+    sd = _StateDict()
+    sd.linear("proj.0", p["proj"])
+    sd.linear("ctc_proj", p["ctc_proj"])
+    return dict(sd)
+
+
+def speaker_state_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``SpeakerEncoder`` variables (``params`` and ``batch_stats``) ->
+    ``models.speaker.SpeakerEncoder`` state dict."""
+    p, stats = variables["params"], variables.get("batch_stats", {})
+    sd: Dict[str, torch.Tensor] = {}
+
+    def conv(key, node):
+        sd[f"{key}.conv.weight"] = _tensor(np.transpose(np.asarray(node["kernel"]), (2, 1, 0)))
+        sd[f"{key}.conv.bias"] = _tensor(node["bias"])
+
+    def bn(key, node, st):
+        sd[f"{key}.weight"], sd[f"{key}.bias"] = _tensor(node["scale"]), _tensor(node["bias"])
+        sd[f"{key}.running_mean"] = _tensor(st["mean"])
+        sd[f"{key}.running_var"] = _tensor(st["var"])
+
+    def tdnn(key, node, st):
+        conv(f"{key}.conv", node["conv"])
+        bn(f"{key}.bn", node["bn"], st["bn"])
+
+    tdnn("blocks.0", p["block_0"], stats["block_0"])
+    i = 1
+    while f"block_{i}" in p:
+        blk, st, key = p[f"block_{i}"], stats[f"block_{i}"], f"blocks.{i}"
+        tdnn(f"{key}.tdnn1", blk["tdnn1"], st["tdnn1"])
+        tdnn(f"{key}.tdnn2", blk["tdnn2"], st["tdnn2"])
+        for name, node in blk["res2net"].items():
+            tdnn(f"{key}.res2net.blocks.{int(name.split('_')[1])}", node,
+                 st["res2net"][name])
+        conv(f"{key}.se.conv1", blk["se"]["conv1"])
+        conv(f"{key}.se.conv2", blk["se"]["conv2"])
+        if "shortcut" in blk:
+            conv(f"{key}.shortcut", blk["shortcut"])
+        i += 1
+    tdnn("mfa", p["mfa"], stats["mfa"])
+    tdnn("asp_tdnn", p["asp_tdnn"], stats["asp_tdnn"])
+    conv("asp_conv", p["asp_conv"])
+    bn("asp_bn", p["asp_bn"], stats["asp_bn"])
+    sd["fc.weight"] = _tensor(np.asarray(p["fc"]["kernel"]).T)
+    sd["fc.bias"] = _tensor(p["fc"]["bias"])
+    return sd
+
+
+def train_params_from_jax(params: Mapping[str, Any]) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A JAX ``TrainState.params`` (``{"dit", "accent", "ctc"?,
+    "prosody_to_mel"?}``) -> state dicts of the port's ``Trainer`` modules,
+    by the same names."""
+    out = {"dit": dit_state_from_jax(params["dit"]),
+           "accent": accent_state_from_jax(params["accent"])}
+    if "ctc" in params:
+        out["ctc"] = ctc_state_from_jax(params["ctc"])
+    if "prosody_to_mel" in params:
+        out["prosody_to_mel"] = prosody_to_mel_from_jax(params["prosody_to_mel"])
+    return out
+
+
 def bigvgan_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX ``BigVGAN`` params -> ``lemas_tts_tpu_torch.models.bigvgan.BigVGAN``
     state dict (NVIDIA's key names, weight norm folded)."""
@@ -275,6 +354,23 @@ def vocos_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         i += 1
     sd.linear("head.out", p["out"])
     return dict(sd)
+
+
+def checkpoint_file(path) -> Path:
+    """A checkpoint given as a file or a directory, as a file: a directory
+    gives its ``model.pt`` (a distillation stage), else ``model_last.pt``
+    (a training run), else its newest ``model_<step>.pt``."""
+    p = Path(path)
+    if not p.is_dir():
+        return p
+    for name in ("model.pt", "model_last.pt"):
+        if (p / name).is_file():
+            return p / name
+    snaps = sorted((int(f.stem.split("_")[1]), f) for f in p.glob("model_*.pt")
+                   if f.stem.split("_")[1].isdigit())
+    if not snaps:
+        raise FileNotFoundError(f"no checkpoint file in {p}")
+    return snaps[-1][1]
 
 
 def load_reference_checkpoint(path: str, use_ema: bool = True):

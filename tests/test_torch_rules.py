@@ -22,7 +22,8 @@ PKG = REPO / "lemas_tts_tpu_torch"
 
 def test_import_leaves_jax_out():
     """Importing every module of the port (and building nothing), its
-    ``text/``, ``scripts/`` and ``uvr5/`` subpackages included, pulls in
+    ``text/``, ``scripts/``, ``uvr5/`` and ``eval/`` subpackages and the
+    training modules included, pulls in
     neither jax nor lemas_tts_tpu (nor the tests' torch mirrors)."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -34,7 +35,9 @@ def test_import_leaves_jax_out():
         " 'scripts.serve_http', 'serve.engine', 'serve.batcher', 'cfm.graph', 'ops.quant',"
         " 'ops.fbank', 'models.prosody', 'models.bigvgan', 'models.unett', 'scripts.denoise',"
         " 'uvr5.mdxnet', 'uvr5.inference', 'uvr5.onnx_weights', 'uvr5.band_params',"
-        " 'uvr5.spec_utils', 'uvr5.pyrb', 'uvr5.vr_network', 'uvr5.vr_legacy'):\n"
+        " 'uvr5.spec_utils', 'uvr5.pyrb', 'uvr5.vr_network', 'uvr5.vr_legacy', 'cfm.loss',"
+        " 'cfm.train', 'cfm.data', 'cfm.checkpoint', 'cfm.distill', 'models.speaker',"
+        " 'eval.metrics', 'scripts.train', 'scripts.distill', 'scripts.evaluate'):\n"
         "    assert 'lemas_tts_tpu_torch.' + sub in names, sub\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
