@@ -5,10 +5,10 @@ Phases, in order (any failure raises; the exit code is then non-zero):
   1. card: CUDA present, name and power limit from nvidia-smi, TF32 off;
   2. build: the kernels of ``lemas_tts_tpu_torch/csrc`` with nvcc (sm_90a),
      one nvcc per source, all started together; the bf16 K1 (qkv_block), K5
-     (attention_bhnd), K2 (ffn_block) and K3/K4 (attention_nhd) libraries
-     must each hold wgmma (HGMMA) and TMA-load (UTMALDG) instructions in their
-     SASS;
-  3. kernels: each kernel (K1-K5) against its plain PyTorch version on the
+     (attention_bhnd), K2 (ffn_block), K3/K4 (attention_nhd) and K6
+     (attention_splash) libraries must each hold wgmma (HGMMA) and TMA-load
+     (UTMALDG) instructions in their SASS;
+  3. kernels: each kernel (K1-K6) against its plain PyTorch version on the
      card, at the shapes of the paths below (K5 also at N 1000 and 1025, K1
      also at rows 3, N 1088, where 128-row tiles straddle batch rows; K1-K3
      at rows 1, a distilled student's, and K3 there also with 8 x 128 heads), with
@@ -16,12 +16,17 @@ Phases, in order (any failure raises; the exit code is then non-zero):
      products alone for K1 and K2); every design of the bf16 K1 timed (both
      LN-modulate forms, bit for bit equal, at each tile width); K4 also
      against K3 (bit for bit); K3, K4 and K5 with a batch row whose keys are
-     all masked (the value the JAX kernels give);
+     all masked (the value the JAX kernels give); K6 (splash, segment ids)
+     at N 1024 and 1280 with a partly masked row (its pad rows held too)
+     and an all-masked row, at rows 1, with 8 x 128 heads and with no mask,
+     its yardstick ``sdpa`` under the boolean segment mask;
   4. DiT: depth-2 models at full width on the card (kernels) against the same
      weights on the CPU (plain versions), in f32 and bf16, each counting its
      launches: the flagship DiT (K1-K3), the flagship under
      ``LEMAS_ATTN_PACK=1`` (K4 in place of K3), the F5-TTS v0 ``f5tts_base``
-     DiT (K5 and K2) and the MMDiT at the flagship's arch (K5);
+     DiT (K5 and K2), the MMDiT at the flagship's arch (K5), the flagship
+     DiT and the MMDiT under ``attn_backend="splash"`` (K6 only) and the
+     flagship under ``"xla"`` (no kernel);
   5. slice: ``TTS.infer`` at full depth with random weights, launches counted
      per path (counts set to 0 just before a path, read just after): the
      flagship ``multilingual`` config (one warm-up, two timed requests, then
@@ -104,11 +109,30 @@ Phases, in order (any failure raises; the exit code is then non-zero):
      and graphed, the graphed mel equal to the eager one); and
      ``scripts/evaluate.main`` over their output with a random-init speaker
      encoder (finite metrics).
+ 15. splash: ``attn_backend="splash"`` at full depth: the flagship (a
+     warmed graph, one warm-up and two timed B = 1 requests with K6 depth x
+     32 each and no other kernel, a graphed request equal to a direct
+     ``sample_mel``, a profiled request), the MMDiT built from the flagship
+     config (K6 at N 1280), ``e2tts_base`` (K5 at N 1025, where JAX hands
+     splash to its sdpa), ``tts_multilingual.main --attn_backend splash``
+     (NFE 16: K6 depth x 16, a WAV written) and
+     ``speech_edit_multilingual.main --attn_backend splash`` (K6 depth x 64,
+     kept frames equal to the reference mel); a flagship request under
+     ``"xla"`` launching no kernel, its mel against the ``"vmem"`` route's
+     on the same noise (rel-L2 printed, not gated);
+ 16. asr: an empty reference text on the flagship: where ``transformers``
+     is installed, a random-init tiny Whisper on the card transcribes it
+     (``TTS.transcribe``, and ``TTS.infer`` with K1-K3 depth x 32 each);
+     with ``transformers`` absent or hidden, ``TTS.infer`` raises an
+     ``ImportError`` naming it and runs nothing; two requests on one
+     reference call an injected ``transcribe_fn`` once (the md5 cache),
+     K1-K3 depth x 32 each a request.
 On CUDA every request's sampler is a graph replay (its first request of a
 bucket runs eagerly and captures), so every count above is launches on the
 card. The line before the last is the ``kernels`` JSON record; the last line
 is ``{"ok": true, "device": {...}}``. Needs only torch, numpy and the CUDA
-toolkit: no JAX, no yaml.
+toolkit (and ``transformers`` where it is installed, for ``[asr]``'s tiny
+Whisper): no JAX, no yaml.
 """
 
 from __future__ import annotations
@@ -224,10 +248,11 @@ def phase_build() -> None:
                     entry, facts = line.split("'")[1], []
                 elif "registers" in line or "spill" in line:
                     facts.append(line.replace("ptxas info    :", "").strip())
-    # the bf16 K1, K5, K2 and K3/K4 must run on wgmma and TMA: count their
+    # the bf16 K1, K5, K2, K3/K4 and K6 must run on wgmma and TMA: count their
     # SASS instructions (0 would mean a fallback to mma.sync or to plain loads)
     cuobjdump = Path(_cuda.nvcc_path()).with_name("cuobjdump")
-    for name in ("qkv_block", "attention_bhnd", "ffn_block", "attention_nhd"):
+    for name in ("qkv_block", "attention_bhnd", "ffn_block", "attention_nhd",
+                 "attention_splash"):
         sass = subprocess.run([str(cuobjdump), "-sass", str(_cuda.library_path(name))],
                               capture_output=True, text=True, timeout=300).stdout
         counts = {op: sum(op in line for line in sass.splitlines())
@@ -542,6 +567,68 @@ def phase_split_attention() -> dict:
     return records
 
 
+def phase_splash_attention() -> dict:
+    """K6 against its plain version on the card, with ``sdpa`` under the
+    boolean segment mask as its yardstick: the flagship's shape under
+    ``attn_backend="splash"`` (rows 2, 16 x 64, N 1024) and the MMDiT's
+    joint length (N 1280), each with batch row 0 partly masked (its pad
+    rows compared too: they attend the pad keys) and with row 1 all masked
+    (it attends every key); rows 1, 8 x 128 heads, and no mask (one
+    segment). Returns the record of the flagship shape in bf16."""
+    import torch
+    import torch.nn.functional as F
+
+    from lemas_tts_tpu_torch.ops import attention
+
+    records = {}
+    shapes = [(2, 1024, 16, 64, "partial"), (2, 1280, 16, 64, "partial"),
+              (2, 1024, 16, 64, "all_masked"), (2, 1280, 16, 64, "all_masked"),
+              (1, 1024, 16, 64, "partial"), (2, 1024, 8, 128, "partial"),
+              (2, 1024, 16, 64, "none")]
+    for tag, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+        for rows, n, heads, dh, masking in shapes:
+            main_shape = (tag, rows, n, dh, masking) == ("bf16", 2, 1024, 64, "partial")
+            g = torch.Generator(device="cuda").manual_seed(n + dh + rows)
+            sets = []
+            for _ in range(3 if main_shape else 1):
+                q, k, v = (torch.randn(rows, heads, n, dh, generator=g, device="cuda").to(dtype)
+                           for _ in range(3))
+                valid = torch.tensor([n - 37, n][:rows], device="cuda")
+                mask = torch.arange(n, device="cuda")[None, :] < valid[:, None]
+                if masking == "all_masked":
+                    mask[1] = False
+                sets.append((q, k, v, None if masking == "none" else mask))
+            q, k, v, mask = sets[0]
+            got = attention.splash_attention(*sets[0])
+            ref = attention.splash_attention_plain(*sets[0])
+            shape = f"rows {rows:2d} N {n:4d} heads {heads}x{dh} mask {masking}"
+            pad = torch.zeros(rows, n, dtype=torch.bool, device="cuda") if mask is None else ~mask
+            if bool(pad.any()):
+                pad_err = rel_l2(got.transpose(1, 2)[pad], ref.transpose(1, 2)[pad])
+                print(f"[kernels] splash_attention {tag} {shape}: pad query rows alone rel-L2 "
+                      f"{pad_err:.3e} (tol {TOL_REL_L2[tag]:.0e})", flush=True)
+                check(pad_err <= TOL_REL_L2[tag], f"K6 {tag} {shape}: pad rows over tolerance")
+            seg = (torch.ones(rows, n, dtype=torch.bool, device="cuda") if mask is None
+                   else mask)
+            c1 = seg.sum(dim=1).double()
+            pairs = float((c1 * c1 + (n - c1) * (n - c1)).sum())  # visible (query, key) pairs
+            nbytes = 4 * rows * heads * n * dh * q.element_size() + (0 if mask is None
+                                                                    else rows * n)
+            flops = 4.0 * heads * dh * pairs
+            same = (seg[:, :, None] == seg[:, None, :])[:, None]
+            lib = ("sdpa", lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=same))
+            _report([("splash_attention", (rel_l2(got, ref), max_abs(got, ref)),
+                      [lambda a=a: attention.splash_attention(*a) for a in sets],
+                      [lambda: attention.splash_attention_plain(*sets[0])], lib, nbytes,
+                      flops, "lemas_tts_tpu_torch/csrc/attention_splash.cu",
+                      "lemas_tts_tpu/ops/attention.py:60")],
+                    tag, shape, peak, records if main_shape else None)
+            del sets, q, k, v, got, ref, same
+            torch.cuda.empty_cache()
+    return records
+
+
 def kernel_counters() -> dict:
     """The launch counter of every kernel wrapper, by kernel name."""
     from lemas_tts_tpu_torch.ops import launches
@@ -587,6 +674,7 @@ FLAGSHIP_KERNELS = ("qkv_block", "vmem_attention_nhd", "ffn_block")
 PACK_KERNELS = ("qkv_block", "vmem_attention_nhd_pack", "ffn_block")
 V0_KERNELS = ("vmem_attention", "ffn_block")
 MMDIT_KERNELS = ("vmem_attention",)
+SPLASH_KERNELS = ("splash_attention",)
 
 
 def _dit_inputs(torch, B, N, mel, vocab, seed):
@@ -610,15 +698,21 @@ def phase_dit() -> None:
     from lemas_tts_tpu_torch.models.mmdit import MMDiT
 
     flagship, v0 = load_model_config("multilingual"), load_model_config("f5tts_base")
-    cases = [("flagship DiT", DiT, flagship, False, FLAGSHIP_KERNELS),
-             ("flagship DiT, LEMAS_ATTN_PACK=1", DiT, flagship, True, PACK_KERNELS),
-             ("f5tts_base DiT (v0)", DiT, v0, False, V0_KERNELS),
-             ("MMDiT, flagship arch, text 256", MMDiT, flagship, False, MMDIT_KERNELS)]
-    for label, cls, cfg, pack, kernels in cases:
-        depth2_forward("dit", label, cls, cfg, pack, kernels)
+    cases = [("flagship DiT", DiT, flagship, False, FLAGSHIP_KERNELS, "vmem"),
+             ("flagship DiT, LEMAS_ATTN_PACK=1", DiT, flagship, True, PACK_KERNELS, "vmem"),
+             ("f5tts_base DiT (v0)", DiT, v0, False, V0_KERNELS, "vmem"),
+             ("MMDiT, flagship arch, text 256", MMDiT, flagship, False, MMDIT_KERNELS, "vmem"),
+             ("flagship DiT, attn_backend=splash", DiT, flagship, False, SPLASH_KERNELS,
+              "splash"),
+             ("MMDiT, flagship arch, text 256, attn_backend=splash", MMDiT, flagship, False,
+              SPLASH_KERNELS, "splash"),
+             ("flagship DiT, attn_backend=xla", DiT, flagship, False, (), "xla")]
+    for label, cls, cfg, pack, kernels, backend in cases:
+        depth2_forward("dit", label, cls, cfg, pack, kernels, backend)
 
 
-def depth2_forward(tag: str, label: str, cls, cfg, pack: bool, kernels) -> None:
+def depth2_forward(tag: str, label: str, cls, cfg, pack: bool, kernels,
+                   attn_backend: str = "vmem") -> None:
     """A depth-2 model of ``cfg``'s arch at full width on the card (kernels)
     against the same weights on the CPU (plain versions), in f32 and bf16;
     each card forward must launch ``kernels`` once per block and no other."""
@@ -636,7 +730,8 @@ def depth2_forward(tag: str, label: str, cls, cfg, pack: bool, kernels) -> None:
     for dtype, dt in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         outs = []
         for dev in ("cpu", "cuda"):
-            model = cls(arch, mel_dim=mel, text_num_embeds=vocab, compute_dtype=dtype)
+            model = cls(arch, mel_dim=mel, text_num_embeds=vocab, compute_dtype=dtype,
+                        attn_backend=attn_backend)
             model.load_state_dict(state)
             model = cast_matrices(model, dtype).to(dev).eval()
             reset_counters()
@@ -674,7 +769,7 @@ GEN_TEXT = ("i have been a silent spectator, watching species evolve, "
 
 
 def run_requests(tts, label: str, n: int, kernels, dev: dict, ref_path: str, ref_text: str,
-                 gen_text: str, bucket: int = 1024) -> tuple:
+                 gen_text: str, bucket: int = 1024, tag: str = "slice") -> tuple:
     """``n`` TTS.infer requests (the first a warm-up) with the launch counts
     set to 0 just before and read just after; every request must launch each
     kernel of ``kernels`` depth x 32 times and no other kernel. Returns the
@@ -695,7 +790,7 @@ def run_requests(tts, label: str, n: int, kernels, dev: dict, ref_path: str, ref
         wall = time.perf_counter() - t0
         grew = {k: v - before[k] for k, v in read_counters().items()}
         audio_s = len(wave) / out_sr
-        print(f"[slice] {label} request {i} ({'warm-up' if i == 0 and n > 1 else 'timed'}): "
+        print(f"[{tag}] {label} request {i} ({'warm-up' if i == 0 and n > 1 else 'timed'}): "
               f"{audio_s:.3f} audio-s in {wall:.3f} s = {audio_s / wall:.2f} audio-s/s "
               f"on {dev['card']}; launches {grew}", flush=True)
         check(out_sr == 24000, f"sample rate {out_sr}")
@@ -708,7 +803,7 @@ def run_requests(tts, label: str, n: int, kernels, dev: dict, ref_path: str, ref
     launches = read_counters()
     audio = sum(a for a, _ in timed)
     wall = sum(w for _, w in timed)
-    print(f"[slice] {label} timed: {audio:.3f} audio-s in {wall:.3f} s wall = "
+    print(f"[{tag}] {label} timed: {audio:.3f} audio-s in {wall:.3f} s wall = "
           f"{audio / wall:.2f} audio-s/s (NFE 32, CFG 2, B 1, bucket {bucket}) on {dev['card']}",
           flush=True)
     return launches, timed
@@ -722,7 +817,7 @@ def phase_slice(dev: dict) -> dict:
     import torch
 
     from lemas_tts_tpu_torch import TTS
-    from lemas_tts_tpu_torch.config import CONFIG_DIR, SamplerConfig
+    from lemas_tts_tpu_torch.config import SamplerConfig
     from lemas_tts_tpu_torch.infer.pipeline import TEXT_BUCKETS, pick_bucket
     from lemas_tts_tpu_torch.infer.preprocess import preprocess_ref_audio_text
     from lemas_tts_tpu_torch.utils.audio_io import write_wav
@@ -736,11 +831,7 @@ def phase_slice(dev: dict) -> dict:
         ref_path = str(Path(d) / "ref.wav")
         write_wav(ref_path, _reference_wave(16000, 3.0, seed=0), 16000)
         ref_text, gen_text = REF_TEXT, GEN_TEXT
-        # no public MMDiT config: the flagship's arch under the MMDiT backbone
-        mmdit_cfg = json.loads((CONFIG_DIR / "multilingual.json").read_text())
-        mmdit_cfg["model"]["backbone"] = "MMDiT"
-        mmdit_path = Path(d) / "multilingual_mmdit.json"
-        mmdit_path.write_text(json.dumps(mmdit_cfg))
+        mmdit_path = _flagship_as_mmdit(Path(d))
         paths = [("multilingual", [("flagship", 3, False, FLAGSHIP_KERNELS),
                                    ("flagship LEMAS_ATTN_PACK=1", 1, True, PACK_KERNELS)]),
                  ("f5tts_base", [("v0 f5tts_base", 2, False, V0_KERNELS)]),
@@ -925,7 +1016,7 @@ def phase_frontend(dev: dict, model: str = "multilingual") -> dict:
 
 
 def phase_edit(dev: dict, model: str, vocab: Path, wav_path: Path, align_dir: Path,
-               save_dir: Path, flags=(), tag: str = "edit") -> dict:
+               save_dir: Path, flags=(), tag: str = "edit", kernels=FLAGSHIP_KERNELS) -> dict:
     """Speech editing through the CLI's ``main()`` with its defaults (and
     ``flags``), the launch counts set to 0 just before and read just after.
     ``edit_speech`` is wrapped to keep what it was given and gave back; its
@@ -999,7 +1090,7 @@ def phase_edit(dev: dict, model: str, vocab: Path, wav_path: Path, align_dir: Pa
     check(bucket == 1024, f"the edit ({mel.shape[1]} frames) does not land in bucket 1024")
     check(all(t in synth.vocab.char_map for t in seen["tokens"]),
           "an edit unit is not in the vocab")
-    want = expected_launches(FLAGSHIP_KERNELS, depth * 64)
+    want = expected_launches(kernels, depth * 64)
     check(launches == want, f"edit: launches {launches}, expected {want}")
     kept_equal = np.array_equal(got[keep], ref[keep])
     edited_differ = bool((got[~keep] != ref[~keep]).any(axis=1).all())
@@ -1077,6 +1168,58 @@ def _timed(fn) -> tuple:
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+def graphed_request(tts, tag: str, kernels, ref_path: str) -> tuple:
+    """One B = 1 request after its bucket's graph was captured (``warmup``),
+    the counts set to 0 just before and read just after: it must replay the
+    one graph (launches = its record = depth x 32 of each kernel of
+    ``kernels``, no other), and its mel must equal a direct ``sample_mel`` on
+    the same inputs (bit for bit, or rel-L2 <= 1e-6). Returns (launches,
+    wave, mel, wall s, the recorded sampler call, the direct call)."""
+    import torch
+
+    from lemas_tts_tpu_torch.cfm.sampler import sample_mel, sway_time_grid
+
+    seen, run = {}, tts.synth.run_sampler
+
+    def recorded(settings, *args):
+        out = run(settings, *args)
+        seen.update(settings=settings, out=out.clone(),
+                    args=[None if a is None else a.clone() for a in args])
+        return out
+
+    tts.synth.run_sampler = recorded
+    try:
+        reset_counters()
+        (wave, _, spec), wall = _timed(lambda: tts.infer(ref_path, REF_TEXT, GEN_TEXT, seed=0,
+                                                         show_info=lambda *_: None))
+        got = read_counters()
+    finally:
+        del tts.synth.run_sampler
+    want = expected_launches(kernels, tts.config.arch.depth * 32)
+    check(got == want, f"{tag} graphed request: launches {got}, expected {want}")
+    graphs = list(tts.synth._graphs.values())
+    check(len(graphs) == 1 and got == {k: graphs[0].launches_per_replay.get(k, 0)
+                                       for k in got},
+          f"{tag}: launches {got} are not 1 replay of the one graph's")
+    s = seen["settings"]
+    cond, cond_mask, text_ids, duration, y0, step_cond, prosody_text = seen["args"]
+    grid = sway_time_grid(s.steps, s.sway_sampling_coef, s.t_start)
+
+    def eager():
+        return sample_mel(tts.dit, cond=cond, cond_mask=cond_mask, text_ids=text_ids,
+                          duration=duration, y0=y0, time_grid=grid, settings=s,
+                          step_cond=step_cond, prosody_text=prosody_text)
+
+    ref_out = eager()
+    same = torch.equal(ref_out, seen["out"])
+    err = rel_l2(seen["out"], ref_out)
+    print(f"[{tag}] graphed B 1 mel against a direct sample_mel on the same inputs: equal "
+          f"bit for bit {same}, rel-L2 {err:.3e}, max-abs {max_abs(seen['out'], ref_out):.3e}",
+          flush=True)
+    check(same or err <= 1e-6, f"{tag}: graph replay differs from sample_mel: rel-L2 {err:.3e}")
+    return got, wave, spec, wall, seen, eager
 
 
 def serving_refresh_steps(settings, steps: int = 32) -> tuple:
@@ -1162,42 +1305,14 @@ def phase_graph(dev: dict) -> tuple:
         check(n == 1, f"warmup captured {n} graphs, not 1")
 
         # graph parity: one request replays the graph; the same inputs through sample_mel
-        seen, run = {}, tts.synth.run_sampler
-
-        def recorded(settings, *args):
-            out = run(settings, *args)
-            seen.update(settings=settings, out=out.clone(),
-                        args=[None if a is None else a.clone() for a in args])
-            return out
-
-        tts.synth.run_sampler = recorded
-        try:
-            (wave, _, spec), wall, got = count(
-                "graphed request", lambda: tts.infer(ref_path, REF_TEXT, GEN_TEXT, seed=0,
-                                                     **quiet), FLAGSHIP_KERNELS, depth * 32)
-        finally:
-            del tts.synth.run_sampler
+        run = tts.synth.run_sampler
+        got, wave, spec, wall, seen, eager = graphed_request(tts, "graph", FLAGSHIP_KERNELS,
+                                                             ref_path)
+        for k in totals:
+            totals[k] += got[k]
         report("B 1 request, graph replay (NFE 32, CFG 2)", wave, wall, got)
         graphs = list(tts.synth._graphs.values())
-        check(len(graphs) == 1 and got == {k: graphs[0].launches_per_replay.get(k, 0)
-                                           for k in got},
-              f"launches {got} are not 1 replay of the one graph's")
         s = seen["settings"]
-        cond, cond_mask, text_ids, duration, y0, step_cond, prosody_text = seen["args"]
-        grid = sway_time_grid(s.steps, s.sway_sampling_coef, s.t_start)
-
-        def eager():
-            return sample_mel(tts.dit, cond=cond, cond_mask=cond_mask, text_ids=text_ids,
-                              duration=duration, y0=y0, time_grid=grid, settings=s,
-                              step_cond=step_cond, prosody_text=prosody_text)
-
-        ref_out = eager()
-        same = torch.equal(ref_out, seen["out"])
-        err = rel_l2(seen["out"], ref_out)
-        print(f"[graph] graphed B 1 mel against a direct sample_mel on the same inputs: equal "
-              f"bit for bit {same}, rel-L2 {err:.3e}, max-abs {max_abs(seen['out'], ref_out):.3e}",
-              flush=True)
-        check(same or err <= 1e-6, f"graph replay differs from sample_mel: rel-L2 {err:.3e}")
 
         # two buckets' first calls at once, as a server's threads make them:
         # one thread's eager run may fall inside the other's capture, yet each
@@ -2451,6 +2566,271 @@ def phase_train(dev: dict) -> dict:
     return totals
 
 
+def _flagship_as_mmdit(d: Path) -> Path:
+    """The flagship config with the MMDiT backbone (no public MMDiT config)."""
+    from lemas_tts_tpu_torch.config import CONFIG_DIR
+
+    cfg = json.loads((CONFIG_DIR / "multilingual.json").read_text())
+    cfg["model"]["backbone"] = "MMDiT"
+    path = d / "multilingual_mmdit.json"
+    path.write_text(json.dumps(cfg))
+    return path
+
+
+def phase_splash(dev: dict) -> dict:
+    """``attn_backend="splash"`` at full depth: the flagship (a warmed graph,
+    one warm-up and two timed B = 1 requests with K6 depth x 32 each and no
+    other kernel, a request equal to a direct ``sample_mel``, a profiled
+    request), the MMDiT built from the flagship config (K6 at N 1280),
+    ``e2tts_base`` (K5 at N 1025: JAX hands that N to its ``sdpa``), the
+    two CLIs with ``--attn_backend splash`` (the TTS CLI at NFE 16: K6
+    depth x 16; the edit at its defaults: K6 depth x 64, kept frames equal to
+    the reference mel), and ``attn_backend="xla"``: a request that launches
+    no kernel, its mel against the ``vmem`` route's on the same noise
+    (printed, not gated: bf16 rounds at other points). Returns the launch
+    counts."""
+    import numpy as np
+    import torch
+
+    from lemas_tts_tpu_torch import TTS
+    from lemas_tts_tpu_torch.config import SamplerConfig
+    from lemas_tts_tpu_torch.infer.pipeline import TEXT_BUCKETS, pick_bucket
+    from lemas_tts_tpu_torch.infer.preprocess import preprocess_ref_audio_text
+    from lemas_tts_tpu_torch.scripts import tts_multilingual
+    from lemas_tts_tpu_torch.utils.audio_io import read_audio, write_wav
+    from lemas_tts_tpu_torch.utils.vocab import text_to_ids
+
+    totals = dict.fromkeys(kernel_counters(), 0)
+    quiet = dict(show_info=lambda *_: None)
+
+    def add(launches):
+        for k in totals:
+            totals[k] += launches[k]
+
+    def counted(label, fn, kernels, per_kernel):
+        """fn() with the counts set to 0 just before and read just after."""
+        reset_counters()
+        out, wall = _timed(fn)
+        got = read_counters()
+        want = expected_launches(kernels, per_kernel)
+        print(f"[splash] {label}: {wall:.3f} s wall on {dev['card']}; launches {got}",
+              flush=True)
+        check(got == want, f"{label}: launches {got}, expected {want}")
+        add(got)
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        vocab = d / "vocab.txt"
+        vocab.write_text("\n".join(CHAR_VOCAB) + "\n")
+        ref_path = str(d / "ref.wav")
+        write_wav(ref_path, _reference_wave(16000, 3.0, seed=0), 16000)
+        _, _, rtext = preprocess_ref_audio_text(ref_path, REF_TEXT, **quiet)
+        mels = {}
+        for backend in ("splash", "xla", "vmem"):
+            t0 = time.perf_counter()
+            tts = TTS(model="multilingual", vocab_file=str(vocab), frontend=None,
+                      attn_backend=backend)
+            depth = tts.config.arch.depth
+            print(f"[splash] TTS(multilingual, attn_backend={backend!r}) built in "
+                  f"{time.perf_counter() - t0:.1f} s on {tts.device}", flush=True)
+            if backend == "splash":
+                nt = pick_bucket(len(text_to_ids(rtext + GEN_TEXT, tts.vocab)), TEXT_BUCKETS)
+                t1 = time.perf_counter()
+                n = tts.synth.warmup(SamplerConfig(nfe_steps=32, cfg_strength=2.0,
+                                                   sway_sampling_coef=5),
+                                     duration_buckets=(1024,), text_buckets=(nt,),
+                                     batch_buckets=(1,))
+                print(f"[splash] warmup captured {n} graph (B 1, bucket 1024, text bucket "
+                      f"{nt}) in {time.perf_counter() - t1:.1f} s", flush=True)
+                check(n == 1, f"warmup captured {n} graphs, not 1")
+                launches, _ = run_requests(tts, "flagship attn_backend=splash", 3,
+                                           SPLASH_KERNELS, dev, ref_path, REF_TEXT, GEN_TEXT,
+                                           tag="splash")
+                add(launches)
+                add(graphed_request(tts, "splash", SPLASH_KERNELS, ref_path)[0])
+                reset_counters()
+                profile_request(tts, ref_path, REF_TEXT, GEN_TEXT)
+                add(read_counters())
+            kernels = {"splash": SPLASH_KERNELS, "xla": (), "vmem": FLAGSHIP_KERNELS}[backend]
+            for seed in (7, 8) if backend != "splash" else (7,):  # 8: a replay of 7's graph
+                mel = counted(f"flagship attn_backend={backend} request (seed {seed})",
+                              lambda: tts.infer(ref_path, REF_TEXT, GEN_TEXT, seed=seed,
+                                                **quiet)[2], kernels, depth * 32)
+                mels.setdefault(backend, mel)
+            check(bool(np.isfinite(mels[backend]).all()), f"{backend}: mel not finite")
+            del tts
+            gc.collect()
+            torch.cuda.empty_cache()
+        for backend in ("xla", "splash"):
+            err = rel_l2(torch.from_numpy(mels[backend]), torch.from_numpy(mels["vmem"]))
+            print(f"[splash] flagship mel, attn_backend={backend} against vmem on the same "
+                  f"noise (bf16, random weights): rel-L2 {err:.3e} (printed, not gated)",
+                  flush=True)
+
+        for model, label, kernels, n in ((str(_flagship_as_mmdit(d)), "MMDiT", SPLASH_KERNELS,
+                                          2),
+                                         ("e2tts_base", "e2tts_base UNetT", MMDIT_KERNELS, 2)):
+            tts = TTS(model=model, vocab_file=str(vocab), frontend=None, attn_backend="splash")
+            launches, _ = run_requests(tts, f"{label} attn_backend=splash", n, kernels, dev,
+                                       ref_path, REF_TEXT, GEN_TEXT, tag="splash")
+            add(launches)
+            del tts
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        out_wav = d / "cli.wav"
+        rc = counted("tts_multilingual.main --attn_backend splash --nfe_step 16",
+                     lambda: tts_multilingual.main([
+                         "--attn_backend", "splash", "--frontend", "none",
+                         "--vocab_file", str(vocab), "--ref_audio", ref_path, "--ref_text",
+                         REF_TEXT, "--text", GEN_TEXT, "--output_wave", str(out_wav),
+                         "--nfe_step", "16", "--seed", "0"]), SPLASH_KERNELS, depth * 16)
+        w, wsr = read_audio(str(out_wav))
+        check(rc == 0 and wsr == 24000 and w.size > 0 and bool(np.isfinite(w).all()),
+              f"tts_multilingual --attn_backend splash: rc {rc}, wav {w.shape} at {wsr} Hz")
+        wav_path, align_dir, edit_text = _edit_inputs(d)
+        evocab, _, _ = _unit_vocab(d, rtext, edit_text)
+        add(phase_edit(dev, "multilingual", evocab, wav_path, align_dir, d / "edited",
+                       flags=("--attn_backend", "splash"), tag="splash",
+                       kernels=SPLASH_KERNELS))
+    return totals
+
+
+def tiny_whisper_pipeline(device):
+    """A transformers ASR pipeline of a random-init tiny Whisper (seed 0),
+    its feature extractor and a stub tokenizer that writes "heard" and the
+    generated ids, on ``device``: what the ASR checks inject as
+    ``infer/asr.py``'s pipeline where no Whisper weights exist."""
+    import numpy as np
+    import torch
+    from transformers import (WhisperConfig, WhisperFeatureExtractor,
+                              WhisperForConditionalGeneration, pipeline)
+
+    # every id but the end of text suppressed: generation stops at its first
+    # step, whatever length the installed transformers asks of it
+    cfg = WhisperConfig(vocab_size=64, num_mel_bins=80, d_model=32, encoder_layers=1,
+                        encoder_attention_heads=2, decoder_layers=1, decoder_attention_heads=2,
+                        encoder_ffn_dim=64, decoder_ffn_dim=64, max_source_positions=1500,
+                        max_target_positions=448, decoder_start_token_id=1, eos_token_id=2,
+                        pad_token_id=0, bos_token_id=1,
+                        suppress_tokens=[i for i in range(64) if i != 2],
+                        begin_suppress_tokens=[], forced_decoder_ids=None)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = WhisperForConditionalGeneration(cfg).eval()
+    gen = model.generation_config
+    gen.is_multilingual, gen.no_timestamps_token_id = True, 6
+    gen.task_to_id = {"transcribe": 3, "translate": 4}
+    gen.lang_to_id = {"<|en|>": 5, "<|zh|>": 7}
+
+    class SpellIds:
+        pad_token_id, bos_token_id, eos_token_id, padding_side = 0, 1, 2, "right"
+
+        def _decode_asr(self, model_outputs, **_):
+            ids = [int(t) for out in model_outputs for t in np.asarray(out["tokens"]).ravel()]
+            return " heard " + " ".join(f"t{i}" for i in ids) + " ", {}
+
+    return pipeline("automatic-speech-recognition", model=model, tokenizer=SpellIds(),
+                    feature_extractor=WhisperFeatureExtractor(feature_size=80),
+                    torch_dtype=torch.float32, device=device)
+
+
+def phase_asr(dev: dict) -> dict:
+    """An empty reference text on the flagship. With ``transformers``
+    installed (``importlib.util.find_spec``), a random-init tiny Whisper on
+    the card (``tiny_whisper_pipeline``) transcribes the reference through
+    ``TTS.transcribe`` and through ``TTS.infer`` (K1-K3 depth x 32 each).
+    With it hidden (absent, or ``sys.modules["transformers"] = None``),
+    ``TTS.infer`` raises an ``ImportError`` naming it and runs nothing.
+    Then two requests on one new reference with an injected
+    ``transcribe_fn``: called once (the md5 cache), K1-K3 depth x 32 each a
+    request. Returns the launch counts."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from lemas_tts_tpu_torch import TTS
+    from lemas_tts_tpu_torch.infer import asr
+    from lemas_tts_tpu_torch.utils.audio_io import write_wav
+
+    totals = dict.fromkeys(kernel_counters(), 0)
+    quiet = dict(show_info=lambda *_: None)
+    want = None
+
+    def request(label, ref_path, **kw):
+        reset_counters()
+        (wave, _, _), wall = _timed(lambda: tts.infer(ref_path, "", GEN_TEXT, seed=0, **quiet,
+                                                      **kw))
+        launches = read_counters()
+        print(f"[asr] {label}: {wall:.3f} s wall on {dev['card']}; launches {launches}",
+              flush=True)
+        check(launches == want, f"asr {label}: launches {launches}, expected {want}")
+        check(wave.size > 0 and bool(np.isfinite(wave).all()), f"asr {label}: bad wave")
+        for k in totals:
+            totals[k] += launches[k]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        vocab = Path(tmp) / "vocab.txt"
+        vocab.write_text("\n".join(CHAR_VOCAB) + "\n")
+        refs = [str(Path(tmp) / f"ref{i}.wav") for i in range(3)]
+        for i, path in enumerate(refs):
+            write_wav(path, _reference_wave(16000, 3.0, seed=5 + i), 16000)
+        tts = TTS(model="multilingual", vocab_file=str(vocab), frontend=None)
+        want = expected_launches(FLAGSHIP_KERNELS, tts.config.arch.depth * 32)
+        installed = importlib.util.find_spec("transformers") is not None
+        if installed:
+            import transformers
+
+            asr._asr_pipe = tiny_whisper_pipeline(tts.device)
+            text = tts.transcribe(refs[0])
+            print(f"[asr] transformers {transformers.__version__}: a random-init tiny Whisper "
+                  f"on {asr._asr_pipe.device} transcribes the reference as {text!r}",
+                  flush=True)
+            check(asr._asr_pipe.device.type == "cuda" and text.startswith("heard"),
+                  f"tiny Whisper transcription {text!r} on {asr._asr_pipe.device}")
+            request("TTS.infer with an empty ref_text, the tiny Whisper transcribing",
+                    refs[0])
+            asr._asr_pipe = None
+        hidden = sys.modules.get("transformers", False)
+        sys.modules["transformers"] = None  # absent, as import sees it
+        try:
+            reset_counters()
+            raised = None
+            try:
+                tts.infer(refs[1], "", GEN_TEXT, seed=0, **quiet)
+            except ImportError as e:
+                raised = e
+            launches = read_counters()
+        finally:
+            if hidden is False:
+                del sys.modules["transformers"]
+            else:
+                sys.modules["transformers"] = hidden
+        print(f"[asr] transformers {'hidden' if installed else 'not installed'}: TTS.infer "
+              f"with an empty ref_text raised {type(raised).__name__}: {raised}; launches "
+              f"{launches}", flush=True)
+        check(raised is not None and "transformers" in str(raised)
+              and not any(launches.values()),
+              "an empty ref_text without transformers did not raise an ImportError naming "
+              "it, or ran the sampler")
+        calls = []
+
+        def transcribe_fn(wav, sr):
+            calls.append(sr)
+            return "a transcript of the reference."
+
+        for i in range(2):
+            request(f"request {i} with an injected transcribe_fn ({len(calls)} calls before)",
+                    refs[2], transcribe_fn=transcribe_fn)
+        check(len(calls) == 1, f"transcribe_fn called {len(calls)} times for one reference")
+        del tts
+        gc.collect()
+        torch.cuda.empty_cache()
+    return totals
+
+
 def main() -> int:
     if not (REPO / "lemas_tts_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -2464,16 +2844,17 @@ def main() -> int:
         return 1
     dev = phase_card()
     phase_build()
-    records = {**phase_kernels(), **phase_split_attention()}
+    records = {**phase_kernels(), **phase_split_attention(), **phase_splash_attention()}
     phase_dit()
     launches = phase_slice(dev)
     graphed, profiles = phase_graph(dev)
     for more in (phase_frontend(dev), graphed, phase_serve(dev, profiles["eager"]),
                  phase_prosody(dev), phase_bigvgan(dev), phase_unett(dev), phase_uvr5(dev),
-                 phase_train(dev)):
+                 phase_train(dev), phase_splash(dev), phase_asr(dev)):
         launches = {k: launches[k] + more[k] for k in launches}
     kernels = [records[k] for k in ("qkv_block", "vmem_attention_nhd", "ffn_block",
-                                     "vmem_attention_nhd_pack", "vmem_attention")]
+                                     "vmem_attention_nhd_pack", "vmem_attention",
+                                     "splash_attention")]
     for rec in kernels:
         rec["launches"] = launches[rec["name"]]
         check(rec["launches"] > 0, f"{rec['name']} was not launched on the slice's paths")

@@ -4,7 +4,8 @@ config's ``backbone``: DiT, MMDiT or UNetT), the prosody encoder and
 ``prosody_to_mel`` when the model is prosody-conditioned, and the vocoder
 the config's ``mel_spec_type`` names (Vocos or BigVGAN) onto one device;
 ``infer`` runs zero-shot TTS from a reference
-audio/text pair; ``prepare_units`` gives the frontend units of one text;
+audio/text pair (an empty reference text is transcribed, ``transcribe``);
+``prepare_units`` gives the frontend units of one text;
 ``export_wav``/``export_spectrogram`` save artifacts; ``process_phone_list``
 adds language-id prefixes for mixed-language phone streams.
 
@@ -30,10 +31,18 @@ Differences from the JAX package:
  - A distilled student's directory (``scripts/distill.py``: ``model.pt`` with
    ``student.json`` beside it) pins the sampler to the student's settings in
    ``infer`` (``apply_student_settings``), with the sidecar's head split.
+ - ``attn_backend`` takes the JAX names: ``"vmem"`` (K1-K3, or K5 on the
+   split-head chain), ``"splash"`` (the split-head chain on K6) and
+   ``"xla"`` (plain PyTorch attention, no kernel of the port). ``None``
+   means ``"vmem"`` on either device, where the JAX default off the TPU is
+   ``"xla"``: the port's kernels are its main path on the card, and the CPU
+   runs their plain versions. An unknown name raises ``ValueError``.
+ - ``transcribe`` (ASR, ``infer/asr.py``) runs Whisper through the
+   ``transformers`` pipeline on this ``TTS``'s device, never on another;
+   without ``transformers`` it raises ``ImportError``.
  - Not ported yet: native orbax checkpoints, ``mesh``,
-   ``hf://`` checkpoint URIs, ``transcribe`` (ASR) and
-   ``export_wav(remove_silence=...)`` have no keyword here, so passing one
-   gives a ``TypeError``.
+   ``hf://`` checkpoint URIs and ``export_wav(remove_silence=...)`` have no
+   keyword here, so passing one gives a ``TypeError``.
  - A missing checkpoint or vocoder gives random weights (seeded), as in the
    JAX package; reference ``.pt``/``.safetensors`` checkpoints and the
    published Vocos ``pytorch_model.bin`` load directly (same key names).
@@ -102,13 +111,15 @@ class TTS:
                  vocoder_local_path: Optional[str] = None, use_prosody_encoder: bool = False,
                  prosody_cfg_path: str = "", prosody_ckpt_path: str = "",
                  device: Optional[str] = None, frontend: Optional[str] = "phone",
-                 compute_dtype: Optional[str] = None, quantization: Optional[str] = None):
+                 compute_dtype: Optional[str] = None, quantization: Optional[str] = None,
+                 attn_backend: Optional[str] = None):
         from functools import partial
 
         from lemas_tts_tpu_torch.infer.pipeline import Synthesizer
         from lemas_tts_tpu_torch.models.dit import PROSODY_DIM, DiT, cast_matrices
         from lemas_tts_tpu_torch.models.mmdit import MMDiT
         from lemas_tts_tpu_torch.models.unett import UNetT
+        from lemas_tts_tpu_torch.ops.attention import check_backend
         from lemas_tts_tpu_torch.ops.quant import MODES, quantize_dense_tree
         from lemas_tts_tpu_torch.weights import load_reference_checkpoint
 
@@ -118,6 +129,7 @@ class TTS:
             raise ValueError(f"unknown quantization mode: {quantization!r}")
         self.ode_method = ode_method
         self.quant = quantization
+        self.attn_backend = check_backend("vmem" if attn_backend is None else attn_backend)
         self.config: ModelConfig = load_model_config(model)
         use_pros = bool(use_prosody_encoder or self.config.use_prosody_encoder)
         self.use_prosody_encoder = use_pros
@@ -186,7 +198,8 @@ class TTS:
         backbone = backbones[self.config.backbone]
         self.dit = seeded_init(lambda: backbone(self.config.arch, mel_dim=mel.n_mel_channels,
                                                  text_num_embeds=self.vocab.size,
-                                                 compute_dtype=dtype), seed=0)
+                                                 compute_dtype=dtype,
+                                                 attn_backend=self.attn_backend), seed=0)
         pros_to_mel = None
         if ckpt_file:
             state, pros_to_mel = load_reference_checkpoint(ckpt_file, use_ema=use_ema)
@@ -289,6 +302,13 @@ class TTS:
     def process_phone_list(self, parts: Sequence[str]) -> List[str]:
         return process_phone_list(parts, self.langs)
 
+    def transcribe(self, ref_audio, language: Optional[str] = None) -> str:
+        """Whisper transcription of a WAV path or a ``(wave, sr)`` pair on
+        this ``TTS``'s device (``infer/asr.py``)."""
+        from lemas_tts_tpu_torch.infer.asr import transcribe
+
+        return transcribe(ref_audio, language, device=self.device)
+
     def export_wav(self, wav: np.ndarray, file_wave: str) -> None:
         from lemas_tts_tpu_torch.utils.audio_io import write_wav
 
@@ -323,13 +343,18 @@ class TTS:
         string path chunks by a byte budget. ``block_cache`` is a
         ``"lo-hi:every[+hN][+tN]"`` block-range cache spec;
         ``use_prosody_encoder`` conditions a prosody model's request on the
-        reference's prosody. Returns ``(wav, sample_rate, spec)``."""
+        reference's prosody. An empty ``ref_text`` is transcribed by
+        ``transcribe_fn(wave, sr)``, by default :meth:`transcribe`, once for
+        each reference audio (``infer/preprocess.py``'s cache). Returns
+        ``(wav, sample_rate, spec)``."""
         from lemas_tts_tpu_torch.infer.pipeline import chunk_text
         from lemas_tts_tpu_torch.infer.preprocess import preprocess_ref_audio_text
 
         if seed is None:
             seed = random.randint(0, 2 ** 31 - 1)
         self.seed = seed
+        if transcribe_fn is None:
+            transcribe_fn = lambda w, s: self.transcribe((w, s))  # noqa: E731
         wav, sr, ref_text = preprocess_ref_audio_text(ref_file, ref_text, show_info=show_info,
                                                       transcribe_fn=transcribe_fn)
         if self.vocab.char_map is not None and self.frontend is not None:

@@ -15,7 +15,9 @@ loads every kernel library and sets up cuBLAS, then captures; that first
 call returns the eager result. The eager run's launches are counted as
 launches; the capture's go to its thread's record (``ops/launches.py``),
 which every replay adds to the counters, so launches that other threads
-make meanwhile are not mixed in.
+make meanwhile are not mixed in. The graph holds whatever the model's
+attention route launched: K1-K3 under ``"vmem"``, K6 under ``"splash"``,
+no kernel of the port under ``"xla"``.
 
 The graphs of one ``Synthesizer`` capture into one memory pool
 (``GraphPool``), so its cache holds one sampler workspace (the largest

@@ -1,5 +1,6 @@
 // Shared pieces of the f32 flash-style attention kernels (K3 and K4 in
-// attention_nhd.cu, K5 in attention_bhnd.cu; bf16 runs attention_sm90.cuh):
+// attention_nhd.cu, K5 and K6 in attention_bhnd.cuh; bf16 runs
+// attention_sm90.cuh):
 // staging of q/k/v tiles and key flags into shared memory, and one warp's
 // online-softmax step over one staged 64-key tile.
 //
@@ -89,11 +90,13 @@ __device__ __forceinline__ void init_rows(SoftmaxRows<D>& st, float m0) {
 // One step over a staged tile: S = Q[row0, row0 + 16) K^T in f32, times
 // scale after the product; padded keys score -1e30, keys beyond n -inf (so
 // p = 0 exactly); the running max and sum are updated and O += T(p) V.
-// sQ, sK, sV point at this head's columns, rows ld elements apart.
-template <typename T, int D>
+// sQ, sK, sV point at this head's columns, rows ld elements apart. With SEG
+// (K6's segment ids) a key scores -1e30 where its flag (kKeep 1, kPadKey 0)
+// differs from qseg of the thread's row g or g + 8.
+template <typename T, int D, bool SEG = false>
 __device__ __forceinline__ void attend_tile(SoftmaxRows<D>& st, const T* sQ, const T* sK,
                                             const T* sV, int ld, const float* sKey, int row0,
-                                            float scale) {
+                                            float scale, const float* qseg = nullptr) {
   using namespace attn;
   const int t = threadIdx.x & 3;
   float s[BKV / 8][4];
@@ -120,7 +123,11 @@ __device__ __forceinline__ void attend_tile(SoftmaxRows<D>& st, const T* sQ, con
     for (int e = 0; e < 4; ++e) {
       s[ni][e] *= scale;
       const float flag = sKey[ni * 8 + 2 * t + (e & 1)];
-      if (flag != kKeep) s[ni][e] = flag == kPadKey ? kMasked : neg_inf();
+      if constexpr (SEG) {
+        if (flag != qseg[e >> 1]) s[ni][e] = kMasked;
+      } else {
+        if (flag != kKeep) s[ni][e] = flag == kPadKey ? kMasked : neg_inf();
+      }
       m_new[e >> 1] = fmaxf(m_new[e >> 1], s[ni][e]);
     }
   float alpha[2];

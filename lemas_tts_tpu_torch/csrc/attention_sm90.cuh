@@ -1,5 +1,5 @@
 // Hopper pieces of the bf16 attention kernels (K3 and K4 in attention_nhd.cu,
-// K5 in attention_bhnd.cu), on the primitives of sm90.cuh: their TMA maps,
+// K5 and K6 in attention_bhnd.cuh), on the primitives of sm90.cuh: their TMA maps,
 // in-place rope of a TMA-loaded tile, and one warpgroup's online-softmax step
 // over a 64-key tile whose scores stay in registers.
 //
@@ -125,7 +125,7 @@ struct RowState {
   float m[2], l[2];
 };
 
-// Key byte of K5's tiles (written by its producer warp): kept, padded (mask
+// Key byte of K5's and K6's tiles (written by the producer warp): kept, padded (mask
 // false) or at or beyond n.
 constexpr uint8_t kKeyPadded = 0, kKeyKept = 1, kKeyBeyond = 2;
 
@@ -143,29 +143,44 @@ __device__ __forceinline__ float key_bias(uint8_t k) {
 // keep the tile's 64 key bytes (nullptr: every key kept). A padded key scores
 // -1e30: fmaf(s, factor, -1e30) is exactly -1e30, as |s| is far below the ulp
 // of 1e30, so no element needs a branch. Without TAIL every key of a tile is
-// below n (K3 and K4 take N % 64 == 0). Updates the running max and sum,
+// below n (K3 and K4 take N % 64 == 0). With SEG (K6's segment ids, no
+// TAIL) a key scores -1e30 where its byte (kKeyKept 1, kKeyPadded 0)
+// differs from qseg of the thread's row. Updates the running max and sum,
 // rescales the ND output accumulators and leaves the unnormalised p, rounded
 // to bf16, in the A fragments p[kk] of the P V product.
-template <int ND, bool TAIL = false>
+template <int ND, bool TAIL = false, bool SEG = false>
 __device__ __forceinline__ void softmax_step(RowState& st, float (&s)[32], float (&o)[ND][32],
                                              uint32_t (&p)[4][4], const uint8_t* keep,
-                                             float factor = kLog2e) {
+                                             float factor = kLog2e,
+                                             const uint8_t* qseg = nullptr) {
   const int t = threadIdx.x & 3;
   float mx[2] = {st.m[0], st.m[1]};
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
-    float2 bb = {0.f, 0.f};
-    if (keep != nullptr) {
+    if constexpr (SEG) {
       const uchar2 kk = *reinterpret_cast<const uchar2*>(keep + 8 * j + 2 * t);
-      bb = {key_bias<TAIL>(kk.x), key_bias<TAIL>(kk.y)};
-    }
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float& x0 = s[4 * j + 2 * r];
-      float& x1 = s[4 * j + 2 * r + 1];
-      x0 = fmaf(x0, factor, bb.x);
-      x1 = fmaf(x1, factor, bb.y);
-      mx[r] = fmaxf(mx[r], fmaxf(x0, x1));
+      for (int r = 0; r < 2; ++r) {
+        float& x0 = s[4 * j + 2 * r];
+        float& x1 = s[4 * j + 2 * r + 1];
+        x0 = fmaf(x0, factor, kk.x == qseg[r] ? 0.f : attn::kMasked);
+        x1 = fmaf(x1, factor, kk.y == qseg[r] ? 0.f : attn::kMasked);
+        mx[r] = fmaxf(mx[r], fmaxf(x0, x1));
+      }
+    } else {
+      float2 bb = {0.f, 0.f};
+      if (keep != nullptr) {
+        const uchar2 kk = *reinterpret_cast<const uchar2*>(keep + 8 * j + 2 * t);
+        bb = {key_bias<TAIL>(kk.x), key_bias<TAIL>(kk.y)};
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float& x0 = s[4 * j + 2 * r];
+        float& x1 = s[4 * j + 2 * r + 1];
+        x0 = fmaf(x0, factor, bb.x);
+        x1 = fmaf(x1, factor, bb.y);
+        mx[r] = fmaxf(mx[r], fmaxf(x0, x1));
+      }
     }
   }
   float alpha[2];

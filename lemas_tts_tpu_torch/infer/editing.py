@@ -8,7 +8,8 @@ and the same sampler as TTS (``Synthesizer.run_sampler``: a CUDA graph per
 bucket on the card, ``cfm/sampler.py:sample_mel`` on the CPU) runs with that
 mask: kept frames come back bit-exactly, regenerated frames follow the new
 text. The sampler takes the midpoint method and the block cache as the
-synthesis paths do.
+synthesis paths do, and runs the attention route of the model's
+``attn_backend`` (``TTS(attn_backend=)``, the edit CLI's ``--attn_backend``).
 
 Alignment JSON schema (reference ``speech_edit_multilingual.py:232-258``):
   ``interval``: [start_s, end_s] of the utterance inside the file

@@ -8,7 +8,9 @@ not depend on how chunks are batched.
 
 On CUDA the sampler runs as one captured CUDA graph per (settings, batch
 bucket, duration bucket, text bucket) (``cfm/graph.py``), the counterpart of
-the JAX package's compiled program per bucket; ``warmup`` captures them
+the JAX package's compiled program per bucket, on every attention route of
+the model (``attn_backend`` ``"vmem"``, ``"splash"`` or ``"xla"``, fixed when
+the model is built); ``warmup`` captures them
 ahead, ``dispatch_warmup`` through the real request path. CPU tensors run
 ``sample_mel`` eagerly. ``synthesize_requests`` serves many requests, each
 with its own reference, as one sampler call; ``synthesize_stream`` yields

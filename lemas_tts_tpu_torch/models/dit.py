@@ -19,7 +19,8 @@ dropouts of ``arch.dropout`` are live when not ``deterministic``, and under
 grad ``arch.checkpoint_activations`` recomputes each block in the backward
 pass (``torch.utils.checkpoint``, as ``nn.remat`` does). ``drop_audio_cond``
 zeroes the cond mel (the CFG audio drop). Sequence parallelism is not
-ported.
+ported. ``attn_backend`` (``"vmem"``, ``"splash"``, ``"xla"``) is every
+block's, as in JAX (``models/modules.py``).
 """
 
 from __future__ import annotations
@@ -99,7 +100,8 @@ class DiT(nn.Module):
     """CFM velocity transformer: v = DiT(x_t, cond, text, t)."""
 
     def __init__(self, arch: DiTArch, mel_dim: int = 100, text_num_embeds: int = 256,
-                 compute_dtype: torch.dtype = torch.float32, use_prosody_encoder: bool = False):
+                 compute_dtype: torch.dtype = torch.float32, use_prosody_encoder: bool = False,
+                 attn_backend: str = "vmem"):
         super().__init__()
         self.arch = arch
         self.mel_dim = mel_dim
@@ -115,7 +117,7 @@ class DiT(nn.Module):
         self.input_embed = InputEmbedding(mel_dim, text_dim, arch.dim)
         self.transformer_blocks = nn.ModuleList([
             DiTBlock(arch.dim, arch.heads, arch.dim_head, arch.ff_mult, arch.qk_norm,
-                     arch.pe_attn_head) for _ in range(arch.depth)])
+                     arch.pe_attn_head, attn_backend) for _ in range(arch.depth)])
         self.long_skip_connection = (nn.Linear(arch.dim * 2, arch.dim, bias=False)
                                      if arch.long_skip_connection else None)
         self.norm_out = AdaLayerNormFinal(arch.dim)

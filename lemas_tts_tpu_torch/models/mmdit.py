@@ -4,8 +4,10 @@
 Text and audio each get their own q/k/v projections and AdaLN modulation,
 attend jointly over the concatenation ``[audio ; text]`` (each stream roped
 from position 0) and split again; the last block is context-pre-only (no
-text output, no text FF). The joint attention is the split-head kernel
-(K5); the FFs and projections are plain products, as in the JAX MMDiT. The
+text output, no text FF). The joint attention is the split-head
+``attention`` of the model's ``attn_backend`` (K5 under ``"vmem"``, K6 under
+``"splash"``, with the text positions never masked); the FFs and
+projections are plain products, as in the JAX MMDiT. The
 hoistable ``embed_text`` keeps the DiT's sampler contract, so the sampler
 drives either backbone. Parameters keep the reference F5-TTS ``mmdit.py``
 key names.
@@ -29,7 +31,7 @@ from lemas_tts_tpu_torch.models.modules import (
     adaln_modulate,
     dense,
 )
-from lemas_tts_tpu_torch.ops.attention import attention
+from lemas_tts_tpu_torch.ops.attention import attention, check_backend
 from lemas_tts_tpu_torch.ops.rope import abs_pos_embedding, apply_rope, rope_angles
 
 
@@ -79,10 +81,11 @@ class JointAttention(nn.Module):
     Returns ``(x_out, c_out)``; ``c_out`` is None when context_pre_only."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, context_pre_only: bool = False,
-                 qk_norm: Optional[str] = None):
+                 qk_norm: Optional[str] = None, attn_backend: str = "vmem"):
         super().__init__()
         if qk_norm not in (None, "rms_norm"):
             raise ValueError(f"unknown qk_norm: {qk_norm!r}")
+        self.attn_backend = check_backend(attn_backend)
         self.heads, self.dim_head, self.context_pre_only = heads, dim_head, context_pre_only
         inner = heads * dim_head
         for name in ("to_q", "to_k", "to_v", "to_q_c", "to_k_c", "to_v_c"):
@@ -115,7 +118,7 @@ class JointAttention(nn.Module):
         if mask is not None:  # text positions are never masked
             joint_mask = torch.cat([mask, mask.new_ones(B, nt)], dim=1)
         out = attention(torch.cat([q, cq], dim=2), torch.cat([k, ck], dim=2),
-                        torch.cat([v, cv], dim=2), joint_mask)
+                        torch.cat([v, cv], dim=2), joint_mask, self.attn_backend)
         out = out.transpose(1, 2).reshape(B, N + nt, -1)
         x_out = dense(out[:, :N], self.to_out[0])
         if mask is not None:
@@ -129,12 +132,13 @@ class MMDiTBlock(nn.Module):
     """Dual-stream AdaLN-zero block: joint attention, then an FF per stream."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, ff_mult: int = 4,
-                 context_pre_only: bool = False, qk_norm: Optional[str] = None):
+                 context_pre_only: bool = False, qk_norm: Optional[str] = None,
+                 attn_backend: str = "vmem"):
         super().__init__()
         self.context_pre_only = context_pre_only
         self.attn_norm_c = AdaLayerNormFinal(dim) if context_pre_only else AdaLayerNorm(dim)
         self.attn_norm_x = AdaLayerNorm(dim)
-        self.attn = JointAttention(dim, heads, dim_head, context_pre_only, qk_norm)
+        self.attn = JointAttention(dim, heads, dim_head, context_pre_only, qk_norm, attn_backend)
         if not context_pre_only:
             self.ff_c = FeedForward(dim, ff_mult)
         self.ff_x = FeedForward(dim, ff_mult)
@@ -164,7 +168,7 @@ class MMDiT(nn.Module):
     text_mask_padding."""
 
     def __init__(self, arch: DiTArch, mel_dim: int = 100, text_num_embeds: int = 256,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32, attn_backend: str = "vmem"):
         super().__init__()
         self.dim_head = arch.dim_head
         self.compute_dtype = compute_dtype
@@ -174,7 +178,8 @@ class MMDiT(nn.Module):
         self.audio_embed = AudioEmbedding(mel_dim, arch.dim)
         self.transformer_blocks = nn.ModuleList([
             MMDiTBlock(arch.dim, arch.heads, arch.dim_head, arch.ff_mult,
-                       context_pre_only=i == arch.depth - 1, qk_norm=arch.qk_norm)
+                       context_pre_only=i == arch.depth - 1, qk_norm=arch.qk_norm,
+                       attn_backend=attn_backend)
             for i in range(arch.depth)])
         self.norm_out = AdaLayerNormFinal(arch.dim)
         self.proj_out = nn.Linear(arch.dim, mel_dim)

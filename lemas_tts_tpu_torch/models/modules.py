@@ -8,8 +8,9 @@ the interleaved-pair rope. Parameters keep the reference torch key names
 Layers run in the dtype of their input (the compute dtype): weights are cast
 to it at use, as flax's ``dtype=`` does; LayerNorms compute in f32.
 
-``DiTBlock`` chooses its kernels by shape alone, as the JAX block does on
-its TPU path, on either device (the CPU runs each kernel's plain version):
+Under ``attn_backend="vmem"`` (the port's default) ``DiTBlock`` chooses its
+kernels by shape alone, as the JAX block does on its TPU path, on either
+device (the CPU runs each kernel's plain version):
 
 - attention side: ``qkv_block`` (K1) and the flat ``vmem_attention_nhd`` (K3;
   K4 under ``LEMAS_ATTN_PACK=1``) when both take the geometry; otherwise
@@ -18,6 +19,11 @@ its TPU path, on either device (the CPU runs each kernel's plain version):
   the split-head ``attention`` (K5);
 - FF side: ``ffn_block`` (K2) whenever it takes the widths, else the
   unfused chain.
+
+Under ``"splash"`` or ``"xla"`` (the JAX names, ``models/modules.py:369``,
+``:519``, ``:554``) K1, K2 and K3 stay off: the block runs AdaLN in
+PyTorch, the split-head chain with ``attention(..., backend=)`` (K6, or
+plain ``sdpa``) and the unfused FF.
 
 The training route (``DiTBlock.forward(..., train=...)``, the JAX XLA
 route that ``cfm/loss.py`` and ``cfm/distill.py`` differentiate through)
@@ -43,7 +49,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from lemas_tts_tpu_torch.ops.attention import attention, nhd_supported, vmem_attention_nhd
+from lemas_tts_tpu_torch.ops.attention import (attention, check_backend, nhd_supported,
+                                                vmem_attention_nhd)
 from lemas_tts_tpu_torch.ops.ffn import (ffn_block, ffn_block_supported, qkv_block,
                                          qkv_block_supported)
 from lemas_tts_tpu_torch.ops.quant import QuantLinear, int8_dense_shared
@@ -230,13 +237,17 @@ class FeedForward(nn.Module):
 
 
 class Attention(nn.Module):
-    """Multi-head self-attention with rope (reference projection layout)."""
+    """Multi-head self-attention with rope (reference projection layout);
+    ``attn_backend`` is the split-head ``attention`` backend, and only
+    ``"vmem"`` takes the flat kernel K3."""
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 64,
-                 qk_norm: Optional[str] = None, pe_attn_head: Optional[int] = None):
+                 qk_norm: Optional[str] = None, pe_attn_head: Optional[int] = None,
+                 attn_backend: str = "vmem"):
         super().__init__()
         if qk_norm not in (None, "rms_norm"):
             raise ValueError(f"unknown qk_norm: {qk_norm!r}")
+        self.attn_backend = check_backend(attn_backend)
         self.heads, self.dim_head = heads, dim_head
         self.qk_norm, self.pe_attn_head = qk_norm, pe_attn_head
         inner = heads * dim_head
@@ -261,12 +272,12 @@ class Attention(nn.Module):
             q, k, v = int8_dense_shared(x, (self.to_q, self.to_k, self.to_v))
         else:
             q, k, v = (dense(x, lin) for lin in (self.to_q, self.to_k, self.to_v))
-        if angles is not None and nhd_supported(self.heads, self.dim_head, N, self.qk_norm,
-                                                self.pe_attn_head):
+        if (self.attn_backend == "vmem" and angles is not None
+                and nhd_supported(self.heads, self.dim_head, N, self.qk_norm, self.pe_attn_head)):
             return self.project_out(vmem_attention_nhd(q, k, v, mask, angles, self.heads), mask)
 
         q, k, v = self.split_rope(q, k, v, angles)
-        out = attention(q, k, v, mask).transpose(1, 2).reshape(B, N, -1)
+        out = attention(q, k, v, mask, self.attn_backend).transpose(1, 2).reshape(B, N, -1)
         return self.project_out(out, mask)
 
     def split_rope(self, q, k, v, angles):
@@ -331,25 +342,28 @@ class DiTBlock(nn.Module):
     """AdaLN -> attention -> gate, LN-modulate -> FF -> gate."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, ff_mult: int = 4,
-                 qk_norm: Optional[str] = None, pe_attn_head: Optional[int] = None):
+                 qk_norm: Optional[str] = None, pe_attn_head: Optional[int] = None,
+                 attn_backend: str = "vmem"):
         super().__init__()
         self.attn_norm = AdaLayerNorm(dim)
-        self.attn = Attention(dim, heads, dim_head, qk_norm, pe_attn_head)
+        self.attn = Attention(dim, heads, dim_head, qk_norm, pe_attn_head, attn_backend)
         self.ff = FeedForward(dim, ff_mult)
 
     def fused_attn_ok(self, n: int) -> bool:
         """Whether K1 + K3 take the attention side at sequence length ``n``
-        (not under int8: quantized q/k/v leave K1, and K3 still runs)."""
+        (only under ``"vmem"``; not under int8: quantized q/k/v leave K1,
+        and K3 still runs)."""
         a = self.attn
-        return (not isinstance(a.to_q, QuantLinear)
+        return (a.attn_backend == "vmem" and not isinstance(a.to_q, QuantLinear)
                 and nhd_supported(a.heads, a.dim_head, n, a.qk_norm, a.pe_attn_head)
                 and qkv_block_supported(n, a.to_q.in_features, a.heads * a.dim_head))
 
     def fused_ff_ok(self, n: int) -> bool:
-        """Whether K2 takes the FF side at sequence length ``n`` (not under
-        ``int8`` or ``int8_ff``: the quantized FF products leave K2)."""
+        """Whether K2 takes the FF side at sequence length ``n`` (only under
+        ``"vmem"``; not under ``int8`` or ``int8_ff``: the quantized FF
+        products leave K2)."""
         down = self.ff.ff[2]
-        return (not isinstance(down, QuantLinear)
+        return (self.attn.attn_backend == "vmem" and not isinstance(down, QuantLinear)
                 and ffn_block_supported(n, down.out_features, down.in_features))
 
     def forward(self, x, t_emb, mask=None, angles=None, train: Optional[TrainRoute] = None):

@@ -6,8 +6,10 @@ and whose second half pops them back (``concat``: concat and a bias-free
 projection, ``add``, or ``none``), with pre-norm RMSNorm blocks (no AdaLN)
 and the time embedding packed as token 0: the mask is padded with True there
 and rope runs at N + 1. Attention is the port's ``Attention`` (split heads,
-rope on the first ``pe_attn_head`` heads, the split-head kernel K5 at any N,
-so at the ragged N + 1 too). Parameter names are the reference F5-TTS
+rope on the first ``pe_attn_head`` heads, the split-head ``attention`` of
+the model's ``attn_backend``: K5 at any N under ``"vmem"``, so at the ragged
+N + 1 too, and K5 there under ``"splash"`` as well, since JAX hands such N
+to its XLA ``sdpa``). Parameter names are the reference F5-TTS
 ``unett.py``'s (``layers.{i}.0`` skip_proj, ``.1`` attn_norm, ``.2`` attn,
 ``.3`` ff_norm, ``.4`` ff), and ``embed_text`` keeps the DiT's sampler
 contract. Prosody text is refused, as in JAX: only the DiT consumes it.
@@ -33,7 +35,8 @@ class UNetT(nn.Module):
     text_mask_padding, qk_norm, conv_layers and pe_attn_head."""
 
     def __init__(self, arch: DiTArch, mel_dim: int = 100, text_num_embeds: int = 256,
-                 compute_dtype: torch.dtype = torch.float32, skip_connect_type: str = "concat"):
+                 compute_dtype: torch.dtype = torch.float32, skip_connect_type: str = "concat",
+                 attn_backend: str = "vmem"):
         super().__init__()
         if arch.depth % 2:
             raise ValueError(f"UNet-Transformer depth must be even, got {arch.depth}")
@@ -55,7 +58,8 @@ class UNetT(nn.Module):
                 nn.Linear(arch.dim * 2, arch.dim, bias=False)
                 if skip_connect_type == "concat" and later else None,
                 RMSNorm(arch.dim),
-                Attention(arch.dim, arch.heads, arch.dim_head, arch.qk_norm, arch.pe_attn_head),
+                Attention(arch.dim, arch.heads, arch.dim_head, arch.qk_norm, arch.pe_attn_head,
+                          attn_backend),
                 RMSNorm(arch.dim),
                 FeedForward(arch.dim, arch.ff_mult)]))
         self.norm_out = RMSNorm(arch.dim)

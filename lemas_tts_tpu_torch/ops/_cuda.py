@@ -36,6 +36,7 @@ ENTRY_POINTS = {
     "ffn_block": {"lemas_ffn_block": [I, I] + [P] * 11 + [I] * 4 + [P]},
     "attention_nhd": {"lemas_attention_nhd": _NHD, "lemas_attention_nhd_pack": _NHD},
     "attention_bhnd": {"lemas_attention_bhnd": [I, I, I] + [P] * 5 + [I] * 3 + [F, P]},
+    "attention_splash": {"lemas_attention_splash": [I, I, I] + [P] * 5 + [I] * 3 + [F, P]},
 }
 
 _lock = threading.Lock()

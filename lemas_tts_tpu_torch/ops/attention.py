@@ -1,4 +1,4 @@
-"""Self-attention for the DiT and MMDiT blocks.
+"""Self-attention for the DiT, MMDiT and UNetT blocks.
 
 Counterpart of ``lemas_tts_tpu/ops/attention.py``:
 
@@ -6,7 +6,20 @@ Counterpart of ``lemas_tts_tpu/ops/attention.py``:
   mask, ``1/sqrt(D)`` applied to the f32 scores after the product, the
   unnormalised p rounded to the compute dtype before the PV product and
   ``/ l`` last. CUDA tensors launch ``csrc/attention_bhnd.cu`` (d64, d128,
-  any N) or raise. ``attention`` is the split-head entry the models call;
+  any N) or raise;
+- ``splash_attention`` (K6): the JAX wrapper around JAX's own Pallas splash
+  kernel, with segment ids taken from the mask, so a pad query attends the
+  pad keys and an all-padded batch row attends every key. q is scaled by
+  ``1/sqrt(D)`` rounded to q's dtype and rounded itself before the product;
+  scores, softmax and the PV product in f32. CUDA tensors launch
+  ``csrc/attention_splash.cu`` at N % 128 == 0 or raise; other N go to K5,
+  as JAX hands them to its XLA ``sdpa``;
+- ``sdpa``: the JAX package's XLA attention (the ``"xla"`` backend) in plain
+  PyTorch ops: normalised p rounded to the compute dtype before the PV
+  product. It launches no kernel of this package;
+- ``attention(..., backend=)``: the split-head entry the models call, with
+  the JAX backend names ``"vmem"`` (K5, the port's default), ``"splash"``
+  and ``"xla"``;
 - ``vmem_attention_nhd`` (K3): flat-layout ``[B, N, H*D]`` attention with the
   interleaved-pair rope applied to q and k inside the kernel and ``1/sqrt(D)``
   folded into q; ``pack_pair=True`` is the head-pair-packed variant (K4,
@@ -19,11 +32,11 @@ CPU tensors take the ``*_plain`` versions. Each kernel wrapper counts its
 launches in ``.launches``.
 
 A rounding-point difference within tolerance (not a fault): at
-N % 128 != 0 the JAX ``vmem_attention`` hands the call to its XLA ``sdpa``,
-which normalises p before rounding it for the PV product; the port runs K5 at
-every N (p rounded unnormalised, ``/ l`` last). In f32 the two agree to
-~4e-7; in bf16 both roundings have the same relative precision, and JAX's own
-two routes differ by the same amount.
+N % 128 != 0 the JAX ``vmem_attention`` and ``splash_attention`` hand the
+call to XLA ``sdpa``, which normalises p before rounding it for the PV
+product; the port runs K5 at such N (p rounded unnormalised, ``/ l``
+last). In f32 the two agree to ~4e-7; in bf16 both roundings have the same
+relative precision, and JAX's own two routes differ by the same amount.
 """
 
 from __future__ import annotations
@@ -60,13 +73,10 @@ def vmem_attention_plain(q, k, v, mask=None):
     return torch.stack(outs)
 
 
-def vmem_attention(q, k, v, mask=None):
-    """q, k, v [B, H, N, D]; mask [B, N] bool (True = keep) or None.
-    Returns [B, H, N, D] in q's dtype."""
-    if q.device.type == "cpu":
-        return vmem_attention_plain(q, k, v, mask)
+def _launch_bhnd(library: str, q, k, v, mask, scale: float):
+    """Check split-head q, k, v [B, H, N, D] and the mask on CUDA and launch
+    ``lemas_<library>`` (K5 or K6) on them; returns the output."""
     _cuda.require(q.device.type == "cuda", f"no kernel for device {q.device}")
-    _cuda.refuse_grad("vmem_attention (K5)", q, k, v)
     _cuda.require(q.dim() == 4, f"q must be [B, H, N, D], got {tuple(q.shape)}")
     B, H, N, D = q.shape
     _cuda.require(D in (64, 128),
@@ -80,22 +90,109 @@ def vmem_attention(q, k, v, mask=None):
                       and tuple(mask.shape) == (B, N) and mask.device == q.device,
                       "mask must be contiguous bool [B, N] on q's device")
     out = torch.empty_like(q)
-    err = _cuda.library("attention_bhnd").lemas_attention_bhnd(
+    err = getattr(_cuda.library(library), f"lemas_{library}")(
         q.device.index, _cuda.dtype_code(q), D, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if mask is None else mask.data_ptr(), out.data_ptr(), B, N, H, _f32_scale(D),
+        None if mask is None else mask.data_ptr(), out.data_ptr(), B, N, H, scale,
         _cuda.stream_ptr(q.device))
-    _cuda.check(err, "attention_bhnd")
+    _cuda.check(err, library)
+    return out
+
+
+def vmem_attention(q, k, v, mask=None):
+    """q, k, v [B, H, N, D]; mask [B, N] bool (True = keep) or None.
+    Returns [B, H, N, D] in q's dtype."""
+    if q.device.type == "cpu":
+        return vmem_attention_plain(q, k, v, mask)
+    _cuda.refuse_grad("vmem_attention (K5)", q, k, v)
+    out = _launch_bhnd("attention_bhnd", q, k, v, mask, _f32_scale(q.shape[-1]))
     launches.count(vmem_attention)
     return out
 
 
 vmem_attention.launches = 0
 
+SPLASH_BLOCK = 128  # splash's block size: other N go to sdpa in JAX, to K5 here
+SPLASH_MASKED = -0.7 * float(torch.finfo(torch.float32).max)  # splash's mask value
 
-def attention(q, k, v, mask=None):
-    """Split-head attention as the models call it (the JAX
-    ``attention(..., backend="vmem")``): K5."""
-    return vmem_attention(q, k, v, mask)
+
+def splash_q_scale(d: int, dtype: torch.dtype) -> float:
+    """1/sqrt(d) in q's dtype: the JAX wrapper multiplies q by a weakly typed
+    Python float, which takes q's dtype (bf16 0.08837890625 at d 128)."""
+    return float(torch.tensor(1.0 / math.sqrt(d), dtype=dtype))
+
+
+def splash_attention_plain(q, k, v, mask=None):
+    """K6's function in PyTorch, at splash's rounding points: q scaled and
+    rounded to its dtype, then f32 logits, softmax and PV (p never rounded),
+    ``o * (1 / l)``; query i sees key j iff ``mask[i] == mask[j]``."""
+    B, H, N, D = q.shape
+    cdt = q.dtype
+    qs = (q.float() * splash_q_scale(D, cdt)).to(cdt)
+    outs = []
+    for b in range(B):  # one batch row at a time bounds the [H, N, N] f32 scores
+        s = torch.matmul(qs[b].float(), k[b].float().transpose(-1, -2))
+        if mask is not None:
+            same = mask[b, :, None] == mask[b, None, :]
+            s = s.masked_fill(~same[None], SPLASH_MASKED)
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        l = p.sum(-1, keepdim=True)
+        outs.append((torch.matmul(p, v[b].float()) * (1.0 / l)).to(cdt))
+    return torch.stack(outs)
+
+
+def splash_attention(q, k, v, mask=None):
+    """q, k, v [B, H, N, D]; mask [B, N] bool (True = valid) or None (one
+    segment). Returns [B, H, N, D] in q's dtype. At N % 128 != 0 it computes
+    what JAX computes there (XLA ``sdpa``): K5, the key-mask kernel."""
+    if q.shape[-2] % SPLASH_BLOCK:
+        return vmem_attention(q, k, v, mask)
+    if q.device.type == "cpu":
+        return splash_attention_plain(q, k, v, mask)
+    _cuda.refuse_grad("splash_attention (K6)", q, k, v)
+    out = _launch_bhnd("attention_splash", q, k, v, mask, splash_q_scale(q.shape[-1], q.dtype))
+    launches.count(splash_attention)
+    return out
+
+
+splash_attention.launches = 0
+
+
+def sdpa(q, k, v, mask=None):
+    """The JAX package's XLA attention, the ``"xla"`` backend, in plain
+    PyTorch ops (no kernel of this package): f32 scores times ``1/sqrt(D)``,
+    padded keys -1e30, f32 softmax, p rounded to the compute dtype, PV
+    accumulated in f32."""
+    B, H, N, D = q.shape
+    cdt = q.dtype
+    scale = _f32_scale(D)
+    outs = []
+    for b in range(B):  # one batch row at a time bounds the [H, N, N] f32 scores
+        s = torch.matmul(q[b].float(), k[b].float().transpose(-1, -2)) * scale
+        if mask is not None:
+            s = s.masked_fill(~mask[b, None, None, :], NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        outs.append(torch.matmul(p.to(cdt).float(), v[b].float()).to(cdt))
+    return torch.stack(outs)
+
+
+BACKENDS = ("vmem", "splash", "xla")
+
+
+def check_backend(backend: str) -> str:
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown attention backend {backend!r}; expected one of {BACKENDS}")
+    return backend
+
+
+def attention(q, k, v, mask=None, backend: str = "vmem"):
+    """Split-head attention as the models call it (the JAX ``attention``):
+    ``"vmem"`` K5, ``"splash"`` K6, ``"xla"`` plain ``sdpa``."""
+    if backend == "vmem":
+        return vmem_attention(q, k, v, mask)
+    if backend == "splash":
+        return splash_attention(q, k, v, mask)
+    check_backend(backend)
+    return sdpa(q, k, v, mask)
 
 
 def nhd_supported(heads: int, dim_head: int, n: int, qk_norm=None, pe_attn_head=None,

@@ -22,7 +22,8 @@ def counters() -> dict:
 
     return {"qkv_block": ffn.qkv_block, "vmem_attention_nhd": attention.vmem_attention_nhd,
             "vmem_attention_nhd_pack": attention.vmem_attention_nhd_pack,
-            "vmem_attention": attention.vmem_attention, "ffn_block": ffn.ffn_block}
+            "vmem_attention": attention.vmem_attention,
+            "splash_attention": attention.splash_attention, "ffn_block": ffn.ffn_block}
 
 
 def count(wrapper) -> None:

@@ -12,9 +12,9 @@ mel-ized with the config's frontend. Reported: mel MSE/MAE and MCD
 (DTW-aligned with ``--dtw``), speaker cosine (with ``--speaker_ckpt``, a
 torch file of a ``models.speaker.SpeakerEncoder`` state dict at the default
 channel widths; its input and embedding widths are read from the file),
-WER/CER (with transcripts). ``--asr`` raises
-``NotImplementedError``: ASR is not ported. Runs on CUDA unless
-``--device cpu``.
+WER/CER (with transcripts; ``--asr`` transcribes a hyp WAV that has no
+``hyp_text`` with Whisper, ``infer/asr.py``, on ``--device``). Runs on CUDA
+unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -38,14 +38,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--speaker_ckpt", type=str, default="",
                    help="SpeakerEncoder state dict (torch file) for speaker cosine.")
     p.add_argument("--asr", action="store_true",
-                   help="Transcribe hyp wavs for WER/CER (not ported: raises).")
+                   help="Transcribe hyp wavs for WER/CER when hyp_text is absent.")
     p.add_argument("--device", type=str, default=None,
                    help="cuda (default) or cpu; never falls back to another device.")
     return p
 
 
 def _load_mel(path: str, frontend, sr_expect: int, device):
-    """wav or .npy -> [T, D] float32 numpy log-mel."""
+    """wav or .npy -> ([T, D] float32 numpy log-mel, the wave at
+    ``sr_expect`` or None for a mel)."""
     import numpy as np
     import torch
 
@@ -56,7 +57,7 @@ def _load_mel(path: str, frontend, sr_expect: int, device):
         D = frontend.n_mel_channels  # the mel axis; a square passes as [T, D]
         if m.shape[0] == D and m.shape[1] != D:
             m = m.T
-        return np.asarray(m, np.float32)
+        return np.asarray(m, np.float32), None
     from lemas_tts_tpu_torch.ops.resample import resample
     from lemas_tts_tpu_torch.utils.audio_io import read_audio
 
@@ -66,13 +67,11 @@ def _load_mel(path: str, frontend, sr_expect: int, device):
     w = torch.as_tensor(np.asarray(wav, np.float32), device=device)
     if sr != sr_expect:
         w = resample(w, sr, sr_expect)
-    return frontend(w[None])[0].T.float().cpu().numpy()
+    return frontend(w[None])[0].T.float().cpu().numpy(), w.cpu().numpy()
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.asr:
-        raise NotImplementedError("--asr: speech recognition is not ported: ROADMAP item A4")
 
     import numpy as np
     import torch
@@ -113,8 +112,8 @@ def main(argv=None) -> int:
 
     per_utt = []
     for rec in rows:
-        ref_mel = _load_mel(rec["ref"], frontend, ms.target_sample_rate, device)
-        hyp_mel = _load_mel(rec["hyp"], frontend, ms.target_sample_rate, device)
+        ref_mel, _ = _load_mel(rec["ref"], frontend, ms.target_sample_rate, device)
+        hyp_mel, hyp_wav = _load_mel(rec["hyp"], frontend, ms.target_sample_rate, device)
         t = min(len(ref_mel), len(hyp_mel))
         r = {"ref": rec["ref"], "hyp": rec["hyp"],
              "mel_mse": float(mel_mse(ref_mel[None, :t], hyp_mel[None, :t])),
@@ -123,6 +122,10 @@ def main(argv=None) -> int:
         if spk is not None:
             r["speaker_cos"] = spk(ref_mel, hyp_mel)
         text, hyp_text = rec.get("text"), rec.get("hyp_text")
+        if text is not None and hyp_text is None and args.asr and hyp_wav is not None:
+            from lemas_tts_tpu_torch.infer.asr import transcribe
+
+            hyp_text = transcribe((hyp_wav, ms.target_sample_rate), device=device)
         if text is not None and hyp_text is not None:
             r["wer"] = wer(text, hyp_text)
             r["cer"] = cer(text, hyp_text)

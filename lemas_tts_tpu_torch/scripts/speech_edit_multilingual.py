@@ -9,6 +9,8 @@ A single WAV or a directory of WAVs, each paired with ``<basename>.json`` in
         --align_dir align/ --save_dir out/ --vocab_file vocab.txt
 
 It runs on CUDA; ``--device cpu`` runs it on the CPU, with no fallback.
+``--attn_backend`` (``vmem``, ``splash``, ``xla``) picks the attention route
+of the edit's sampler, as in the TTS CLI.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import os
 import sys
 import time
 from typing import List, Optional, Tuple
+
+from lemas_tts_tpu_torch.scripts.tts_multilingual import add_attn_backend, build_tts
 
 
 def build_tokens_from_text(tts, text: str) -> List[str]:
@@ -123,13 +127,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default=None,
                    help="cuda | cpu (default: cuda; never falls back to the CPU).")
     p.add_argument("--compute_dtype", type=str, default=None)
-    p.add_argument("--attn_backend", type=str, default=None)
+    add_attn_backend(p)
     return p
 
 
 def main(argv=None) -> int:
-    from lemas_tts_tpu_torch.scripts.tts_multilingual import build_tts
-
     args = build_parser().parse_args(argv)
     tts = build_tts(args)
     seed = args.seed if args.seed >= 0 else None

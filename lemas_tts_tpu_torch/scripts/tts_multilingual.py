@@ -39,7 +39,8 @@ def build_parser() -> argparse.ArgumentParser:
     # inputs / outputs
     p.add_argument("--ref_audio", type=str, required=True, help="Reference WAV file.")
     p.add_argument("--ref_text", type=str, required=True,
-                   help="Reference transcript ('' needs ASR: not ported yet, refused).")
+                   help="Reference transcript ('' transcribes the reference with Whisper, "
+                        "which needs the transformers package).")
     p.add_argument("--text", type=str, required=True, help="Text to synthesize.")
     p.add_argument("--output_wave", type=str, default="output.wav")
     p.add_argument("--output_spec", type=str, default="",
@@ -76,23 +77,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="cuda | cpu (default: cuda; never falls back to the CPU).")
     p.add_argument("--compute_dtype", type=str, default=None,
                    choices=[None, "bfloat16", "float32"])
-    p.add_argument("--attn_backend", type=str, default=None,
-                   help="JAX attention backend choice (no counterpart here: refused).")
+    add_attn_backend(p)
     return p
 
 
-def refuse_unported(args) -> None:
-    """Raise ``NotImplementedError`` naming the first flag of ``args`` that
-    asks for a feature the port does not have yet (other CLIs share this
-    with their own parsers, hence ``hasattr``)."""
-    unported = [
-        (args.attn_backend is not None, "--attn_backend (the JAX attention backends)"),
-        (hasattr(args, "ref_text") and not args.ref_text.strip(),
-         "an empty --ref_text (ASR transcription of the reference)"),
-    ]
-    for asked, feature in unported:
-        if asked:
-            raise NotImplementedError(f"{feature} is not ported to PyTorch yet")
+def add_attn_backend(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--attn_backend", type=str, default=None, choices=["vmem", "splash", "xla"],
+                   help="Attention backend (default vmem): vmem runs the fused kernels "
+                        "(K1-K3, K5), splash the split-head chain on the splash kernel (K6), "
+                        "xla plain PyTorch attention with no kernel of this package.")
 
 
 def build_tts(args):
@@ -100,7 +93,6 @@ def build_tts(args):
     another device."""
     from lemas_tts_tpu_torch.api import TTS
 
-    refuse_unported(args)
     return TTS(model=args.model, ckpt_file=args.ckpt_file, vocab_file=args.vocab_file,
                ode_method=args.ode_method, use_ema=args.use_ema,
                vocoder_local_path=args.vocoder_local_path,
@@ -108,7 +100,7 @@ def build_tts(args):
                prosody_cfg_path=args.prosody_cfg_path, prosody_ckpt_path=args.prosody_ckpt_path,
                device=args.device,
                frontend=None if args.frontend == "none" else args.frontend,
-               compute_dtype=args.compute_dtype)
+               compute_dtype=args.compute_dtype, attn_backend=args.attn_backend)
 
 
 def denoise_reference(args) -> str | None:
@@ -132,7 +124,6 @@ def denoise_reference(args) -> str | None:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     seed = args.seed if args.seed >= 0 else random.randint(0, 2 ** 31 - 1)
-    refuse_unported(args)
     ref_audio = args.ref_audio
     if args.denoise:
         ref_audio = denoise_reference(args)

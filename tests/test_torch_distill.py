@@ -200,7 +200,7 @@ def _get(port, path):
     return resp.status, json.loads(body)
 
 
-def test_train_distill_tts_evaluate_chain(tmp_path):
+def test_train_distill_tts_evaluate_chain(tmp_path, monkeypatch):
     from lemas_tts_tpu_torch import TTS
     from lemas_tts_tpu_torch.models.speaker import SpeakerConfig, SpeakerEncoder
     from lemas_tts_tpu_torch.scripts import distill, evaluate, serve_http, train
@@ -290,5 +290,13 @@ def test_train_distill_tts_evaluate_chain(tmp_path):
     assert summary["n_utterances"] == 2 and summary["wer"] == 0.0
     for k in ("mel_mse", "mel_mae", "mcd_db", "speaker_cos"):
         assert np.isfinite(summary[k]), k
-    with pytest.raises(NotImplementedError, match="A4"):
-        evaluate.main(["--manifest", str(manifest), "--asr", "--device", "cpu"])
+    # --asr transcribes only a hyp WAV without a hyp_text: every row here has one
+    from lemas_tts_tpu_torch.infer import asr
+
+    def no_asr(*_, **__):
+        raise AssertionError("evaluate --asr transcribed a row that has a hyp_text")
+
+    monkeypatch.setattr(asr, "transcribe", no_asr)
+    assert evaluate.main(["--manifest", str(manifest), "--config", TINY, "--out", str(out),
+                          "--asr", "--device", "cpu"]) == 0
+    assert json.loads(out.read_text())["wer"] == 0.0

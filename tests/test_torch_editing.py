@@ -8,10 +8,10 @@ JAX package on the CPU.
   passed as the port's ``noise_override``: the mel agrees within 2e-4 of its
   peak (f32), and its kept frames equal the cond mel bit for bit.
 - The CLIs run end to end with ``--device cpu``, fail without CUDA when no
-  device is given, refuse each unported flag with ``NotImplementedError``,
-  and pass ``--block_cache`` and ``--ode_method midpoint`` to the sampler as
-  the JAX CLIs do; ``--denoise --uvr5_model`` cleans the reference as the
-  JAX CLI does.
+  device is given, and pass ``--block_cache``, ``--ode_method midpoint``,
+  the prosody flags, ``--attn_backend`` and an empty ``--ref_text`` (ASR)
+  on as the JAX CLIs do; ``--denoise --uvr5_model`` cleans the reference as
+  the JAX CLI does.
 - 24-bit and float32 WAV (and EXTENSIBLE headers) read equal to the JAX
   package's WAV decoder, ``audioproc_wav_decode`` of ``native/audioproc.cpp``,
   which the test compiles into its own directory.
@@ -238,14 +238,17 @@ def test_cli_without_cuda_fails(pair, cli):
     ("edit", ["--use_prosody_encoder"], "prosody"),
     ("edit", ["--attn_backend", "xla"], "attn_backend")])
 def test_cli_refuses_unported_flags(pair, cli, flags, feature, monkeypatch):
-    """Flags of what is not ported raise ``NotImplementedError`` naming it.
-    ``--block_cache``, ``--ode_method midpoint`` and the prosody flags
-    (``--enable_prosody_encoder`` / ``--use_prosody_encoder``), once refused,
-    are ported: the CLI runs end to end on the CPU, and hands the sampler the
-    settings the JAX CLI hands its sampler for the same flags. The prosody
-    runs take a Pretssel config at narrow widths (``--prosody_cfg_path``) in
-    both packages, and the port's synthesizer then conditions on prosody.
-    ``--denoise``, once refused, is ported: see ``_denoise_case``."""
+    """Every flag here, once refused, is ported: the CLI runs end to end on
+    the CPU, and hands the sampler the settings the JAX CLI hands its
+    sampler for the same flags (``--block_cache``, ``--ode_method
+    midpoint``, the prosody flags ``--enable_prosody_encoder`` /
+    ``--use_prosody_encoder``), the attention backend its JAX model gets
+    (``--attn_backend``), or the reference units of the same transcript
+    (an empty ``--ref_text``: both packages' ``transcribe`` are replaced by
+    one stub, which must see the same reference audio). The prosody runs
+    take a Pretssel config at narrow widths (``--prosody_cfg_path``) in both
+    packages, and the port's synthesizer then conditions on prosody.
+    ``--denoise`` is ported too: see ``_denoise_case``."""
     _edit_dirs(pair[2])
     main, args = _cli_args(pair[2], cli)
     argv = args + flags + ["--device", "cpu", "--nfe_step", "2"]
@@ -261,10 +264,22 @@ def test_cli_refuses_unported_flags(pair, cli, flags, feature, monkeypatch):
             "prosody_global_context": True, "prosody_groups": [1, 1, 1, 1],
             "prosody_embed_dim": 512, "input_feat_per_channel": 80}}))
         argv += ["--prosody_cfg_path", str(cfg)]
-    if feature not in ("block_cache", "midpoint", "prosody"):
-        with pytest.raises(NotImplementedError, match=feature):
-            main(argv)
-        return
+    heard = {}
+    if feature == "ASR":
+        from lemas_tts_tpu.infer import asr as jasr
+        from lemas_tts_tpu.infer import preprocess as jpreprocess
+        from lemas_tts_tpu_torch.infer import asr, preprocess
+
+        def stub(side):
+            def transcribe(ref_audio, language=None, device=None):
+                heard[side] = ref_audio
+                return "abc def"
+            return transcribe
+
+        monkeypatch.setattr(asr, "transcribe", stub("port"))
+        monkeypatch.setattr(jasr, "transcribe", stub("jax"))
+        monkeypatch.setattr(preprocess, "_ref_audio_cache", {})
+        monkeypatch.setattr(jpreprocess, "_ref_audio_cache", {})
     from lemas_tts_tpu.infer import editing as jediting_mod
     from lemas_tts_tpu.infer.pipeline import Synthesizer as JSynthesizer
     from lemas_tts_tpu.scripts import speech_edit_multilingual as jedit_cli
@@ -278,7 +293,7 @@ def test_cli_refuses_unported_flags(pair, cli, flags, feature, monkeypatch):
 
     def spy(key, fn=None):
         def wrapped(*a, **kw):
-            seen[key], seen[f"{key} synth"] = kw["cfg"], a[0]
+            seen[key], seen[f"{key} synth"], seen[f"{key} units"] = kw["cfg"], a[0], a[1:4]
             if fn is None:  # the JAX side: the settings are all it is asked for
                 raise Seen
             return fn(*a, **kw)
@@ -302,10 +317,22 @@ def test_cli_refuses_unported_flags(pair, cli, flags, feature, monkeypatch):
               "ode_method", "use_prosody_encoder")
     got = {f: getattr(seen["port"], f) for f in fields}
     assert got == {f: getattr(seen["jax"], f) for f in fields}
-    field, value = {"block_cache": ("block_cache", "0-2:2"),
-                    "midpoint": ("ode_method", "midpoint"),
-                    "prosody": ("use_prosody_encoder", True)}[feature]
-    assert got[field] == value
+    if feature == "attn_backend":
+        backend = flags[1]
+        assert seen["jax synth"].dit_model.attn_backend == backend
+        assert {b.attn.attn_backend for b in seen["port synth"].dit_model.transformer_blocks} \
+            == {backend}
+    elif feature == "ASR":
+        (pw, psr), (jw, jsr) = heard["port"], heard["jax"]
+        np.testing.assert_array_equal(pw, jw)
+        assert psr == jsr == 8000
+        units = seen["port units"][2]  # the phone units of "abc def. "
+        assert units == seen["jax units"][2] and units[0] == "(en)" and len(units) > 4
+    else:
+        field, value = {"block_cache": ("block_cache", "0-2:2"),
+                        "midpoint": ("ode_method", "midpoint"),
+                        "prosody": ("use_prosody_encoder", True)}[feature]
+        assert got[field] == value
     assert seen["port synth"].uses_prosody(seen["port"]) == (feature == "prosody")
     out = pair[2] / ("x.wav" if cli == "tts" else "x/utt1.wav")
     w, sr = read_audio(str(out))

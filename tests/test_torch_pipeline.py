@@ -111,8 +111,27 @@ def test_chunk_text_and_cross_fade():
     assert len(out) == 180 and (np.diff(out[80:100]) <= 0).all()
 
 
-def test_empty_ref_text_needs_asr(pair):
+def test_empty_ref_text_needs_asr(pair, monkeypatch):
+    """An empty ``ref_text`` needs ASR, which is ported (``infer/asr.py``):
+    without ``transformers`` it raises an ``ImportError`` naming it, with no
+    fallback; an injected ``transcribe_fn`` supplies the text, which the
+    request then uses as the JAX package's does."""
+    import sys
+
+    from lemas_tts_tpu_torch.infer import asr, preprocess
+
     _, tts, _ = pair
     ref = (np.ones(8000, np.float32), 8000)
-    with pytest.raises(NotImplementedError, match="ASR"):
+    monkeypatch.setattr(asr, "_asr_pipe", None)
+    monkeypatch.setattr(preprocess, "_ref_audio_cache", {})
+    monkeypatch.setitem(sys.modules, "transformers", None)
+    with pytest.raises(ImportError, match="transformers"):
         tts.infer(ref, "", "hello", nfe_step=2, show_info=lambda *_: None)
+    heard, units = [], []
+    run = tts.synth.synthesize_chunks
+    monkeypatch.setattr(tts.synth, "synthesize_chunks",
+                        lambda *a, **kw: units.append(a[2]) or run(*a, **kw))
+    wave, sr, _ = tts.infer(ref, "", "hello", nfe_step=2, seed=0, show_info=lambda *_: None,
+                            transcribe_fn=lambda w, r: heard.append(r) or "general kenobi")
+    assert heard == [8000] and units == ["general kenobi. "]
+    assert sr == 8000 and wave.size > 0 and np.isfinite(wave).all()

@@ -37,7 +37,7 @@ def test_import_leaves_jax_out():
         " 'uvr5.mdxnet', 'uvr5.inference', 'uvr5.onnx_weights', 'uvr5.band_params',"
         " 'uvr5.spec_utils', 'uvr5.pyrb', 'uvr5.vr_network', 'uvr5.vr_legacy', 'cfm.loss',"
         " 'cfm.train', 'cfm.data', 'cfm.checkpoint', 'cfm.distill', 'models.speaker',"
-        " 'eval.metrics', 'scripts.train', 'scripts.distill', 'scripts.evaluate'):\n"
+        " 'eval.metrics', 'scripts.train', 'scripts.distill', 'scripts.evaluate', 'infer.asr'):\n"
         "    assert 'lemas_tts_tpu_torch.' + sub in names, sub\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
@@ -90,6 +90,23 @@ def test_entry_points_match_c_sources():
         want = {name: [kinds[t] for t in argtypes]
                 for name, argtypes in _cuda.ENTRY_POINTS[lib].items()}
         assert entries == want, lib
+
+
+def test_refusals_left_are_the_multi_gpu_flags():
+    """The attention backends and ASR are ported: the one ``refuse_unported``
+    left is ``scripts/train.py``'s (multi-GPU flags), and no
+    ``NotImplementedError`` of the port names ``--attn_backend`` or an empty
+    ``ref_text``."""
+    defs = []
+    for path in sorted(PKG.rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.FunctionDef) and node.name == "refuse_unported":
+                defs.append(path.relative_to(PKG).as_posix())
+            if (isinstance(node, ast.Raise) and isinstance(node.exc, ast.Call)
+                    and getattr(node.exc.func, "id", "") == "NotImplementedError"):
+                text = ast.unparse(node.exc)
+                assert "attn_backend" not in text and "ref_text" not in text, (path, text)
+    assert defs == ["scripts/train.py"]
 
 
 def test_tts_without_cuda_raises():

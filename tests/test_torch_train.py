@@ -105,15 +105,17 @@ def jparams():
 # --------------------------------------------------------------- grad guard
 @pytest.mark.parametrize("wrapper", [ffn.qkv_block, ffn.ffn_block, attention.vmem_attention,
                                      attention.vmem_attention_nhd,
-                                     attention.vmem_attention_nhd_pack])
+                                     attention.vmem_attention_nhd_pack,
+                                     attention.splash_attention])
 def test_kernel_wrappers_refuse_grad(wrapper):
     """Each CUDA kernel wrapper calls ``_cuda.refuse_grad`` on its inputs on
     the CUDA route, before it launches (its source says so; the card is
-    checked by ``chip_smoke.py``), and the CPU route above it is unchanged."""
+    checked by ``chip_smoke.py``), and the CPU route above it is unchanged.
+    K5 and K6 launch through their shared ``_launch_bhnd``."""
     src = inspect.getsource(wrapper)
     cpu_at = src.index('device.type == "cpu"')
     guard_at = src.index("_cuda.refuse_grad(")
-    launch_at = max(src.find("_cuda.library("), src.find("_launch_nhd("))
+    launch_at = max(src.find(f) for f in ("_cuda.library(", "_launch_nhd(", "_launch_bhnd("))
     assert cpu_at < guard_at < launch_at, wrapper.__name__
 
 
