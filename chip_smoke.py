@@ -126,7 +126,20 @@ Phases, in order (any failure raises; the exit code is then non-zero):
      with ``transformers`` absent or hidden, ``TTS.infer`` raises an
      ``ImportError`` naming it and runs nothing; two requests on one
      reference call an injected ``transcribe_fn`` once (the md5 cache),
-     K1-K3 depth x 32 each a request.
+     K1-K3 depth x 32 each a request;
+ 17. mesh: multi-GPU serving on one card, an NCCL job of one process set up
+     from torchrun's variables (``parallel.distributed.initialize``): the
+     flagship unmeshed, on a data mesh (``TTS(mesh=make_mesh())``: K1-K3
+     depth x 32 a request, mels bit-equal to the unmeshed ones, B 1 and a
+     B 8 batch); the sequence-parallel sampler on a seq mesh
+     (``make_seq_mesh(seq_parallel=1)``: ring attention and the conv halo,
+     K2 only, depth x 32) on the unmeshed request's sampler inputs, its mel
+     within ``MESH_REL_L2`` of the unmeshed sampler's; the same sampler at
+     depth 2 in f32 against ``sample_mel``; ``serve_http --multihost``
+     in-process (its warm-up and a dispatch-path warm-up batch through the
+     broadcast, a wave of 8 ``/tts`` as one batch, a ``/tts_stream``,
+     ``/stats``' multihost block in lockstep); ``denoise --data_parallel``
+     equal to the plain run. The phase destroys its process group.
 On CUDA every request's sampler is a graph replay (its first request of a
 bucket runs eagerly and captures), so every count above is launches on the
 card. The line before the last is the ``kernels`` JSON record; the last line
@@ -2831,6 +2844,350 @@ def phase_asr(dev: dict) -> dict:
     return totals
 
 
+MESH_REL_L2 = {"bf16": 2e-2, "f32": 1e-4}  # seq mesh against the unmeshed mel (ring vs K3)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _mesh_requests(tts, label: str, kernels, dev: dict, ref_path: str) -> tuple:
+    """A warm-up and two timed B = 1 requests (seeds 0-2), each launching
+    every kernel of ``kernels`` depth x 32 times and no other; returns the
+    launch counts, the mels, the timed walls and the last request's sampler
+    call ``(settings, inputs, mel)``."""
+    import numpy as np
+    import torch
+
+    want = expected_launches(kernels, tts.config.arch.depth * 32)
+    synth, sampler_call = tts.synth, []
+    run_sampler = synth.run_sampler
+
+    def spy(settings, *inputs):
+        out = run_sampler(settings, *inputs)
+        sampler_call[:] = [settings, inputs, out]
+        return out
+
+    synth.run_sampler = spy
+    reset_counters()
+    mels, walls = [], []
+    for i in range(3):
+        before = read_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wave, _, spec = tts.infer(ref_path, REF_TEXT, GEN_TEXT, seed=i,
+                                  show_info=lambda *_: None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        grew = {k: v - before[k] for k, v in read_counters().items()}
+        check(wave.size > 0 and bool(np.isfinite(wave).all()) and spec.shape[0] == 100,
+              f"{label}: wave or mel bad")
+        check(grew == want, f"{label}: launches per request {grew}, expected {want}")
+        mels.append(spec)
+        if i:
+            walls.append(wall)
+        print(f"[mesh] {label} B 1 request {i} ({'warm-up, captures' if i == 0 else 'timed'}): "
+              f"{wave.size / 24000:.3f} audio-s in {wall:.3f} s on {dev['card']}; launches "
+              f"{grew}", flush=True)
+    del synth.run_sampler
+    return read_counters(), mels, walls, sampler_call
+
+
+def phase_mesh(dev: dict) -> dict:
+    """Multi-GPU serving on one card: an NCCL job of one process, set up as
+    ``torchrun --nproc_per_node 1`` would (``parallel.distributed.initialize``
+    from ``MASTER_ADDR``/``MASTER_PORT``/``WORLD_SIZE``/``RANK``), the
+    flagship at full width (random weights, character vocab, bucket 1024)
+    unmeshed and on a ``("data", "model")`` mesh (``TTS(mesh=make_mesh())``):
+    B = 1 requests (K1-K3 depth x 32 each, the data mesh's mel equal to the
+    unmeshed one bit for bit) and a B = 8 ``synthesize_requests`` batch
+    (bit-equal). ``SequenceParallelSampler`` on a ``("data", "seq")`` mesh
+    (``make_seq_mesh(seq_parallel=1)``; a ``Synthesizer`` takes it only
+    where ``seq`` > 1, as JAX does) on the unmeshed request's sampler
+    inputs: K2 only, its mel within ``MESH_REL_L2`` bf16 of the unmeshed
+    sampler's (not profiled: torch.profiler takes ~50 s over the eager
+    call's ~70k kernels); the same sampler at depth 2 in f32 against
+    the unmeshed ``sample_mel``. ``serve_http --multihost`` in-process (its
+    warm-ups, a wave of 8 ``/tts``, a ``/tts_stream``, ``/stats``' multihost
+    block); ``denoise --data_parallel`` against the plain run (a tiny MDX
+    net). Returns the launch counts of the counted runs."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from lemas_tts_tpu_torch import TTS
+    from lemas_tts_tpu_torch.api import seeded_init
+    from lemas_tts_tpu_torch.cfm.sampler import SamplerSettings, sample_mel, sway_time_grid
+    from lemas_tts_tpu_torch.config import SamplerConfig, load_model_config
+    from lemas_tts_tpu_torch.models.dit import DiT
+    from lemas_tts_tpu_torch.parallel.distributed import initialize
+    from lemas_tts_tpu_torch.parallel.mesh import make_mesh
+    from lemas_tts_tpu_torch.parallel.sequence import SequenceParallelSampler, make_seq_mesh
+    from lemas_tts_tpu_torch.utils.audio_io import read_audio, write_wav
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()), WORLD_SIZE="1",
+                      RANK="0", LOCAL_RANK="0")
+    check(initialize(), "initialize() did not join the job")
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          f"the job runs {dist.get_backend()} over {dist.get_world_size()} processes")
+    totals = dict.fromkeys(kernel_counters(), 0)
+    with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as job:
+        job.callback(dist.destroy_process_group)
+        d = Path(tmp)
+        vocab = d / "vocab.txt"
+        vocab.write_text("\n".join(CHAR_VOCAB) + "\n")
+        ref_path = str(d / "ref.wav")
+        write_wav(ref_path, _reference_wave(16000, 3.0, seed=0), 16000)
+        kw = dict(model="multilingual", vocab_file=str(vocab), frontend=None)
+        t0 = time.perf_counter()
+        ttss = {"unmeshed": TTS(**kw), "data mesh": TTS(**kw, mesh=make_mesh())}
+        print(f"[mesh] NCCL job of 1 process up, two flagship TTS built in "
+              f"{time.perf_counter() - t0:.1f} s; mesh {ttss['data mesh'].synth.mesh}",
+              flush=True)
+        runs = {}
+        for label in ("unmeshed", "data mesh"):
+            launches, *runs[label] = _mesh_requests(ttss[label], label, FLAGSHIP_KERNELS, dev,
+                                                    ref_path)
+            if label != "unmeshed":
+                totals = {k: totals[k] + launches[k] for k in totals}
+        base, base_walls, (settings, inputs, base_out) = runs["unmeshed"]
+        same = all(np.array_equal(a, b) for a, b in zip(runs["data mesh"][0], base))
+        print(f"[mesh] B 1 timed requests: data mesh {np.mean(runs['data mesh'][1]):.4f} s "
+              f"against unmeshed {np.mean(base_walls):.4f} s (mean of 2, NFE 32, CFG 2, bucket "
+              f"1024) on {dev['card']}; mels bit-equal to the unmeshed ones: {same}", flush=True)
+        check(same, "the data mesh's mel is not the unmeshed one")
+
+        # the sequence-parallel sampler on the unmeshed request's sampler
+        # inputs (the same noise), against the unmeshed sampler's mel
+        synth = ttss["unmeshed"].synth
+        seq = SequenceParallelSampler(synth.dit_model, settings, make_seq_mesh(seq_parallel=1))
+        want = expected_launches(("ffn_block",), ttss["unmeshed"].config.arch.depth * 32)
+        reset_counters()
+        walls = {"seq": [], "unmeshed": []}
+        for i in range(3):
+            before = read_counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = seq(*inputs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            grew = {k: v - before[k] for k, v in read_counters().items()}
+            err = rel_l2(got, base_out)
+            print(f"[mesh] seq mesh sampler call {i} (eager, bf16, B 1, bucket 1024, NFE 32, "
+                  f"CFG 2): {wall:.3f} s on {dev['card']}; rel-L2 {err:.3e} against the "
+                  f"unmeshed sampler (ring attention vs K3); launches {grew}", flush=True)
+            check(grew == want, f"seq mesh sampler: launches {grew}, expected {want}")
+            check(bool(torch.isfinite(got).all()) and err <= MESH_REL_L2["bf16"],
+                  f"seq mesh sampler rel-L2 {err}")
+            if i:
+                walls["seq"].append(wall)
+        totals = {k: totals[k] + v for k, v in read_counters().items()}
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            synth.run_sampler(settings, *inputs)
+            torch.cuda.synchronize()
+            walls["unmeshed"].append(time.perf_counter() - t0)
+        print(f"[mesh] sampler calls: seq mesh {np.mean(walls['seq']):.4f} s (eager) against "
+              f"unmeshed {np.mean(walls['unmeshed']):.4f} s (graph replay; mean of 2 each) on "
+              f"{dev['card']}", flush=True)
+
+        wav, sr = read_audio(ref_path)
+        reqs = [dict(ref_wav=wav.mean(axis=0), ref_sr=sr, ref_units=REF_TEXT,
+                     gen_units=GEN_TEXT, seed=i) for i in range(8)]
+        cfg = SamplerConfig(nfe_steps=32, cfg_strength=2.0)
+        b8 = {}
+        for label in ("unmeshed", "data mesh"):
+            synth = ttss[label].synth
+            synth.synthesize_requests(reqs, cfg=cfg)  # eager run and capture of the B 8 graph
+            reset_counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = synth.synthesize_requests(reqs, cfg=cfg)
+            torch.cuda.synchronize()
+            b8[label] = (out, time.perf_counter() - t0, read_counters())
+            if label != "unmeshed":
+                totals = {k: totals[k] + v for k, v in b8[label][2].items()}
+            print(f"[mesh] {label} B 8 synthesize_requests (graph replay): "
+                  f"{sum(w.size for w, _, _ in out) / 24000:.3f} audio-s in {b8[label][1]:.3f} s "
+                  f"on {dev['card']}; launches {b8[label][2]}", flush=True)
+        want8 = expected_launches(FLAGSHIP_KERNELS, ttss["unmeshed"].config.arch.depth * 32)
+        check(b8["data mesh"][2] == want8, f"data mesh B 8: launches {b8['data mesh'][2]}")
+        check(all(np.array_equal(a[2], b[2]) and np.array_equal(a[0], b[0])
+                  for a, b in zip(b8["data mesh"][0], b8["unmeshed"][0])),
+              "the data mesh's B 8 batch is not the unmeshed one")
+        print("[mesh] data mesh B 8 mels and waves bit-equal to the unmeshed ones: True",
+              flush=True)
+        del ttss
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the seq sampler at depth 2 in f32 (TF32 off) against the unmeshed
+        # sample_mel, cond-only steps (no velocity clamp)
+        mcfg = load_model_config("multilingual")
+        dit = seeded_init(lambda: DiT(dataclasses.replace(mcfg.arch, depth=2), mel_dim=100,
+                                      text_num_embeds=len(CHAR_VOCAB)), 0).cuda().eval()
+        st = SamplerSettings(steps=8, cfg_strength=0.0, sway_sampling_coef=1.0)
+        g = torch.Generator().manual_seed(5)
+        B, N = 1, 1024
+        x = dict(cond=torch.randn(B, N, 100, generator=g), cond_mask=torch.arange(N)[None] < 300,
+                 text_ids=torch.randint(0, len(CHAR_VOCAB), (B, 120), generator=g),
+                 duration=torch.tensor([900]), y0=torch.randn(B, N, 100, generator=g))
+        x = {k: v.cuda() for k, v in x.items()}
+        want = sample_mel(dit, **x, settings=st, time_grid=sway_time_grid(8, 1.0))
+        got = SequenceParallelSampler(dit, st, make_seq_mesh(seq_parallel=1))(**x)
+        err = rel_l2(got, want)
+        start = torch.where(x["cond_mask"][..., None], x["cond"], torch.where(
+            (torch.arange(N, device="cuda") < x["duration"][:, None])[..., None], x["y0"], 0.0))
+        moved = rel_l2(want, start)
+        print(f"[mesh] seq sampler at depth 2, f32, NFE 8, no CFG: rel-L2 {err:.3e} against "
+              f"the unmeshed sample_mel (bar {MESH_REL_L2['f32']}; the ODE moved the state "
+              f"{moved:.3f} rel-L2 from its start)", flush=True)
+        check(err <= MESH_REL_L2["f32"] and moved > 1e-2,
+              f"seq sampler f32 rel-L2 {err} (the state moved {moved})")
+        del dit
+
+        print(f"[mesh] {time.perf_counter() - t_phase:.1f} s into the phase", flush=True)
+        totals = {k: totals[k] + v for k, v in _mesh_serve(dev, vocab, ref_path).items()}
+        _mesh_denoise(dev, d)
+    print(f"[mesh] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return totals
+
+
+def _mesh_serve(dev: dict, vocab: Path, ref_path: str) -> dict:
+    """``serve_http --multihost`` in-process on the job of one: its warm-up
+    and a dispatch-path warm-up batch of 8 through the broadcast, a wave of
+    8 ``/tts`` (one batch of 8), a ``/tts_stream`` of 3 chunks, ``/stats``
+    with the multihost block. Returns the wave's launch counts."""
+    import io
+    import wave as wave_mod
+
+    import numpy as np
+
+    from lemas_tts_tpu_torch.scripts import serve_http
+
+    args = serve_http.build_parser().parse_args(
+        ["--port", "0", "--vocab_file", str(vocab), "--frontend", "none", "--max_batch", "8",
+         "--warmup_batches", "8", "--warmup_durations", "1024", "--multihost"])
+    ready, box, failed = threading.Event(), [], []
+
+    def run_server():
+        try:
+            serve_http.serve(args, ready_event=ready, server_box=box)
+        except BaseException as e:  # handed to the main thread below
+            failed.append(e)
+            ready.set()
+
+    t0 = time.perf_counter()
+    server = threading.Thread(target=run_server, daemon=True)
+    server.start()
+    check(ready.wait(600), "serve_http --multihost did not start")
+    if failed:
+        raise failed[0]
+    httpd, engine = box[0]
+    port = httpd.server_address[1]
+    engine.batcher.max_wait_us = 2_000_000  # one batch of 8 (see phase_serve)
+    try:
+        print(f"[mesh] serve_http --multihost ready (warm-ups included) in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        depth = len(engine.synth.synth.dit_model.transformer_blocks)
+        _, prefix, tail = serving_refresh_steps(serving_settings(engine.synth.synth))
+        per_batch = expected_launches(("vmem_attention_nhd",), (prefix + tail) * depth)
+        results = [None] * 8
+        start = threading.Barrier(9)
+
+        def client(i):
+            start.wait()
+            results[i] = _http(port, "POST", "/tts", dict(ref_path=ref_path, ref_text=REF_TEXT,
+                                                          text=GEN_TEXT, seed=i))
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(8)]
+        for t in threads:
+            t.start()
+        reset_counters()
+        start.wait()
+        t1 = time.perf_counter()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t1
+        got = read_counters()
+        audio = 0.0
+        for i, res in enumerate(results):
+            check(res is not None and res[0] == 200, f"/tts {i}: {res and res[:2]}")
+            with wave_mod.open(io.BytesIO(res[2]), "rb") as w:
+                pcm = np.frombuffer(w.readframes(w.getnframes()), "<i2")
+            check(pcm.size > 0 and np.abs(pcm).max() > 0, f"/tts {i}: silent")
+            audio += pcm.size / 24000
+        print(f"[mesh] multihost wave of 8 /tts: {audio:.3f} audio-s "
+              f"in {wall:.3f} s on {dev['card']}; launches {got}", flush=True)
+        check(got == per_batch, f"multihost wave: launches {got}, one batch of 8 {per_batch}")
+        t1 = time.perf_counter()
+        status, ctype, body = _http(port, "POST", "/tts_stream", dict(
+            ref_path=ref_path, ref_text=REF_TEXT, seed=5, chunk_batch=2,
+            text="the old lighthouse keeper walked home.\nthe fishing boats came in late.\n"
+                 "and the harbour lights went out."))
+        streamed = np.frombuffer(body, "<i2")
+        print(f"[mesh] multihost /tts_stream of 3 chunks: {status}, {streamed.size / 24000:.3f} "
+              f"audio-s in {time.perf_counter() - t1:.3f} s", flush=True)
+        check(status == 200 and streamed.size > 0 and np.abs(streamed).max() > 0,
+              f"/tts_stream: {status}")
+        status, _, body = _http(port, "GET", "/stats")
+        stats = json.loads(body)
+        mh = stats.get("multihost") or {}
+        print(f"[mesh] /stats batch sizes {stats['batch_sizes']}, multihost {mh}", flush=True)
+        # dispatches: the warm-up batch, the wave and the stream's mini-batches
+        check(status == 200 and mh.get("processes") == 1 and mh.get("in_lockstep") is True
+              and mh["per_process"][0]["dispatches"] >= 4
+              and mh["per_process"][0]["warmups"] == 1 and stats["batch_sizes"] == [8],
+              "/stats has no multihost block in lockstep with the warm-ups, or the wave was "
+              "not one batch")
+        status, _, body = _http(port, "GET", "/config")
+        check(status == 200 and json.loads(body)["multihost"] is True, "/config: multihost")
+    finally:
+        httpd.shutdown()
+        server.join(timeout=120)
+    check(not server.is_alive(), "serve_http --multihost did not stop")
+    return got
+
+
+def _mesh_denoise(dev: dict, d: Path) -> None:
+    """``scripts/denoise.main --data_parallel`` on the job of one against
+    the plain run: the same stems, bit for bit (a tiny MDX net at the full
+    7680-point STFT)."""
+    import numpy as np
+    import torch
+
+    from lemas_tts_tpu_torch.scripts import denoise as denoise_cli
+    from lemas_tts_tpu_torch.utils.audio_io import read_audio, write_wav
+    from lemas_tts_tpu_torch.uvr5.mdxnet import ConvTDFNet, MDXConfig, seeded_init_
+
+    pt = d / "mdx_tiny.pt"
+    torch.save(seeded_init_(ConvTDFNet(MDXConfig(dim_f=24, num_blocks=5, l=2, g=4, bn=2)),
+                            torch.Generator().manual_seed(0)).state_dict(), pt)
+    src = d / "dn_in"
+    src.mkdir()
+    write_wav(str(src / "clip.wav"), _reference_wave(24000, 5.0, seed=3), 24000)
+    outs = {}
+    for label, flag in (("plain", []), ("data_parallel", ["--data_parallel"])):
+        (written,), wall = _timed(lambda: denoise_cli.main(
+            ["-a", str(src), "-r", str(d / f"dn_{label}"), "-m", str(pt)] + flag))
+        outs[label] = read_audio(written)[0]
+        print(f"[mesh] denoise {label}: {outs[label].shape} in {wall:.2f} s on {dev['card']}",
+              flush=True)
+    same = np.array_equal(outs["plain"], outs["data_parallel"])
+    print(f"[mesh] denoise --data_parallel equal to the plain run: {same}", flush=True)
+    check(same, "denoise --data_parallel differs from the plain run")
+
+
 def main() -> int:
     if not (REPO / "lemas_tts_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -2850,7 +3207,7 @@ def main() -> int:
     graphed, profiles = phase_graph(dev)
     for more in (phase_frontend(dev), graphed, phase_serve(dev, profiles["eager"]),
                  phase_prosody(dev), phase_bigvgan(dev), phase_unett(dev), phase_uvr5(dev),
-                 phase_train(dev), phase_splash(dev), phase_asr(dev)):
+                 phase_train(dev), phase_splash(dev), phase_asr(dev), phase_mesh(dev)):
         launches = {k: launches[k] + more[k] for k in launches}
     kernels = [records[k] for k in ("qkv_block", "vmem_attention_nhd", "ffn_block",
                                      "vmem_attention_nhd_pack", "vmem_attention",

@@ -40,9 +40,16 @@ Differences from the JAX package:
  - ``transcribe`` (ASR, ``infer/asr.py``) runs Whisper through the
    ``transformers`` pipeline on this ``TTS``'s device, never on another;
    without ``transformers`` it raises ``ImportError``.
- - Not ported yet: native orbax checkpoints, ``mesh``,
-   ``hf://`` checkpoint URIs and ``export_wav(remove_silence=...)`` have no
-   keyword here, so passing one gives a ``TypeError``.
+ - ``mesh`` is a ``torch.distributed`` ``DeviceMesh`` (``parallel/mesh.py:
+   make_mesh``, ``parallel/sequence.py:make_seq_mesh``) of this ``TTS``'s
+   device type, one process per device: every process of the job builds the
+   same ``TTS`` and makes the same ``infer`` calls with the same inputs and
+   seeds (SPMD, as under ``torchrun``), and every process gets the whole
+   result. Batches shard over ``data``; on a ``("data", "seq")`` mesh each
+   utterance's sequence shards over ``seq`` (DiT only).
+ - Not ported yet: native orbax checkpoints, ``hf://`` checkpoint URIs and
+   ``export_wav(remove_silence=...)`` have no keyword here, so passing one
+   gives a ``TypeError``.
  - A missing checkpoint or vocoder gives random weights (seeded), as in the
    JAX package; reference ``.pt``/``.safetensors`` checkpoints and the
    published Vocos ``pytorch_model.bin`` load directly (same key names).
@@ -112,7 +119,7 @@ class TTS:
                  prosody_cfg_path: str = "", prosody_ckpt_path: str = "",
                  device: Optional[str] = None, frontend: Optional[str] = "phone",
                  compute_dtype: Optional[str] = None, quantization: Optional[str] = None,
-                 attn_backend: Optional[str] = None):
+                 attn_backend: Optional[str] = None, mesh=None):
         from functools import partial
 
         from lemas_tts_tpu_torch.infer.pipeline import Synthesizer
@@ -147,6 +154,8 @@ class TTS:
         self.seed: Optional[int] = None
 
         self.device = select_device(device)
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"a {mesh.device_type} mesh for a TTS on {self.device}")
         if compute_dtype is None:
             compute_dtype = "bfloat16" if self.device.type == "cuda" else "float32"
         dtype = torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32
@@ -235,7 +244,7 @@ class TTS:
             cast_matrices(m, dtype).to(self.device).eval()
         self.synth = Synthesizer(self.dit, self.vocoder, self.vocab, mel, device=self.device,
                                  prosody_encoder=self.prosody_encoder,
-                                 prosody_to_mel=self.prosody_to_mel)
+                                 prosody_to_mel=self.prosody_to_mel, mesh=mesh)
 
     @staticmethod
     def _build_vocoder(mel, dtype: torch.dtype, vocoder_local_path: Optional[str]):

@@ -238,25 +238,34 @@ def device_time_grid(time_grid: np.ndarray, device) -> torch.Tensor:
 
 @torch.no_grad()
 def sample_mel(model, *, cond, cond_mask, text_ids, duration, y0, time_grid,
-               settings: SamplerSettings, step_cond=None, prosody_text=None) -> torch.Tensor:
+               settings: SamplerSettings, step_cond=None, prosody_text=None,
+               text_embed_pair=None, attn_mask_override=None) -> torch.Tensor:
     """CFG flow from noise to mel. cond, y0 [B, N, D] f32; cond_mask [B, N]
     bool (True = kept frame); text_ids [B, nt] (-1 padded); duration [B];
     time_grid [steps+1] numpy; prosody_text [B, T_text, 512] or None.
     Returns [B, N, D] f32 with the kept frames pasted from ``cond``, and
     with ``settings.return_trajectory`` also the states after each step
-    ``[steps, B, N, D]``."""
+    ``[steps, B, N, D]``. ``text_embed_pair`` (cond, uncond text embeds;
+    uncond None without CFG) and ``attn_mask_override`` ``[B, N]`` let a
+    sequence-parallel caller (``parallel/sequence.py``) pass in, sharded,
+    what it computed once on the whole sequence."""
     B, N, _ = cond.shape
     keep = cond_mask[..., None]
     step_cond = torch.where(keep, cond if step_cond is None else step_cond, 0.0)
-    attn_mask = lens_to_mask(duration, N)
+    attn_mask = lens_to_mask(duration, N) if attn_mask_override is None else attn_mask_override
     y = torch.where(attn_mask[..., None], y0, 0.0).float()
-    te_cond = model.embed_text(text_ids, N, drop_text=False)
+    te_cond = (model.embed_text(text_ids, N, drop_text=False) if text_embed_pair is None
+               else text_embed_pair[0])
     grid = device_time_grid(time_grid, cond.device)
     dts = grid[1:] - grid[:-1]
 
     cfg_pack = None
     if settings.use_cfg:
-        te2 = torch.cat([te_cond, model.embed_text(text_ids, N, drop_text=True)], dim=0)
+        te_uncond = (model.embed_text(text_ids, N, drop_text=True) if text_embed_pair is None
+                     else text_embed_pair[1])
+        if te_uncond is None:
+            raise ValueError("CFG needs the uncond text embedding")
+        te2 = torch.cat([te_cond, te_uncond], dim=0)
         cond2 = torch.cat([step_cond, torch.zeros_like(step_cond)], dim=0)
         mask2 = torch.cat([attn_mask, attn_mask], dim=0)
         pt2 = (None if prosody_text is None

@@ -36,7 +36,8 @@ from lemas_tts_tpu_torch.cfm.loss import AccentClassifier, CTCHead, cfm_training
 from lemas_tts_tpu_torch.config import TrainConfig
 
 PROSODY_DIM = 512
-MULTI_GPU = "multi-GPU training (mesh, FSDP) is not ported: ROADMAP item A14"
+MULTI_GPU = ("multi-GPU training (mesh, FSDP) is not ported: ROADMAP item A14 (a); "
+             "pipeline parallelism is A14 (c)")
 
 
 def make_schedule(cfg: TrainConfig):

@@ -31,6 +31,17 @@ decoded mel: ``(frames - 1) * hop`` from Vocos' iSTFT head, ``frames * hop``
 from BigVGAN's conv stack; a BigVGAN mel has ``T // hop`` frames, a Vocos one
 ``T // hop + 1``.
 
+With a ``mesh`` (``parallel/``; every process of the job makes the same
+calls with the same inputs) the sampler runs data-parallel on a
+``("data", "model")`` mesh (each process its rows, on the card its own
+graph per bucket at the local batch, the mel ``all_gather``ed outside the
+graph; ``_pick_batch`` pads the batch to a multiple of ``data``) or
+sequence-parallel on a ``("data", "seq")`` mesh whose ``seq`` axis has more
+than one process (``parallel/sequence.py``; eager on the card:
+point-to-point sends inside a captured graph are not used); a ``seq`` axis
+of one is data-parallel, as in JAX. Every process then decodes the batch's real rows (as
+the unmeshed ``Synthesizer`` does), so the waves are the unmeshed ones.
+
 Intentional difference from the JAX package: the seeded initial noise comes
 from ``torch.Generator(device).manual_seed(seed)``, not ``jax.random``, so
 the same seed gives different noise in the two packages. Parity checks pin
@@ -44,7 +55,7 @@ import logging
 import os
 import re
 import threading
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -64,6 +75,8 @@ from lemas_tts_tpu_torch.config import MelSpecConfig, SamplerConfig
 from lemas_tts_tpu_torch.models.dit import PROSODY_DIM
 from lemas_tts_tpu_torch.ops.mel import MelFrontend
 from lemas_tts_tpu_torch.ops.resample import resample
+from lemas_tts_tpu_torch.parallel.mesh import axis_size, data_parallel
+from lemas_tts_tpu_torch.parallel.sequence import SequenceParallelSampler
 from lemas_tts_tpu_torch.utils.vocab import Vocab, pad_text_batch, text_to_ids
 
 logger = logging.getLogger(__name__)
@@ -230,11 +243,13 @@ class Synthesizer:
     """Owns the DiT, the vocoder and the vocab on one device, and, on CUDA,
     a locked cache of sampler graphs keyed as the JAX package's program
     cache is: the ``SamplerSettings`` and the (batch, duration, text)
-    bucket."""
+    bucket. ``mesh``: a ``DeviceMesh`` of the device's type, sequence-parallel
+    where its ``seq`` axis has more than one process, else data-parallel
+    over ``data``."""
 
     def __init__(self, dit_model, vocoder_model, vocab: Vocab,
                  mel_cfg: MelSpecConfig = MelSpecConfig(), device="cpu",
-                 prosody_encoder=None, prosody_to_mel=None):
+                 prosody_encoder=None, prosody_to_mel=None, mesh=None):
         self.dit_model = dit_model
         self.vocoder_model = vocoder_model
         self.prosody_encoder = prosody_encoder  # models/prosody.py:ProsodyEncoder
@@ -250,6 +265,13 @@ class Synthesizer:
         self._graph_pool = GraphPool()  # one memory pool for all of them
         self._graph_lock = threading.Lock()
         self._warned_cache_drop = False
+        self.mesh = mesh
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"a {mesh.device_type} mesh for a Synthesizer on {self.device}")
+        self._seq_parallel = mesh is not None and axis_size(mesh, "seq") > 1
+        self._batch_multiple = axis_size(mesh, "data") if mesh is not None else 1
+        self._samplers: Dict[SamplerSettings, Callable] = {}
+        self._sampler_lock = threading.Lock()
 
     # ---------------------------------------------------------------- sampler
     def _block_cache_kwargs(self, cfg: SamplerConfig) -> dict:
@@ -275,7 +297,10 @@ class Synthesizer:
                                **self._block_cache_kwargs(cfg))
 
     def _pick_batch(self, b: int) -> int:
-        return pick_bucket(b, BATCH_BUCKETS)
+        """The batch bucket, rounded up to a multiple of the mesh's ``data``
+        axis (JAX ``_batch_multiple``); the padded rows are dropped."""
+        m = self._batch_multiple
+        return -(-pick_bucket(b, BATCH_BUCKETS) // m) * m
 
     def _graph(self, settings: SamplerSettings, B: int, N: int, nt: int,
                prosody: bool = False) -> GraphedSampler:
@@ -293,19 +318,46 @@ class Synthesizer:
                     self.device, self._graph_pool, PROSODY_DIM if prosody else None)
         return g
 
+    def _local(self, settings: SamplerSettings):
+        """This process's sampler: on CUDA the bucket's graph (captured at
+        its first use), on the CPU ``sample_mel``."""
+        grid = sway_time_grid(settings.steps, settings.sway_sampling_coef, settings.t_start)
+
+        def run(cond, cond_mask, text_ids, duration, y0, step_cond=None, prosody_text=None):
+            if self.device.type == "cuda":
+                B, N, _ = cond.shape
+                return self._graph(settings, B, N, text_ids.shape[1], prosody_text is not None)(
+                    cond, cond_mask, text_ids, duration, y0, step_cond, prosody_text)
+            return sample_mel(self.dit_model, cond=cond, cond_mask=cond_mask, text_ids=text_ids,
+                              duration=duration, y0=y0, time_grid=grid, settings=settings,
+                              step_cond=step_cond, prosody_text=prosody_text)
+
+        return run
+
+    def _sampler(self, settings: SamplerSettings) -> Callable:
+        """``fn(cond, cond_mask, text_ids, duration, y0, step_cond,
+        prosody_text)`` for ``settings``: the whole mel on this process (JAX
+        ``_sampler``: the mesh's data- or sequence-parallel form)."""
+        fn = self._samplers.get(settings)
+        if fn is None:
+            with self._sampler_lock:
+                fn = self._samplers.get(settings)
+                if fn is None:
+                    if self._seq_parallel:
+                        fn = SequenceParallelSampler(self.dit_model, settings, self.mesh)
+                    elif self.mesh is not None:
+                        fn = data_parallel(self._local(settings), self.mesh)
+                    else:
+                        fn = self._local(settings)
+                    self._samplers[settings] = fn
+        return fn
+
     def run_sampler(self, settings: SamplerSettings, cond, cond_mask, text_ids, duration, y0,
                     step_cond=None, prosody_text=None) -> torch.Tensor:
-        """The sampler on device tensors: on CUDA the bucket's graph (captured
-        at its first use), on the CPU ``sample_mel``."""
-        if self.device.type == "cuda":
-            B, N, _ = cond.shape
-            return self._graph(settings, B, N, text_ids.shape[1], prosody_text is not None)(
-                cond, cond_mask, text_ids, duration, y0, step_cond, prosody_text)
-        return sample_mel(self.dit_model, cond=cond, cond_mask=cond_mask, text_ids=text_ids,
-                          duration=duration, y0=y0,
-                          time_grid=sway_time_grid(settings.steps, settings.sway_sampling_coef,
-                                                   settings.t_start),
-                          settings=settings, step_cond=step_cond, prosody_text=prosody_text)
+        """The sampler on device tensors, the whole batch in, the whole mel
+        out (on every process of a mesh)."""
+        return self._sampler(settings)(cond, cond_mask, text_ids, duration, y0, step_cond,
+                                       prosody_text)
 
     def uses_prosody(self, cfg: SamplerConfig) -> bool:
         """Whether requests at ``cfg`` are prosody-conditioned."""
@@ -319,16 +371,18 @@ class Synthesizer:
         """Capture the sampler graphs of these buckets ahead of the first
         request (JAX ``warmup``, which compiles them), the prosody graphs
         when requests at ``cfg`` are prosody-conditioned. Returns the number of
-        graphs captured; the CPU runs the sampler eagerly and captures none."""
-        if self.device.type != "cuda":
+        graphs captured; the CPU and a sequence-parallel mesh run the sampler
+        eagerly and capture none."""
+        if self.device.type != "cuda" or self._seq_parallel:
             return 0
         settings = self._settings(cfg)
         prosody = self.uses_prosody(cfg)
+        d = self._batch_multiple  # a data mesh's graph takes this process's rows
         n = 0
         for B in batch_buckets:
             for N in duration_buckets:
                 for nt in text_buckets:
-                    n += self._graph(settings, self._pick_batch(B), N, nt, prosody).capture()
+                    n += self._graph(settings, self._pick_batch(B) // d, N, nt, prosody).capture()
         return n
 
     def estimate_bucket(self, ref_wav, ref_sr: int, ref_units, gen_units,
@@ -551,9 +605,10 @@ class Synthesizer:
         starts_l = [min(ref_audio_len, durations[i] - 1) for i in range(B)]
         lens_l = [durations[i] - starts_l[i] for i in range(B)]
         n_out = pick_bucket(max(lens_l), DURATION_BUCKETS)
-        starts = to_device(np.asarray(starts_l + [0] * (Bp - B), np.int64), dev)
-        lens = to_device(np.asarray(lens_l + [1] * (Bp - B), np.int64), dev)
-        sliced, vmask = _slice_for_vocoder(out, starts, lens, n_out)
+        # the vocoder decodes the real rows only, whatever the padded batch
+        starts = to_device(np.asarray(starts_l, np.int64), dev)
+        lens = to_device(np.asarray(lens_l, np.int64), dev)
+        sliced, vmask = _slice_for_vocoder(out[:B], starts, lens, n_out)
         pending.update(kind="decode", lens_l=lens_l,
                        host=to_host(self.vocoder_model.decode(sliced, vmask), sliced))
         return pending
@@ -710,10 +765,9 @@ class Synthesizer:
                                None if prosody_text is None else to_device(prosody_text, dev))
         lens_l = [r["duration"] - r["ref_audio_len"] for r in rows]
         n_out = pick_bucket(max(lens_l), DURATION_BUCKETS)
-        starts = to_device(np.asarray([r["ref_audio_len"] for r in rows] + [0] * (Bp - B),
-                                      np.int64), dev)
-        lens = to_device(np.asarray(lens_l + [1] * (Bp - B), np.int64), dev)
-        sliced, vmask = _slice_for_vocoder(mel, starts, lens, n_out)
+        starts = to_device(np.asarray([r["ref_audio_len"] for r in rows], np.int64), dev)
+        lens = to_device(np.asarray(lens_l, np.int64), dev)
+        sliced, vmask = _slice_for_vocoder(mel[:B], starts, lens, n_out)
         waves = self.vocoder_model.decode(sliced, vmask).cpu().numpy()
         mels_np = sliced.cpu().numpy()
         results = []

@@ -18,9 +18,16 @@ unfused, differentiable chain (``DiTBlock.forward(train=...)``), the
 dropouts of ``arch.dropout`` are live when not ``deterministic``, and under
 grad ``arch.checkpoint_activations`` recomputes each block in the backward
 pass (``torch.utils.checkpoint``, as ``nn.remat`` does). ``drop_audio_cond``
-zeroes the cond mel (the CFG audio drop). Sequence parallelism is not
-ported. ``attn_backend`` (``"vmem"``, ``"splash"``, ``"xla"``) is every
-block's, as in JAX (``models/modules.py``).
+zeroes the cond mel (the CFG audio drop). ``attn_backend`` (``"vmem"``,
+``"splash"``, ``"xla"``) is every block's, as in JAX (``models/modules.py``).
+
+Sequence parallelism (``parallel/sequence.py``): ``seq_sharded(group)`` is
+the model seen by one process of a ``seq`` group, the JAX
+``DiT(seq_axis=...)``: x, cond and the text embedding are this process's
+shard of the sequence, the rope rows are the shard's global positions, the
+conv position embedding exchanges a halo and attention runs the ring. The
+text embedding (with the prosody projection folded in) must come
+precomputed on the whole sequence.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -91,9 +99,9 @@ class InputEmbedding(nn.Module):
         self.proj = nn.Linear(mel_dim * 2 + text_dim, out_dim)
         self.conv_pos_embed = ConvPositionEmbedding(out_dim)
 
-    def forward(self, x, cond, text_embed):
+    def forward(self, x, cond, text_embed, seq_group=None):
         h = dense(torch.cat([x, cond, text_embed], dim=-1), self.proj)
-        return self.conv_pos_embed(h) + h
+        return self.conv_pos_embed(h, seq_group) + h
 
 
 class DiT(nn.Module):
@@ -127,37 +135,49 @@ class DiT(nn.Module):
         """Text embedding [B, seq_len, text_dim], computed once per utterance."""
         return self.text_embed(text_ids, seq_len, drop_text=drop_text, dtype=self.compute_dtype)
 
+    def embed_prosody(self, prosody_text: torch.Tensor, seq_len: int) -> torch.Tensor:
+        """``prosody_text_proj`` of ``[B, T_text, 512]``, zero-padded or cut
+        to ``seq_len``: what the prosody text adds to the text embedding."""
+        if self.prosody_text_proj is None:
+            raise ValueError("prosody_text given to a DiT built without use_prosody_encoder")
+        pt = dense(prosody_text.to(self.compute_dtype), self.prosody_text_proj)
+        return (nn.functional.pad(pt, (0, 0, 0, seq_len - pt.shape[1]))
+                if pt.shape[1] < seq_len else pt[:, :seq_len])
+
     def embed_inputs(self, x, cond, text_ids, time, drop_text: bool = False, text_embed=None,
-                     prosody_text=None, drop_audio_cond: bool = False):
+                     prosody_text=None, drop_audio_cond: bool = False, seq_group=None):
         """Everything before the block stack: returns ``(h, t_emb, angles)``;
-        ``h`` is also the long skip's residual."""
+        ``h`` is also the long skip's residual. ``seq_group``: the inputs
+        are this process's shard of the sequence (``seq_sharded``)."""
         B, N, _ = x.shape
         if time.ndim == 0:
             time = time.expand(B)
         t_emb = self.time_embed(time, self.compute_dtype)
+        if seq_group is not None and (text_embed is None or prosody_text is not None):
+            raise ValueError("under a seq group the text embedding (with the prosody projection "
+                             "folded in) must be precomputed on the whole sequence")
         if text_embed is None:
             text_embed = self.embed_text(text_ids, N, drop_text=drop_text)
         if prosody_text is not None:
-            if self.prosody_text_proj is None:
-                raise ValueError("prosody_text given to a DiT built without "
-                                 "use_prosody_encoder")
-            pt = dense(prosody_text.to(self.compute_dtype), self.prosody_text_proj)
-            pt = nn.functional.pad(pt, (0, 0, 0, N - pt.shape[1])) if pt.shape[1] < N \
-                else pt[:, :N]
-            text_embed = text_embed + pt
+            text_embed = text_embed + self.embed_prosody(prosody_text, N)
         if drop_audio_cond:
             cond = torch.zeros_like(cond)
-        h = self.input_embed(x.to(self.compute_dtype), cond.to(self.compute_dtype), text_embed)
-        return h, t_emb, rope_angles(N, self.arch.dim_head, device=x.device)
+        h = self.input_embed(x.to(self.compute_dtype), cond.to(self.compute_dtype), text_embed,
+                             seq_group)
+        if seq_group is None:
+            return h, t_emb, rope_angles(N, self.arch.dim_head, device=x.device)
+        # the rope rows of this shard's global positions
+        s, i = dist.get_world_size(seq_group), dist.get_rank(seq_group)
+        return h, t_emb, rope_angles(N * s, self.arch.dim_head, device=x.device)[i * N:(i + 1) * N]
 
     def run_blocks(self, h, t_emb, mask, angles, start: int, stop: int,
-                   train: Optional[list] = None) -> torch.Tensor:
+                   train: Optional[list] = None, seq_group=None) -> torch.Tensor:
         """Blocks ``[start, stop)`` of the stack over ``h`` (the block-range
         cache runs the stack in three such ranges). ``train``: one
         ``TrainRoute`` a block, for the training route."""
         for i, blk in enumerate(self.transformer_blocks[start:stop]):
             if train is None:
-                h = blk(h, t_emb, mask=mask, angles=angles)
+                h = blk(h, t_emb, mask=mask, angles=angles, seq_group=seq_group)
             elif self.arch.checkpoint_activations and torch.is_grad_enabled():
                 h = checkpoint(blk, h, t_emb, mask, angles, train[start + i],
                                use_reentrant=False)
@@ -199,6 +219,41 @@ class DiT(nn.Module):
         train = (self.train_routes(deterministic, generator)
                  if autograd or not deterministic else None)
         out = self.run_blocks(h, t_emb, mask, angles, 0, len(self.transformer_blocks), train)
+        return self.head(out, t_emb, residual=h)
+
+    def seq_sharded(self, group) -> "SeqShardedDiT":
+        """This model as one process of the ``seq`` group sees it."""
+        return SeqShardedDiT(self, group)
+
+
+class SeqShardedDiT:
+    """A DiT on one process's shard of the sequence (the JAX
+    ``DiT(seq_axis=...)``; same weights): the forward, ``embed_inputs``,
+    ``run_blocks`` and ``head`` that ``cfm/sampler.py`` calls, each with the
+    group. Inference only; the text embedding comes precomputed."""
+
+    def __init__(self, dit: DiT, group):
+        self.dit, self.group = dit, group
+        self.transformer_blocks = dit.transformer_blocks
+
+    def embed_text(self, *args, **kwargs):
+        raise ValueError("under a seq group the text embedding must be precomputed on the "
+                         "whole sequence (DiT.embed_text) and passed in sharded")
+
+    def embed_inputs(self, x, cond, text_ids, time, **kwargs):
+        return self.dit.embed_inputs(x, cond, text_ids, time, seq_group=self.group, **kwargs)
+
+    def run_blocks(self, h, t_emb, mask, angles, start: int, stop: int) -> torch.Tensor:
+        return self.dit.run_blocks(h, t_emb, mask, angles, start, stop, seq_group=self.group)
+
+    def head(self, h, t_emb, residual=None) -> torch.Tensor:
+        return self.dit.head(h, t_emb, residual=residual)
+
+    def __call__(self, x, cond, text_ids, time, mask=None, text_embed=None,
+                 prosody_text=None) -> torch.Tensor:
+        h, t_emb, angles = self.embed_inputs(x, cond, text_ids, time, text_embed=text_embed,
+                                             prosody_text=prosody_text)
+        out = self.run_blocks(h, t_emb, mask, angles, 0, len(self.transformer_blocks))
         return self.head(out, t_emb, residual=h)
 
 

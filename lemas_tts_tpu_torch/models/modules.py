@@ -32,6 +32,11 @@ takes the unfused chain on either device: AdaLN in PyTorch, attention by
 apply them (after the FF GELU and after ``to_out``). The kernels define no
 backward, so it runs none of them.
 
+Under sequence parallelism (``seq_group``, ``parallel/sequence.py``) the
+block takes the unfused attention side with ``ring_attention`` and keeps
+K2, as the JAX block does under ``seq_axis``; the conv position embedding
+exchanges a halo with its neighbours.
+
 Under W8A8 int8 (``ops/quant.py``, the JAX ``int8``/``int8_ff`` split of
 ``models/modules.py:488-495``) the quantized products are ``QuantLinear``s:
 ``int8`` quantizes q/k/v, the output projection and both FF products, so the
@@ -46,6 +51,7 @@ import os
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -54,6 +60,7 @@ from lemas_tts_tpu_torch.ops.attention import (attention, check_backend, nhd_sup
 from lemas_tts_tpu_torch.ops.ffn import (ffn_block, ffn_block_supported, qkv_block,
                                          qkv_block_supported)
 from lemas_tts_tpu_torch.ops.quant import QuantLinear, int8_dense_shared
+from lemas_tts_tpu_torch.ops.ring_attention import halo_exchange, ring_attention
 from lemas_tts_tpu_torch.ops.rope import apply_rope
 
 
@@ -156,7 +163,14 @@ class TimestepEmbedding(nn.Module):
 class ConvPositionEmbedding(nn.Module):
     """Two grouped k=31 convs with Mish. The JAX package lowers them as
     shifted taps on the TPU; here each is one grouped ``conv1d``, padded
-    ``(K-1)//2`` on the left and ``K//2`` on the right (flax SAME)."""
+    ``(K-1)//2`` on the left and ``K//2`` on the right (flax SAME).
+
+    With a ``seq_group`` (sequence-parallel sampling, ``parallel/sequence.py``)
+    x is this process's shard of the sequence: one halo of ``2·(K//2)``
+    frames a side from the neighbours (``ops/ring_attention.halo_exchange``),
+    then both convs unpadded, the first conv's rows outside the global
+    sequence zeroed in between, as the global chain's zero padding of the
+    second conv does (JAX ``modules.py:141-170``)."""
 
     def __init__(self, dim: int, kernel_size: int = 31, groups: int = 16):
         super().__init__()
@@ -164,11 +178,23 @@ class ConvPositionEmbedding(nn.Module):
             nn.Conv1d(dim, dim, kernel_size, groups=groups), nn.Mish(),
             nn.Conv1d(dim, dim, kernel_size, groups=groups), nn.Mish())
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, seq_group=None) -> torch.Tensor:
         k = self.conv1d[0].kernel_size[0]
-        pad = ((k - 1) // 2, k // 2)
-        h = F.mish(conv1d(x, self.conv1d[0], pad))
-        return F.mish(conv1d(h, self.conv1d[2], pad))
+        if seq_group is None:
+            pad = ((k - 1) // 2, k // 2)
+            h = F.mish(conv1d(x, self.conv1d[0], pad))
+            return F.mish(conv1d(h, self.conv1d[2], pad))
+        if k % 2 != 1:
+            raise ValueError(f"the sequence-parallel halo needs an odd kernel, not {k}")
+        half, nl = k // 2, x.shape[1]
+        h = F.mish(conv1d(halo_exchange(x, 2 * half, seq_group), self.conv1d[0], (0, 0)))
+        # rows of conv1's output whose centre lies outside the global sequence:
+        # the global chain's zero padding of conv2 has 0 there, not mish(bias)
+        centers = (torch.arange(h.shape[1], device=x.device) - half
+                   + dist.get_rank(seq_group) * nl)
+        inside = (centers >= 0) & (centers < nl * dist.get_world_size(seq_group))
+        h = torch.where(inside[None, :, None], h, 0.0)
+        return F.mish(conv1d(h, self.conv1d[2], (0, 0)))
 
 
 class GRN(nn.Module):
@@ -261,10 +287,12 @@ class Attention(nn.Module):
         else:
             self.q_norm = self.k_norm = None
 
-    def forward(self, x, mask=None, angles=None, train: Optional[TrainRoute] = None):
+    def forward(self, x, mask=None, angles=None, train: Optional[TrainRoute] = None,
+                seq_group=None):
         """Unfused chain: x is the modulated, normalised residual stream.
         ``train``: the training route (``sdpa_train``, dropout after
-        ``to_out``)."""
+        ``to_out``). ``seq_group``: x is this process's shard of the
+        sequence, and attention is ``ring_attention`` over the group."""
         B, N, _ = x.shape
         if train is not None:
             return self.forward_train(x, mask, angles, train)
@@ -272,6 +300,10 @@ class Attention(nn.Module):
             q, k, v = int8_dense_shared(x, (self.to_q, self.to_k, self.to_v))
         else:
             q, k, v = (dense(x, lin) for lin in (self.to_q, self.to_k, self.to_v))
+        if seq_group is not None:
+            q, k, v = self.split_rope(q, k, v, angles)
+            out = ring_attention(q, k, v, mask, seq_group)
+            return self.project_out(out.transpose(1, 2).reshape(B, N, -1), mask)
         if (self.attn_backend == "vmem" and angles is not None
                 and nhd_supported(self.heads, self.dim_head, N, self.qk_norm, self.pe_attn_head)):
             return self.project_out(vmem_attention_nhd(q, k, v, mask, angles, self.heads), mask)
@@ -366,9 +398,13 @@ class DiTBlock(nn.Module):
         return (self.attn.attn_backend == "vmem" and not isinstance(down, QuantLinear)
                 and ffn_block_supported(n, down.out_features, down.in_features))
 
-    def forward(self, x, t_emb, mask=None, angles=None, train: Optional[TrainRoute] = None):
+    def forward(self, x, t_emb, mask=None, angles=None, train: Optional[TrainRoute] = None,
+                seq_group=None):
         """``train``: the training route (unfused, differentiable, with
-        dropout), else the kernels as the shapes allow."""
+        dropout), else the kernels as the shapes allow. ``seq_group``: x is
+        this process's shard of the sequence; the attention side takes the
+        unfused chain with ring attention (no K1, K3), the FF side keeps K2
+        (JAX ``modules.py:517-563``)."""
         sh_a, sc_a, g_a, sh_m, sc_m, g_m = self.attn_norm(t_emb)
         if train is not None:
             train.start(x.device)
@@ -377,7 +413,7 @@ class DiTBlock(nn.Module):
             return x + g_m[:, None] * self.ff(adaln_modulate(x, sc_m, sh_m), train)
         n, cdt = x.shape[1], x.dtype
         x = x.contiguous()  # the conv position embedding leaves a transposed layout
-        if angles is not None and self.fused_attn_ok(n):
+        if angles is not None and seq_group is None and self.fused_attn_ok(n):
             a = self.attn
             q, k, v = qkv_block(
                 x, sc_a.contiguous(), sh_a.contiguous(),
@@ -388,7 +424,8 @@ class DiTBlock(nn.Module):
                                      pack_pair=os.environ.get("LEMAS_ATTN_PACK", "") == "1")
             attn_out = a.project_out(out, mask)
         else:
-            attn_out = self.attn(adaln_modulate(x, sc_a, sh_a), mask=mask, angles=angles)
+            attn_out = self.attn(adaln_modulate(x, sc_a, sh_a), mask=mask, angles=angles,
+                                 seq_group=seq_group)
         x = x + g_a[:, None] * attn_out
         if self.fused_ff_ok(n):
             ff = self.ff.ff

@@ -14,6 +14,8 @@ Run as modules: ``python -m lemas_tts_tpu_torch.scripts.tts_multilingual
 --help``. They run on CUDA unless ``--device cpu`` is given, and never fall
 back to another device. An empty ``--ref_text`` and ``evaluate --asr``
 transcribe with Whisper (``infer/asr.py``, which needs ``transformers``). A
-flag that asks for a feature the port does not have yet (multi-GPU)
-raises ``NotImplementedError`` naming it.
+flag that asks for a feature the port does not have yet (multi-GPU
+training and distillation) raises ``NotImplementedError`` naming it;
+``serve_http --multihost`` and ``denoise --data_parallel`` run under
+``torchrun``.
 """

@@ -13,8 +13,10 @@ matches the reference runner (``onnx_inference``, ``:303-335``):
 
 It runs on CUDA; ``--device cpu`` runs it on the CPU. It never retries on
 another device: without CUDA, and without ``--device cpu``, it fails.
-``--data_parallel`` (the JAX package's chunk batches sharded over devices)
-is refused: multi-GPU is not ported.
+``--data_parallel`` shards each chunk batch (VR: window batch) over the
+``data`` axis of a mesh over the job's processes: run it under ``torchrun
+--nproc_per_node N`` (one process per GPU; alone it is a mesh of one);
+every process runs the same files and process 0 writes the stems.
 """
 
 from __future__ import annotations
@@ -53,22 +55,25 @@ def collect_files(audio_path: str, result_path: str) -> List[Tuple[str, str]]:
 def build_separator(args: argparse.Namespace):
     """Model factory on ``--device`` (None: CUDA): MDX-Net or the VR-arch
     cascade."""
+    mesh = None
     if args.data_parallel:
-        raise NotImplementedError("--data_parallel (chunk batches sharded over several "
-                                  "devices) is not ported: multi-GPU is ROADMAP item A14")
+        from lemas_tts_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(device_type=args.device)
     if args.process_method == "VR Arc":
         from lemas_tts_tpu_torch.uvr5.vr_network import VRSeparator
 
         if args.model_path:
             return VRSeparator.from_file(args.model_path,
                                          band_params=args.vr_model_param or None,
-                                         window_size=args.window_size, device=args.device)
-        return VRSeparator(window_size=args.window_size, device=args.device)
+                                         window_size=args.window_size, device=args.device,
+                                         mesh=mesh)
+        return VRSeparator(window_size=args.window_size, device=args.device, mesh=mesh)
     from lemas_tts_tpu_torch.uvr5.inference import UVR5
 
     # the facade owns the from_file / random-init-with-warning policy
     return UVR5(args.model_path or None, is_denoise=args.is_denoise,
-                batch_size=args.batch_size, device=args.device).sep
+                batch_size=args.batch_size, mesh=mesh, device=args.device).sep
 
 
 def process_files(
@@ -79,11 +84,13 @@ def process_files(
     save_background: bool = False,
     io_workers: int = 2,
     aggressiveness: float = 0.0,
+    write: bool = True,
 ) -> List[str]:
     """Run separation over ``files`` (paths, or (path, output-stem) pairs from
     :func:`collect_files`), pipelining host IO with device compute: decode of
     file i+1 and encode of file i-1 overlap the demix of file i. Returns the
-    written vocal-stem paths."""
+    written vocal-stem paths (``write=False``: the paths, nothing written,
+    as on every process but 0 of a data-parallel job)."""
     from lemas_tts_tpu_torch.utils.audio_io import read_audio, write_wav
     from lemas_tts_tpu_torch.uvr5.vr_network import VRSeparator
 
@@ -110,9 +117,11 @@ def process_files(
             else:
                 vocal, bg, out_sr = sep.separate(wav, sr, save_background=save_background)
             total_audio += vocal.shape[-1] / out_sr
-            pending_writes.append(pool.submit(write_wav, vocal_path, np.asarray(vocal), out_sr))
+            if write:
+                pending_writes.append(pool.submit(write_wav, vocal_path, np.asarray(vocal),
+                                                  out_sr))
             written.append(vocal_path)
-            if save_background and bg is not None:
+            if write and save_background and bg is not None:
                 bg_path = os.path.join(result_path, f"{stem}_background.wav")
                 pending_writes.append(pool.submit(write_wav, bg_path, np.asarray(bg), out_sr))
             # bound the encode backlog so pending waveforms don't pile up in
@@ -152,7 +161,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch_size", type=int, default=8,
                     help="demix chunks per device call")
     ap.add_argument("--data_parallel", action="store_true",
-                    help="shard chunk batches over all visible devices (not ported: refused)")
+                    help="shard chunk batches over the processes of a torchrun job "
+                         "(one GPU each); process 0 writes")
     ap.add_argument("--io_workers", type=int, default=2,
                     help="host threads for decode/encode pipelining")
     ap.add_argument("--aggressiveness", type=float, default=0.0,
@@ -168,9 +178,12 @@ def main(argv: Optional[Sequence[str]] = None) -> List[str]:
     print(f"[denoise] {len(files)} files to process")
     if not files:
         return []
+    from lemas_tts_tpu_torch.parallel.distributed import is_primary
+
     sep = build_separator(args)
     return process_files(sep, files, args.result_path, save_background=args.save_background,
-                         io_workers=args.io_workers, aggressiveness=args.aggressiveness)
+                         io_workers=args.io_workers, aggressiveness=args.aggressiveness,
+                         write=is_primary())
 
 
 if __name__ == "__main__":

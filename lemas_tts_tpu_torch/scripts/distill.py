@@ -88,7 +88,7 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.model_parallel > 1:
         raise NotImplementedError("--model_parallel: multi-GPU distillation is not ported: "
-                                  "ROADMAP item A14")
+                                  "ROADMAP item A14 (a)")
 
     import torch
 

@@ -18,9 +18,12 @@ Endpoints:
                 chunked audio/L16 PCM, one HTTP chunk per text chunk as it
                 completes, on the request thread
                 (``Synthesizer.synthesize_stream``).
-  GET  /healthz -> {"ok": true, "queue_depth": N}
+  GET  /healthz -> {"ok": true, "degraded": null, "queue_depth": N}; 503
+                with "ok": false once the engine is degraded (a
+                multi-process fleet lost a process)
   GET  /stats   -> engine stats JSON (queue depth, timers, latencies,
-                recent batch sizes)
+                recent batch sizes; under --multihost a "multihost" block:
+                per-process dispatch counts, lockstep, heartbeats)
   GET  /config  -> the live serving defaults
 
 Run: ``python -m lemas_tts_tpu_torch.scripts.serve_http --port 8080
@@ -28,8 +31,18 @@ Run: ``python -m lemas_tts_tpu_torch.scripts.serve_http --port 8080
 Defaults as in the JAX server: NFE 32, CFG 3, sway 1, CFG cutoff 0.5, block
 cache "0-22:2+t2", int8 (``config.SERVING_*``); a distilled student's
 checkpoint (``student.json``) pins its own settings instead, and ``/config``
-reports the sidecar under ``student``. ``--multihost`` raises:
-multi-GPU serving is not ported.
+reports the sidecar under ``student``.
+
+``--multihost`` serves from every process of a ``torchrun`` job (one
+process per GPU; ``--device cpu`` runs the job on gloo)::
+
+    torchrun --nproc_per_node 8 -m lemas_tts_tpu_torch.scripts.serve_http --multihost ...
+
+Every process builds the model on the job's ``("data", "model")`` mesh;
+process 0 serves HTTP and broadcasts each batch (``serve/multihost.py``),
+the others join every call in ``follower_serve``. Batches shard over the
+processes. Without a configured job (torchrun's ``MASTER_ADDR``/
+``MASTER_PORT``/``WORLD_SIZE``/``RANK``) it exits with a message.
 """
 
 from __future__ import annotations
@@ -138,9 +151,11 @@ def _request_cfg(base, payload: dict):
     return dataclasses.replace(base, **over) if over else None
 
 
-def make_handler(tts, engine, max_streams: int = 2):
+def make_handler(tts, engine, max_streams: int = 2, multihost=None):
     """The request handler over the shared TTS facade and engine;
-    ``max_streams`` bounds concurrent /tts_stream requests (more get 503)."""
+    ``max_streams`` bounds concurrent /tts_stream requests (more get 503);
+    ``multihost``, a ``serve.multihost.MultiHostDispatch``, adds its block
+    to /stats."""
     from lemas_tts_tpu_torch.infer.pipeline import chunk_text
     from lemas_tts_tpu_torch.serve.engine import TTSRequest
     from lemas_tts_tpu_torch.utils.profiling import trace_record
@@ -198,9 +213,15 @@ def make_handler(tts, engine, max_streams: int = 2):
 
         def do_GET(self):
             if self.path == "/healthz":
-                self._reply_json(200, {"ok": True, "queue_depth": engine.batcher.depth()})
+                degraded = engine.stats()["degraded"]
+                self._reply_json(503 if degraded else 200,
+                                 {"ok": not degraded, "degraded": degraded,
+                                  "queue_depth": engine.batcher.depth()})
             elif self.path == "/stats":
-                self._reply_json(200, engine.stats())
+                stats = engine.stats()
+                if multihost is not None:
+                    stats["multihost"] = multihost.aggregated_stats()
+                self._reply_json(200, stats)
             elif self.path == "/config":
                 c = engine.cfg
                 self._reply_json(200, {
@@ -209,7 +230,7 @@ def make_handler(tts, engine, max_streams: int = 2):
                     "block_cache": c.block_cache, "ode_method": c.ode_method,
                     "quant": tts.quant, "max_batch": engine.batcher.max_batch,
                     "max_streams": max_streams, "student": tts.student,
-                    "device": str(tts.device), "multihost": False})
+                    "device": str(tts.device), "multihost": multihost is not None})
             else:
                 self._reply_json(404, {"error": "not found"})
 
@@ -374,7 +395,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default=None,
                    help="cuda | cpu (default: cuda; never falls back to the CPU).")
     p.add_argument("--multihost", action="store_true",
-                   help="Multi-process serving: not ported (multi-GPU), refused.")
+                   help="Multi-process serving under torchrun (serve/multihost.py): batches "
+                        "shard over every process's device; process 0 serves HTTP.")
     return p
 
 
@@ -409,23 +431,33 @@ def warmup_batches(args) -> tuple:
 
 
 def serve(args, *, ready_event: Optional[threading.Event] = None,
-          server_box: Optional[list] = None) -> None:
+          server_box: Optional[list] = None) -> Optional[dict]:
     """Build the model and the engine, then serve until shut down.
     ``ready_event``/``server_box`` let a caller start and stop the server
-    from another thread."""
+    from another thread. A ``--multihost`` follower returns its counters
+    (``follower_serve``) once process 0 shuts down."""
     from lemas_tts_tpu_torch.api import TTS
     from lemas_tts_tpu_torch.cfm.sampler import DURATION_BUCKETS, pick_bucket
     from lemas_tts_tpu_torch.config import resolve_quant
     from lemas_tts_tpu_torch.infer.pipeline import dispatch_warmup
     from lemas_tts_tpu_torch.serve.engine import ServingEngine
 
+    # multi-process serving: every process builds the same model over the
+    # job's mesh; process 0 serves HTTP, the others join each broadcast call
+    mesh = dispatch = None
     if args.multihost:
-        raise NotImplementedError("--multihost: multi-GPU serving is not ported to PyTorch yet")
+        from lemas_tts_tpu_torch.parallel.distributed import initialize
+        from lemas_tts_tpu_torch.parallel.mesh import make_mesh
+
+        if not initialize(device_type=args.device):
+            raise SystemExit("--multihost needs a configured multi-process job: run under "
+                             "torchrun (it sets MASTER_ADDR / MASTER_PORT / WORLD_SIZE / RANK)")
+        mesh = make_mesh(device_type=args.device)
     qv = args.quant
     quant = resolve_quant(qv)
     kwargs = dict(model=args.model, ckpt_file=args.ckpt_file, vocab_file=args.vocab_file,
                   frontend=None if args.frontend == "none" else args.frontend,
-                  device=args.device)
+                  device=args.device, mesh=mesh)
     try:
         tts = TTS(quantization=quant, **kwargs)
     except ValueError as e:
@@ -439,18 +471,34 @@ def serve(args, *, ready_event: Optional[threading.Event] = None,
         # a distilled student: the server's defaults pin its settings (steps=K,
         # cfg 0); per-request overrides still work, off its training grid
         cfg = tts.apply_student_settings(cfg, show_info=print)
+    synth = tts.synth
+    if mesh is not None:
+        import torch.distributed as dist
+
+        from lemas_tts_tpu_torch.serve.multihost import (BroadcastSynthesizer,
+                                                         MultiHostDispatch, follower_serve)
+
+        dispatch = MultiHostDispatch(tts.synth)
+        if dist.get_rank() != 0:
+            print(f"[serve_http] follower process {dist.get_rank()}/{dist.get_world_size()} "
+                  "joining dispatches", flush=True)
+            return follower_serve(dispatch)
+        synth = BroadcastSynthesizer(dispatch)
     if not args.no_warmup:
-        print(f"[serve_http] warmup: {tts.synth.warmup(cfg)} sampler graphs captured")
+        print(f"[serve_http] warmup: {synth.warmup(cfg)} sampler graphs captured")
     if args.warmup_batches:
         dd = tuple(pick_bucket(int(x), DURATION_BUCKETS)
                    for x in args.warmup_durations.split(","))
-        n = dispatch_warmup(tts.synth, cfg, duration_buckets=dd,
-                            batch_buckets=warmup_batches(args))
+        n = dispatch_warmup(synth, cfg, duration_buckets=dd, batch_buckets=warmup_batches(args))
         print(f"[serve_http] dispatch-path warmup: {n} dispatches")
-    engine = ServingEngine(tts.synth, cfg=cfg, max_batch=args.max_batch,
+    engine = ServingEngine(synth, cfg=cfg, max_batch=args.max_batch,
                            trace_requests=True if args.trace_requests else None)
+    if dispatch is not None:
+        # a follower's death poisons the engine: its futures fail, requests get 503
+        dispatch.on_degraded.append(engine.poison)
     httpd = HTTPServer((args.host, args.port),
-                       make_handler(tts, engine, max_streams=args.max_streams))
+                       make_handler(tts, engine, max_streams=args.max_streams,
+                                    multihost=dispatch))
     if server_box is not None:
         server_box.append((httpd, engine))
     print(f"[serve_http] listening on {args.host}:{httpd.server_address[1]}", flush=True)
@@ -461,6 +509,9 @@ def serve(args, *, ready_event: Optional[threading.Event] = None,
     finally:
         httpd.server_close()
         engine.shutdown()
+        if dispatch is not None:
+            dispatch.shutdown_followers()
+    return None
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:

@@ -69,7 +69,8 @@ def synthetic_dataset(n: int, mel_dim: int, vocab_size: int, seed: int = 0):
     return out
 
 
-MULTI_GPU_FLAGS = "multi-GPU training is not ported: ROADMAP item A14"
+MULTI_GPU_FLAGS = ("multi-GPU training is not ported: ROADMAP item A14 (a) (data parallel, "
+                   "FSDP) and A14 (c) (pipeline parallel)")
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -8,8 +8,10 @@ duration bucket; one worker thread drives the card with
 CUDA replays the bucket's sampler graph. The model and its graphs are built
 once and reused.
 
-Not ported: the JAX engine's multi-host poisoning (``poison``): the port
-serves from one process (multi-GPU serving is a later item).
+Under multi-process serving (``serve/multihost.py``) the synthesizer is the
+broadcasting proxy, and a follower's death ``poison``s the engine: queued
+and running requests fail at once and new ones are refused (``degraded`` in
+``stats()``, a 503 at the HTTP layer).
 """
 
 from __future__ import annotations
@@ -77,6 +79,8 @@ class ServingEngine:
         self._cfg_ids: Dict[SamplerConfig, int] = {cfg: 0}
         self._latencies: Dict[str, deque] = {}
         self._batch_sizes: deque = deque(maxlen=512)
+        self._poisoned: Optional[BaseException] = None
+        self._inflight: list = []  # the batch on the device, for poison()
         self._stop = threading.Event()
         self._worker = threading.Thread(target=self._loop, daemon=True)
         self._worker.start()
@@ -106,10 +110,15 @@ class ServingEngine:
 
     def submit(self, req: TTSRequest) -> Future:
         """Enqueue a request; the Future gives (wave, sr, mel). Raises
-        RuntimeError when the engine is shut down or the queue is full."""
+        RuntimeError when the engine is shut down, degraded or the queue is
+        full."""
+        if self._poisoned is not None:
+            raise RuntimeError(f"engine degraded: {self._poisoned}")
         bucket, dur_bucket = self._estimate_bucket(req)
         req._t_submit = time.perf_counter()
         with self._lock:
+            if self._poisoned is not None:
+                raise RuntimeError(f"engine degraded: {self._poisoned}")
             if self.batcher.depth() >= self.max_queue:
                 self.log.log("queue_full", depth=self.batcher.depth())
                 raise RuntimeError(f"engine queue full ({self.max_queue} pending)")
@@ -175,6 +184,10 @@ class ServingEngine:
             if not reqs:
                 continue
             cfg = reqs[0].cfg or self.cfg  # one settings per composite bucket
+            with self._lock:
+                # poison() fails these from outside when the call below
+                # wedges in a dead fleet's collective
+                self._inflight = reqs
             try:
                 t_dev = time.perf_counter()
                 with TIMERS.stage("serve.batch"):
@@ -199,6 +212,9 @@ class ServingEngine:
                     self._trace(r, t_collect, 0.0, len(reqs), "error")
                     if not r.future.done():
                         r.future.set_exception(e)
+            finally:
+                with self._lock:
+                    self._inflight = []
 
     def _trace(self, req: TTSRequest, t_collect: float, device_s: float, batch_size: int,
                outcome: str) -> None:
@@ -213,6 +229,23 @@ class ServingEngine:
             device_ms=round(device_s * 1e3, 2),
             total_ms=round((now - req._t_submit) * 1e3, 2) if req._t_submit else None,
             outcome=outcome)
+
+    def poison(self, exc: BaseException) -> None:
+        """Terminal degradation (the multi-process dispatch's
+        ``on_degraded`` callback): fail every queued and running future now,
+        without waiting on the worker, which may be stuck in a collective,
+        and refuse new requests. The engine stays up, so ``/healthz`` and
+        ``/stats`` keep answering."""
+        with self._lock:
+            if self._poisoned is not None:
+                return
+            self._poisoned = exc
+            victims = list(self._pending.values()) + list(self._inflight)
+            self._pending.clear()
+        self.log.log("engine_poisoned", error=str(exc))
+        for r in victims:
+            if not r.future.done():
+                r.future.set_exception(exc)
 
     # --------------------------------------------------------------- shutdown
     def shutdown(self):
@@ -251,4 +284,5 @@ class ServingEngine:
             sizes = list(self._batch_sizes)
         return {"queue_depth": self.batcher.depth(), "timers": TIMERS.snapshot(),
                 "latency": lat, "settings_variants": n_cfgs, "shed": shed,
-                "batch_sizes": sizes}
+                "batch_sizes": sizes,
+                "degraded": str(self._poisoned) if self._poisoned else None}

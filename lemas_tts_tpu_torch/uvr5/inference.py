@@ -9,6 +9,12 @@ is :class:`~lemas_tts_tpu_torch.uvr5.mdxnet.ConvTDFNet` on one device; the
 STFTs, the network and the resample to 44.1 kHz run there, the chunking and
 stitching on the host in numpy.
 
+With a ``mesh`` (``parallel/mesh.py``; every process of the job runs the
+same separation) each chunk batch's network forward shards over the
+``data`` axis: the batch size is rounded up to a multiple of it, each
+process runs its rows, and the rows are gathered on every process; the
+zero chunks that pad the last batch are trimmed as before.
+
 ``device=None`` means CUDA and raises without it; only ``device="cpu"`` runs
 on the CPU. The network runs in f32: on CUDA, the caller's
 ``torch.backends.{cuda.matmul,cudnn}.allow_tf32`` settings apply.
@@ -27,6 +33,7 @@ import torch
 from lemas_tts_tpu_torch.api import seeded_init, select_device
 from lemas_tts_tpu_torch.ops.resample import resample
 from lemas_tts_tpu_torch.ops.stft import istft, stft
+from lemas_tts_tpu_torch.parallel.mesh import axis_size, data_parallel
 from lemas_tts_tpu_torch.uvr5.mdxnet import (
     ConvTDFNet,
     MDXConfig,
@@ -37,11 +44,16 @@ from lemas_tts_tpu_torch.uvr5.mdxnet import (
 MDX_SAMPLE_RATE = 44100
 
 
-def refuse_mesh(mesh: Any) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh / --data_parallel (chunk batches sharded over several devices) is not "
-            "ported: multi-GPU is ROADMAP item A14")
+def mesh_batch(mesh: Any, device: torch.device, batch_size: int) -> int:
+    """``batch_size`` rounded up to a multiple of ``mesh``'s ``data`` axis,
+    so every process gets equal rows (JAX ``uvr5/inference.py:67-80``);
+    the mesh must be of ``device``'s type."""
+    if mesh is None:
+        return batch_size
+    if mesh.device_type != device.type:
+        raise ValueError(f"a {mesh.device_type} mesh for a separator on {device}")
+    dp = axis_size(mesh, "data")
+    return -(-batch_size // dp) * dp
 
 
 def hann_symmetric(n: int, device=None) -> torch.Tensor:
@@ -77,7 +89,6 @@ class MDXSeparator:
         mesh: Optional[Any] = None,
         device: Optional[str] = None,
     ):
-        refuse_mesh(mesh)
         self.device = select_device(device)
         self.cfg = cfg
         self.model = load_state(seeded_init(lambda: ConvTDFNet(cfg), 0), state)
@@ -85,7 +96,10 @@ class MDXSeparator:
         self.is_denoise = is_denoise
         self.compensate = compensate
         self.adjust = adjust
-        self.batch_size = batch_size if batch_size is not None else (4 if is_denoise else 8)
+        self.batch_size = mesh_batch(mesh, self.device, batch_size if batch_size is not None
+                                     else (4 if is_denoise else 8))
+        # the network forward on this process's rows of each chunk batch
+        self._net = self.spec_to_spec if mesh is None else data_parallel(self.spec_to_spec, mesh)
         self.trim = cfg.n_fft // 2
         self.chunk_size = cfg.hop * (cfg.dim_t - 1)
         self.gen_size = self.chunk_size - 2 * self.trim
@@ -156,7 +170,7 @@ class MDXSeparator:
         mix = torch.as_tensor(np.asarray(mix, np.float32)).to(self.device)
         spek = self.pack_stft(mix) * self.adjust
         spek[..., :3] = 0.0  # zero the 3 lowest-frequency bins (:262)
-        spec_pred = spek if is_match_mix else self.spec_to_spec(spek)
+        spec_pred = spek if is_match_mix else self._net(spek)
         wav = self.unpack_istft(spec_pred)[:, :, self.trim: -self.trim]
         return wav.transpose(0, 1).reshape(2, -1).cpu().numpy()
 
@@ -239,17 +253,18 @@ class UVR5:
                  is_denoise: bool = True, batch_size: int = 8,
                  separator: Optional[MDXSeparator] = None,
                  mesh: Optional[Any] = None, device: Optional[str] = None):
-        refuse_mesh(mesh)
         if separator is not None:
+            if mesh is not None:
+                raise ValueError("pass the mesh to the separator, not beside it")
             self.sep = separator
         elif model_path and Path(model_path).is_file():
             self.sep = MDXSeparator.from_file(model_path, is_denoise=is_denoise,
-                                              batch_size=batch_size, device=device)
+                                              batch_size=batch_size, mesh=mesh, device=device)
         else:
             select_device(device)  # fail before the warning and the build
             warnings.warn(f"no UVR5 weights at {model_path!r} — random init (testing only)")
             self.sep = MDXSeparator.random_init(is_denoise=is_denoise, batch_size=batch_size,
-                                                device=device)
+                                                mesh=mesh, device=device)
 
     def denoise(self, audio: np.ndarray, sr: int) -> Tuple[np.ndarray, int]:
         """Array in → mono denoised array @44.1 kHz out."""

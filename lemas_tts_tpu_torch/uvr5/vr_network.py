@@ -252,11 +252,15 @@ class VRSeparator:
     (the JAX package pads a batch to a power of two to bound its compiled
     programs; the network is batch-independent in eval mode, so the masks
     are the same). ``device=None`` means CUDA and raises without it.
+    ``mesh`` (the port's own addition: the JAX separator takes none) shards
+    each batch of windows over its ``data`` axis, as ``MDXSeparator`` does
+    its chunks.
     """
 
     @classmethod
     def from_file(cls, path: str, band_params=None, hop: int = 1024,
-                  window_size: int = 512, device: Optional[str] = None) -> "VRSeparator":
+                  window_size: int = 512, device: Optional[str] = None,
+                  mesh=None) -> "VRSeparator":
         """Load reference VR-arch torch weights (``.pth``/``.ckpt``/
         ``.safetensors``), either generation; hyper-parameters are inferred
         from weight shapes. ``band_params`` names a registry config (e.g.
@@ -276,18 +280,19 @@ class VRSeparator:
             n_fft = 2 * mp["bins"]
             model = vr_legacy.CascadedASPPNet(n_fft, vr_legacy.infer_architecture(sd))
             return cls(n_fft=n_fft, hop=hop, state=sd, model=model, offset=128,
-                       window_size=window_size, band_params=mp, device=device)
+                       window_size=window_size, band_params=mp, device=device, mesh=mesh)
         n_fft, nout, nout_lstm = cascadednet_hparams(sd)
         return cls(n_fft=n_fft, hop=hop, nout=nout, nout_lstm=nout_lstm, state=sd,
-                   window_size=window_size, band_params=mp, device=device)
+                   window_size=window_size, band_params=mp, device=device, mesh=mesh)
 
     def __init__(self, n_fft: int = 2048, hop: int = 1024, nout: int = 32,
                  nout_lstm: int = 128, state=None, model: Optional[nn.Module] = None,
                  offset: int = 64, window_size: int = 512, band_params=None,
                  batch_size: int = 4, device: Optional[str] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, mesh=None):
         from lemas_tts_tpu_torch.api import seeded_init
-        from lemas_tts_tpu_torch.uvr5.inference import load_state
+        from lemas_tts_tpu_torch.parallel.mesh import data_parallel
+        from lemas_tts_tpu_torch.uvr5.inference import load_state, mesh_batch
 
         self.device = select_device(device)
         self.n_fft = n_fft
@@ -295,7 +300,10 @@ class VRSeparator:
         self.offset = offset  # frames cropped per window edge (nets offset)
         self.window_size = window_size
         self.mp = band_params
-        self.batch_size = max(1, int(batch_size))
+        self.batch_size = mesh_batch(mesh, self.device, max(1, int(batch_size)))
+        # the network on this process's windows of a batch (``mesh``: the
+        # data axis; a short last batch is padded with zero windows)
+        self._net = self.run if mesh is None else data_parallel(self.run, mesh)
         if model is None:
             model = seeded_init(lambda: CascadedNet(n_fft, nout, nout_lstm), 0)
         if state is None:
@@ -326,8 +334,12 @@ class VRSeparator:
         pad = torch.from_numpy(np.pad(mag.astype(np.float32), ((0, 0), (0, 0), (pad_l, pad_r))))
         pad = pad.to(self.device)
         windows = torch.stack([pad[:, :, i * roi: i * roi + ws] for i in range(n_window)])
-        masks = torch.cat([self.run(windows[i: i + self.batch_size])
-                           for i in range(0, n_window, self.batch_size)])
+        bs = self.batch_size
+        if n_window % bs and self._net is not self.run:  # equal rows on every process
+            windows = torch.cat([windows, windows.new_zeros((bs - n_window % bs,)
+                                                            + windows.shape[1:])])
+        masks = torch.cat([self._net(windows[i: i + bs])
+                           for i in range(0, n_window, bs)])[:n_window]
         masks = masks[:, :, :, self.offset: self.offset + roi]  # [n, 2, bins, roi]
         masks = masks.permute(1, 2, 0, 3).reshape(2, masks.shape[2], -1)[:, :, :n_frame]
         return masks.cpu().numpy()

@@ -9,8 +9,10 @@ JAX CLI on the CPU (``tests/test_denoise_cli.py``).
   (``-b``), to one 16-bit step plus ``atol=2e-5``; a second run processes
   nothing.
 - ``-p "VR Arc"`` writes finite stems at the input rate.
-- ``--data_parallel`` is refused, and without ``--device cpu`` the CLI
-  raises where there is no CUDA.
+- ``--data_parallel`` in one process (a mesh of one on gloo) writes the
+  stems of the plain run, and without ``--device cpu`` the CLI raises where
+  there is no CUDA (``tests/test_torch_parallel.py`` runs the separators on
+  meshes of 2 and 4 processes).
 """
 
 import warnings
@@ -129,11 +131,21 @@ def test_vr_arc_path_writes_stems(tmp_path):
 
 
 def test_data_parallel_and_device_are_refused(tmp_path, weights_file):
+    import torch.distributed as dist
+
     src = tmp_path / "in"
     _write_inputs(src, n=1)
     args = ["-a", str(src), "-r", str(tmp_path / "out"), "-m", weights_file]
-    with pytest.raises(NotImplementedError, match="A14"):
-        denoise.main(args + ["--data_parallel", "--device", "cpu"])
+    assert not dist.is_initialized()
+    try:
+        dp = denoise.main(["-a", str(src), "-r", str(tmp_path / "dp"), "-m", weights_file,
+                           "--data_parallel", "--device", "cpu"])
+    finally:
+        dist.destroy_process_group()
+    plain = denoise.main(["-a", str(src), "-r", str(tmp_path / "plain"), "-m", weights_file,
+                          "--device", "cpu"])
+    assert len(dp) == len(plain) == 1
+    np.testing.assert_array_equal(read_audio(dp[0])[0], read_audio(plain[0])[0])
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the CLI would run on it")
     for argv in (args, args[:-2] + ["-p", "VR Arc"]):

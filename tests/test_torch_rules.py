@@ -23,7 +23,7 @@ PKG = REPO / "lemas_tts_tpu_torch"
 def test_import_leaves_jax_out():
     """Importing every module of the port (and building nothing), its
     ``text/``, ``scripts/``, ``uvr5/`` and ``eval/`` subpackages and the
-    training modules included, pulls in
+    training and multi-GPU modules included, pulls in
     neither jax nor lemas_tts_tpu (nor the tests' torch mirrors)."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -37,7 +37,9 @@ def test_import_leaves_jax_out():
         " 'uvr5.mdxnet', 'uvr5.inference', 'uvr5.onnx_weights', 'uvr5.band_params',"
         " 'uvr5.spec_utils', 'uvr5.pyrb', 'uvr5.vr_network', 'uvr5.vr_legacy', 'cfm.loss',"
         " 'cfm.train', 'cfm.data', 'cfm.checkpoint', 'cfm.distill', 'models.speaker',"
-        " 'eval.metrics', 'scripts.train', 'scripts.distill', 'scripts.evaluate', 'infer.asr'):\n"
+        " 'eval.metrics', 'scripts.train', 'scripts.distill', 'scripts.evaluate', 'infer.asr',"
+        " 'parallel.distributed', 'parallel.mesh', 'parallel.sequence', 'ops.ring_attention',"
+        " 'serve.multihost'):\n"
         "    assert 'lemas_tts_tpu_torch.' + sub in names, sub\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
@@ -117,6 +119,23 @@ def test_tts_without_cuda_raises():
     for device in (None, "cuda"):
         with pytest.raises(RuntimeError, match="CUDA"):
             TTS(model="tests/data/tiny.yaml", device=device)
+
+
+def test_meshes_without_cuda_raise():
+    """A mesh's device type defaults to CUDA, as every entry point's does:
+    without CUDA ``make_mesh()``/``make_seq_mesh()`` raise before any
+    process group is made."""
+    import torch.distributed as dist
+
+    from lemas_tts_tpu_torch.parallel.mesh import make_mesh
+    from lemas_tts_tpu_torch.parallel.sequence import make_seq_mesh
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the meshes would be made on it")
+    for make in (make_mesh, make_seq_mesh):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    assert not dist.is_initialized()
 
 
 @pytest.mark.parametrize("option", [dict(quantization="int8"), dict(ode_method="midpoint")])

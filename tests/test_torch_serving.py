@@ -17,7 +17,8 @@ engine's batching, cancel and shedding, and ``serve_http`` on a free port.
   capture, and each graph still records only its own launches.
 - ``serve_http`` at its defaults (int8, cutoff 0.5, block cache) on the CPU:
   /healthz, /config, /tts, /tts_stream, a bad payload (400), a bad path
-  (404); ``--multihost`` raises.
+  (404); ``--multihost`` without a multi-process job exits with a message
+  (``tests/test_torch_multihost.py`` serves a job of two).
 """
 
 import base64
@@ -371,7 +372,14 @@ def test_serve_http_refuses_bad_requests(server, body, with_ref, path, status):
     assert resp.status == status and "error" in json.loads(data)
 
 
-def test_serve_http_multihost_refused():
+def test_serve_http_multihost_refused(monkeypatch):
+    """Without a configured job (torchrun's environment) ``--multihost``
+    exits before building anything, and no process group is left up."""
+    import torch.distributed as dist
+
+    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        monkeypatch.delenv(k, raising=False)
     args = serve_http.build_parser().parse_args(["--multihost", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(SystemExit, match="torchrun"):
         serve_http.serve(args)
+    assert not dist.is_initialized()

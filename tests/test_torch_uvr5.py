@@ -13,7 +13,8 @@ widths of ``tests/test_uvr5.py``.
   ``.onnx``), ``infer_config_from_state_dict``, ``Mixer`` and the ``UVR5``
   facade's ``denoise_file``; the symmetric-window ``ops/stft.py`` and the
   resample to 44.1 kHz.
-- ``device=None`` raises without CUDA, and a mesh is refused.
+- ``device=None`` raises without CUDA, and a mesh of another device type
+  is refused (``tests/test_torch_parallel.py`` runs real meshes).
 Tolerance: f32, ``rtol=2e-4, atol=2e-5`` (``tests/test_uvr5.py``), relative
 to the peak of waves and spectrograms.
 """
@@ -382,11 +383,14 @@ def test_random_init_is_seeded_and_defaults_match_jax():
 def test_without_cuda_device_none_raises_and_mesh_is_refused(seps):
     from lemas_tts_tpu_torch.uvr5.vr_network import VRSeparator
 
+    import types
+
     state = seps[1].model.state_dict()
-    with pytest.raises(NotImplementedError, match="A14"):
-        inference.MDXSeparator(CFG["group"], state, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="A14"):
-        inference.UVR5(separator=seps[1], mesh=object())
+    cuda_mesh = types.SimpleNamespace(device_type="cuda")  # a mesh of another device
+    with pytest.raises(ValueError, match="cuda mesh"):
+        inference.MDXSeparator(CFG["group"], state, device="cpu", mesh=cuda_mesh)
+    with pytest.raises(ValueError, match="to the separator"):
+        inference.UVR5(separator=seps[1], mesh=cuda_mesh)
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: device=None would run on it")
     for build in (lambda: inference.UVR5(),
