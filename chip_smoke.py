@@ -139,7 +139,23 @@ Phases, in order (any failure raises; the exit code is then non-zero):
      in-process (its warm-up and a dispatch-path warm-up batch through the
      broadcast, a wave of 8 ``/tts`` as one batch, a ``/tts_stream``,
      ``/stats``' multihost block in lockstep); ``denoise --data_parallel``
-     equal to the plain run. The phase destroys its process group.
+     equal to the plain run. Then, on the same job of one:
+ 18. train_mesh: multi-GPU training at the flagship's full width and depth
+     (f32, ``checkpoint_activations``), on the 39 x 1024-frame batch of
+     ``[train]``: one ``Trainer(mesh=make_mesh(), fsdp=True)`` step against
+     the unmeshed ``Trainer``'s from the same state and draws, dropout live
+     (parameters within ``TRAIN_MESH_BAR["fsdp"]``), two timed steps of each
+     and their peak memory; on a 40 x 1000-frame batch (the budget, split in
+     4) one ``PipelinedTrainer`` step (``make_pipe_mesh(pipe_parallel=1)``,
+     4 microbatches) against the plain step at the JAX pipeline test's
+     setting (dropout 0, the first update at lr 0: loss and parameters
+     within ``TRAIN_MESH_BAR``, the gradients through AdamW's first
+     moments);
+     ``scripts/train.main --fsdp`` (2 steps, restored bit for bit,
+     ``--resume`` to 3) and ``scripts/distill.main --model_parallel 1``
+     (one NFE-8 stage) under the job; ``TTS`` on that student (K1-K3 depth
+     x 8 each a request, eager and graphed). The phase then destroys its
+     process group.
 On CUDA every request's sampler is a graph replay (its first request of a
 bucket runs eagerly and captures), so every count above is launches on the
 card. The line before the last is the ``kernels`` JSON record; the last line
@@ -3059,7 +3075,218 @@ def phase_mesh(dev: dict) -> dict:
         print(f"[mesh] {time.perf_counter() - t_phase:.1f} s into the phase", flush=True)
         totals = {k: totals[k] + v for k, v in _mesh_serve(dev, vocab, ref_path).items()}
         _mesh_denoise(dev, d)
-    print(f"[mesh] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+        print(f"[mesh] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        totals = {k: totals[k] + v for k, v in phase_train_mesh(dev, d, vocab, ref_path).items()}
+    return totals
+
+
+# full-width meshed steps against the unmeshed step: the bars of the JAX
+# package's tests/test_parallel.py:348 (FSDP) and tests/test_pipeline_parallel.py:80
+TRAIN_MESH_BAR = {"fsdp": dict(rtol=2e-4, atol=2e-5), "pipe_loss": 1e-5,
+                  "pipe": dict(rtol=5e-5, atol=5e-6), "pipe_grad_rel_l2": 1e-4}
+
+
+def _flagship_trainer(cls, mesh=None, pipe_test: bool = False, **kw):
+    """The flagship at full width with remat, lr 1e-4; ``pipe_test``: the
+    JAX pipeline test's setting, dropout 0 (a pipeline folds its dropout
+    seeds per microbatch) and 2 warm-up updates (the first at lr 0)."""
+    import dataclasses
+
+    from lemas_tts_tpu_torch.api import seeded_init
+    from lemas_tts_tpu_torch.config import TrainConfig, load_model_config
+    from lemas_tts_tpu_torch.models.dit import DiT
+
+    cfg = load_model_config("multilingual")
+    arch = dataclasses.replace(cfg.arch, checkpoint_activations=True,
+                               dropout=0.0 if pipe_test else cfg.arch.dropout)
+    dit = seeded_init(lambda: DiT(arch, mel_dim=100, text_num_embeds=len(CHAR_VOCAB)), 0).cuda()
+    tcfg = TrainConfig(learning_rate=1e-4, num_warmup_updates=2 if pipe_test else 0)
+    return cls(dit, vocab_size=len(CHAR_VOCAB), mel_dim=100, cfg=tcfg, mesh=mesh, **kw)
+
+
+def _budget_batch(B: int, T: int, seed: int = 2) -> dict:
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    return {"mel": torch.randn(B, T, 100, generator=g).cuda(),
+            "mel_lengths": torch.randint(700, T + 1, (B,), generator=g).cuda(),
+            "text": torch.randint(0, len(CHAR_VOCAB), (B, 256), generator=g).cuda(),
+            "langs": torch.randint(0, 12, (B,), generator=g).cuda()}
+
+
+def _meshed_steps(tr, batch, timed: int) -> tuple:
+    """One step (seed 0, dropout live) and ``timed`` more: the loss and the
+    payload after the first, the walls and the peak memory of the timed."""
+    import random
+
+    import torch
+
+    state = tr.init_state(0)
+
+    def step(i):
+        return tr.train_step(state, batch, torch.Generator("cuda").manual_seed(i),
+                             random.Random(i), {"dropout": torch.Generator().manual_seed(i)})[1]
+
+    m = step(0)
+    loss = float(m["loss"])
+    payload = tr.checkpoint_payload(state)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = [_timed(lambda: step(1 + i))[1] for i in range(timed)]
+    return loss, payload, walls, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def _payload_diff(got: dict, want: dict, part: str = "model_state_dict", **tol) -> tuple:
+    """(largest |difference|, all within ``tol``) over ``part``."""
+    import torch
+
+    worst, ok = 0.0, True
+    for k, w in want[part].items():
+        g = got[part][k]
+        worst = max(worst, float((g - w).abs().max()))
+        ok &= bool(torch.allclose(g, w, **tol))
+    return worst, ok
+
+
+def phase_train_mesh(dev: dict, d: Path, vocab: Path, ref_path: str) -> dict:
+    """Multi-GPU training on the job of one (``phase_mesh``'s): the FSDP and
+    the pipelined steps at full width against the unmeshed step, the train
+    and distill CLIs under the job, the student on K1-K3. Returns the
+    student requests' launch counts."""
+    import numpy as np
+    import torch
+
+    from lemas_tts_tpu_torch import TTS
+    from lemas_tts_tpu_torch.cfm.checkpoint import CheckpointManager
+    from lemas_tts_tpu_torch.cfm.train import Trainer
+    from lemas_tts_tpu_torch.config import TrainConfig, load_model_config
+    from lemas_tts_tpu_torch.models.dit import DiT
+    from lemas_tts_tpu_torch.parallel.mesh import make_mesh
+    from lemas_tts_tpu_torch.parallel.pipeline import PipelinedTrainer, make_pipe_mesh
+    from lemas_tts_tpu_torch.scripts import distill, train
+
+    t_phase = time.perf_counter()
+    # 1. FSDP on a data mesh against the unmeshed step, at the 39 x 1024 budget batch
+    batch = _budget_batch(39, 1024)
+    runs = {}
+    for label, kw in (("unmeshed", {}), ("fsdp", dict(mesh=make_mesh(), fsdp=True))):
+        tr = _flagship_trainer(Trainer, **kw)
+        runs[label] = _meshed_steps(tr, batch, timed=2)
+        if label == "fsdp":
+            n_split = len(tr.placement.fsdp)
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    worst, ok = _payload_diff(runs["fsdp"][1], runs["unmeshed"][1], **TRAIN_MESH_BAR["fsdp"])
+    for label, (loss, _, walls, peak) in runs.items():
+        print(f"[train_mesh] {label} Trainer step at 39 x 1024 = 39936 frames, 22 x 1024 f32, "
+              f"checkpoint_activations, TF32 off: {walls[0]:.3f} / {walls[1]:.3f} s a step, "
+              f"peak torch.cuda.max_memory_allocated {peak:.2f} GiB (PERF.md's unmeshed step: "
+              f"2.452 s, 17.95 GiB); first loss {loss:.6f} on {dev['card']}", flush=True)
+    print(f"[train_mesh] Trainer(mesh=make_mesh(), fsdp=True), {n_split} leaves split over data, "
+          f"one step against the unmeshed step from the same state and draws: largest parameter "
+          f"difference {worst:.3e} (bar rtol {TRAIN_MESH_BAR['fsdp']['rtol']}, atol "
+          f"{TRAIN_MESH_BAR['fsdp']['atol']}): {ok}", flush=True)
+    check(ok and abs(runs["fsdp"][0] - runs["unmeshed"][0]) <= 1e-5 * abs(runs["unmeshed"][0]),
+          f"FSDP step differs from the unmeshed one: {worst}")
+    del runs, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. the pipelined step (pipe 1, 4 microbatches) against the plain step
+    batch = _budget_batch(40, 1000, seed=3)
+    runs = {}
+    for label, cls, kw in (("plain", Trainer, {}),
+                           ("pipelined", PipelinedTrainer,
+                            dict(mesh=make_pipe_mesh(pipe_parallel=1), num_microbatches=4))):
+        tr = _flagship_trainer(cls, pipe_test=True, **kw)
+        runs[label] = _meshed_steps(tr, batch, timed=0)
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    (lp, pp, *_), (lq, pq, *_) = runs["plain"], runs["pipelined"]
+    worst, ok = _payload_diff(pq, pp, **TRAIN_MESH_BAR["pipe"])
+    grad = max(rel_l2(pq["optimizer_state_dict"]["state"][i]["exp_avg"].cpu(),
+                      st["exp_avg"].cpu())
+               for i, st in pp["optimizer_state_dict"]["state"].items()
+               if float(st["exp_avg"].norm()) > 0)
+    dl = abs(lq - lp) / abs(lp)
+    print(f"[train_mesh] PipelinedTrainer (pipe 1, 4 microbatches) at 40 x 1000 = 40000 frames "
+          f"against the plain step: loss {lq:.7f} vs {lp:.7f} (rel {dl:.2e}, bar "
+          f"{TRAIN_MESH_BAR['pipe_loss']}); largest parameter difference {worst:.3e} (bar rtol "
+          f"{TRAIN_MESH_BAR['pipe']['rtol']}, atol {TRAIN_MESH_BAR['pipe']['atol']}): {ok}; "
+          f"worst gradient (AdamW first moment) rel-L2 {grad:.2e}", flush=True)
+    check(ok and dl <= TRAIN_MESH_BAR["pipe_loss"] and grad <= TRAIN_MESH_BAR["pipe_grad_rel_l2"],
+          f"pipelined step differs: loss {dl}, params {worst}, grad {grad}")
+    del runs, batch, pp, pq
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. the train CLI with --fsdp under the job, restored bit for bit, --resume
+    ck, log = d / "ck_mesh", d / "train_mesh.jsonl"
+    common = ["--config", "multilingual", "--vocab_file", str(vocab), "--synthetic",
+              str(TRAIN_SYNTHETIC), "--ckpt_dir", str(ck), "--log_every", "1", "--log_file",
+              str(log), "--checkpoint_activations", "--fsdp"]
+    (rc, wall) = _timed(lambda: train.main([*common, "--steps", "2"]))
+    check(rc == 0, "train.main --fsdp failed")
+    gc.collect()
+    torch.cuda.empty_cache()
+    saved = CheckpointManager(str(ck), TrainConfig()).restore()
+    cfg = load_model_config("multilingual")
+    tr = Trainer(DiT(cfg.arch, mel_dim=100, text_num_embeds=len(CHAR_VOCAB)).cuda(),
+                 vocab_size=len(CHAR_VOCAB), mel_dim=100)
+    again = tr.checkpoint_payload(tr.restore_state(tr.init_state(0), saved))
+    same = all(torch.equal(again[p][k], v) for p in ("model_state_dict", "ema_model_state_dict")
+               for k, v in saved[p].items()) and again["step"] == saved["step"] == 2
+    del tr, again, saved
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(same, "the saved state did not restore bit for bit")
+    check(train.main([*common, "--steps", "3", "--resume"]) == 0, "train.main --resume failed")
+    events = [json.loads(line) for line in log.read_text().splitlines()]
+    steps = [e["step"] for e in events if e["event"] == "train_step"]
+    check(steps == [1, 2, 3] and any(e["event"] == "resumed" and e["step"] == 2 for e in events),
+          f"resume did not carry on: {steps}")
+    print(f"[train_mesh] scripts/train.main --fsdp under the NCCL job of 1 (no mesh at one "
+          f"process, as in JAX): 2 steps in {wall:.1f} s wall, restored bit for bit {same}, "
+          f"--resume ran step 3; losses "
+          f"{[round(e['loss'], 5) for e in events if e['event'] == 'train_step']}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4. the distill CLI under the job (one NFE-8 stage), the student on K1-K3
+    dlog = d / "distill_mesh.jsonl"
+    (rc, wall) = _timed(lambda: distill.main([
+        "--config", "multilingual", "--vocab_file", str(vocab), "--synthetic",
+        str(TRAIN_SYNTHETIC), "--teacher", str(ck), "--steps_per_stage", "2", "--stages", "8",
+        "--ckpt_dir", str(d / "dd_mesh"), "--model_parallel", "1", "--log_every", "1",
+        "--log_file", str(dlog)]))
+    check(rc == 0, "distill.main --model_parallel 1 failed")
+    dl = [round(json.loads(line)["loss"], 5) for line in dlog.read_text().splitlines()
+          if json.loads(line)["event"] == "distill_step"]
+    print(f"[train_mesh] scripts/distill.main --model_parallel 1 under the job: stage 8, 2 steps "
+          f"in {wall:.1f} s wall; losses {dl}", flush=True)
+    check(len(dl) == 2 and all(np.isfinite(dl)), f"distill losses {dl}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    tts = TTS(model="multilingual", ckpt_file=str(d / "dd_mesh" / "stage_8"),
+              vocab_file=str(vocab), frontend=None)
+    want = expected_launches(FLAGSHIP_KERNELS, cfg.arch.depth * 8)
+    totals = dict.fromkeys(kernel_counters(), 0)
+    for i, route in enumerate(("eager (first of its bucket)", "graph replay")):
+        reset_counters()
+        (wave, sr, _), wall = _timed(lambda: tts.infer(
+            ref_path, REF_TEXT, GEN_TEXT, seed=7, show_info=lambda *_: None))
+        got = read_counters()
+        totals = {k: totals[k] + got[k] for k in totals}
+        print(f"[train_mesh] student stage_8 request {i}, {route}: {len(wave) / sr:.3f} audio-s "
+              f"in {wall:.3f} s on {dev['card']}; launches {got}", flush=True)
+        check(got == want, f"student launches {got}, expected {want}")
+        check(wave.size > 0 and bool(np.isfinite(wave).all()), "student wave not finite")
+    del tts
+    print(f"[train_mesh] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return totals
 
 

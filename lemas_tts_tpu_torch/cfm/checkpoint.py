@@ -15,6 +15,12 @@ Files are torch files in the reference trainer's layout: ``model_state_dict``
 ``weights.load_reference_checkpoint`` (and so ``TTS``) reads them. The JAX
 package writes orbax directories instead; native orbax files are not read
 here.
+
+Under a multi-process job (``torch.distributed``) every process calls the
+manager with the same payload (a meshed trainer gathers it on every
+process): process 0 writes and prunes, and every process waits at a
+barrier after each write, so a file on disk is whole before any process
+reads it or goes on.
 """
 
 from __future__ import annotations
@@ -25,8 +31,18 @@ from pathlib import Path
 from typing import Any, Dict, Iterable, Optional
 
 import torch
+import torch.distributed as dist
 
 from lemas_tts_tpu_torch.config import TrainConfig
+
+
+def _primary() -> bool:
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _barrier() -> None:
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
 
 
 @torch.no_grad()
@@ -63,12 +79,15 @@ class CheckpointManager:
         return dict(sorted(out.items()))
 
     def write(self, path: Path, payload: Dict[str, Any]) -> None:
-        """Write through a temporary file, so a crash leaves the old file."""
-        tmp = path.with_name(path.name + ".tmp")
-        torch.save(payload, tmp)
-        os.replace(tmp, path)
-        if path == self.last_path:
-            self.last_path.with_suffix(".step").write_text(str(int(payload["step"])))
+        """Write through a temporary file, so a crash leaves the old file
+        (process 0 of a job; the others wait for it)."""
+        if _primary():
+            tmp = path.with_name(path.name + ".tmp")
+            torch.save(payload, tmp)
+            os.replace(tmp, path)
+            if path == self.last_path:
+                self.last_path.with_suffix(".step").write_text(str(int(payload["step"])))
+        _barrier()
 
     def due(self, step: int) -> bool:
         """Whether ``maybe_save`` would write anything at ``step`` (the
@@ -95,9 +114,11 @@ class CheckpointManager:
         keep = self.cfg.keep_last_n_checkpoints
         if keep is None or keep < 0:
             return
-        snaps = self.snapshots()
-        for step in list(snaps)[: max(0, len(snaps) - keep)]:
-            snaps[step].unlink()
+        if _primary():
+            snaps = self.snapshots()
+            for step in list(snaps)[: max(0, len(snaps) - keep)]:
+                snaps[step].unlink()
+        _barrier()
 
     def path_of(self, step: Optional[int] = None) -> Path:
         """The file ``restore`` reads: snapshot ``step``, else ``model_last``,

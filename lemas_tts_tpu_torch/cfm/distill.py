@@ -21,7 +21,15 @@ parameters (the wide-head 8 x 128 student of a 16 x 64 teacher).
 
 Random draws: ``draws`` may carry ``x0`` [B, T, D], ``frac`` [B], ``span``
 [B] and ``seg`` [B] (each sample's student interval); the rest come from
-``generator``. Multi-GPU (``mesh``) is not ported.
+``generator`` (``Distiller.draws``).
+
+On a ``("data", "model")`` mesh (the JAX ``Distiller(mesh=)``), teacher
+and student are split over ``model`` by the tensor-parallel plan
+(``parallel/tensor.py``), each process takes its rows of the global batch
+and of the draws made for it, the loss and its metrics are the global
+batch's (``group``, as ``cfm/loss.py``), the gradient is averaged over
+``data`` and the clip's norm sums the ``model`` parts; the EMA is split as
+the student. ``full_state_dict`` gathers a split module's weights.
 """
 
 from __future__ import annotations
@@ -32,12 +40,16 @@ from dataclasses import dataclass
 from typing import Any, Dict, Mapping, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from lemas_tts_tpu_torch.cfm.checkpoint import ema_update
+from lemas_tts_tpu_torch.cfm.loss import group_sum
 from lemas_tts_tpu_torch.cfm.sampler import SamplerSettings, resolve_sway_coef, warped_time_grid
-from lemas_tts_tpu_torch.cfm.train import MULTI_GPU, make_optimizer, step_optimizer
+from lemas_tts_tpu_torch.cfm.train import make_optimizer, rows_of, step_optimizer
 from lemas_tts_tpu_torch.config import TrainConfig
+from lemas_tts_tpu_torch.parallel import tensor
+from lemas_tts_tpu_torch.parallel.mesh import ParamPlacement, axis_rank, axis_size, tp_param_dims
 from lemas_tts_tpu_torch.utils.masks import lens_to_mask, mask_from_frac_lengths
 
 
@@ -76,9 +88,12 @@ class Distiller:
                  sway_sampling_coef: Optional[float] = None, substeps: int = 2,
                  velocity_clamp: float = 20.0, frac_lengths_mask=(0.7, 1.0), mesh: Any = None,
                  student_model: Optional[nn.Module] = None):
-        if mesh is not None:
-            raise NotImplementedError(MULTI_GPU)
         assert student_steps >= 1 and substeps >= 1
+        if mesh is not None and tuple(mesh.mesh_dim_names or ()) != ("data", "model"):
+            raise ValueError(f"Distiller needs a ('data', 'model') mesh (make_mesh), not "
+                             f"{mesh.mesh_dim_names}")
+        self.mesh = mesh
+        self.placement: Optional[ParamPlacement] = None
         self.dit_model = dit_model
         self.student_model = student_model if student_model is not None else dit_model
         self.student_steps = student_steps
@@ -113,6 +128,12 @@ class Distiller:
         student.load_state_dict(teacher_params)
         student.requires_grad_(True)
         ema = copy.deepcopy(student).float().requires_grad_(False)
+        if self.mesh is not None:
+            split = axis_size(self.mesh, "model") > 1
+            self.placement = ParamPlacement(student, self.mesh,
+                                            tp_param_dims(student) if split else {})
+            for m in (teacher, student, ema):
+                tensor.shard_(m, self.mesh)
         return DistillState(step=0, params=student, teacher_params=teacher,
                             optimizer=make_optimizer(self.cfg, list(student.parameters())),
                             ema_params=ema)
@@ -137,37 +158,52 @@ class Distiller:
         cfg_t = self.teacher_cfg_strength * torch.square(1.0 - t)[:, None, None]
         return torch.clamp(pred + (pred - null_pred) * cfg_t, -clamp, clamp)
 
+    def draws(self, batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None,
+              draws: Optional[Dict] = None) -> Dict:
+        """Every random draw of ``loss`` for ``batch``: those in ``draws``
+        as given, the others from ``generator`` in the loss's order
+        (``frac``, ``span``, ``seg``, ``x0``)."""
+        out = dict(draws or {})
+        B, T, D = batch["mel"].shape
+        dev = batch["mel"].device
+
+        def draw(key, make):
+            if out.get(key) is None:
+                out[key] = make()
+
+        lo, hi = self.frac_lengths_mask
+        draw("frac", lambda: lo + (hi - lo) * torch.rand(B, generator=generator, device=dev))
+        draw("span", lambda: torch.rand(B, generator=generator, device=dev))
+        draw("seg", lambda: torch.randint(0, self.student_steps, (B,), generator=generator,
+                                          device=dev))
+        draw("x0", lambda: torch.randn((B, T, D), generator=generator, device=dev))
+        return out
+
     def loss(self, student, teacher, batch: Dict[str, torch.Tensor],
-             generator: Optional[torch.Generator] = None, draws: Optional[Dict] = None):
+             generator: Optional[torch.Generator] = None, draws: Optional[Dict] = None,
+             group=None):
         """``(loss, metrics)`` of one batch (``mel``, ``mel_lengths``,
-        ``text``); differentiable in the student only."""
-        draws = draws or {}
+        ``text``); differentiable in the student only. ``group``: the batch
+        is this process's rows, and the loss and metrics are the global
+        batch's."""
+        draws = self.draws(batch, generator, draws)
         mel = batch["mel"].float()
         lengths = batch["mel_lengths"]
         text = batch["text"]
         B, T, D = mel.shape
         dev = mel.device
 
-        def draw(key, make):
-            v = draws.get(key)
-            return make() if v is None else v
-
         attn_mask = lens_to_mask(lengths, T)
-        lo, hi = self.frac_lengths_mask
-        frac = draw("frac", lambda: lo + (hi - lo) * torch.rand(B, generator=generator,
-                                                                device=dev))
-        span = draw("span", lambda: torch.rand(B, generator=generator, device=dev))
-        gen_mask = mask_from_frac_lengths(lengths, frac, T, rand=span) & attn_mask
+        gen_mask = (mask_from_frac_lengths(lengths, draws["frac"], T, rand=draws["span"])
+                    & attn_mask)
         cond = torch.where((attn_mask & ~gen_mask)[..., None], mel, 0.0)
 
-        seg = draw("seg", lambda: torch.randint(0, self.student_steps, (B,),
-                                                generator=generator, device=dev)).long()
+        seg = draws["seg"].long()
         coarse = torch.as_tensor(self.coarse_grid, device=dev)
         fine = torch.as_tensor(self.fine_grid, device=dev)
         t0, t1 = coarse[seg], coarse[seg + 1]
 
-        x0 = draw("x0", lambda: torch.randn((B, T, D), generator=generator, device=dev))
-        x0 = torch.where(attn_mask[..., None], x0, 0.0)
+        x0 = torch.where(attn_mask[..., None], draws["x0"], 0.0)
         x = (1.0 - t0)[:, None, None] * x0 + t0[:, None, None] * mel
 
         with torch.no_grad():  # the teacher's target carries no gradient
@@ -186,25 +222,46 @@ class Distiller:
 
         err = torch.square(pred_v - target_v)
         w = gen_mask[..., None].float()
-        loss = torch.sum(err * w) / torch.clamp(torch.sum(w) * D, min=1.0) * D
+        # one all-reduce over the data shards: the loss's sums and the metrics'
+        sums = group_sum(torch.stack([torch.sum(err * w), torch.sum(w), t0.sum(),
+                                      torch.square(target_v).sum().detach()]), group)
+        n = B * (1 if group is None else dist.get_world_size(group))
+        loss = sums[0] / torch.clamp(sums[1] * D, min=1.0) * D
         loss = torch.nan_to_num(loss, nan=0.0, posinf=300.0, neginf=300.0)
-        metrics = {"loss": loss, "t_mean": t0.mean(),
-                   "target_v_rms": torch.sqrt(torch.mean(torch.square(target_v)))}
+        metrics = {"loss": loss, "t_mean": sums[2] / n,
+                   "target_v_rms": torch.sqrt(sums[3] / (n * T * D))}
         return loss, metrics
 
     # ------------------------------------------------------------------ step
     def distill_step(self, state: DistillState, batch: Dict[str, torch.Tensor],
                      generator: Optional[torch.Generator] = None,
                      draws: Optional[Dict] = None):
-        """One optimizer step of the student (clip, AdamW with warmup, EMA)."""
-        loss, metrics = self.loss(state.params, state.teacher_params, batch, generator, draws)
+        """One optimizer step of the student (clip, AdamW with warmup, EMA).
+        On a mesh every process calls it with the whole global batch."""
+        group = None
+        if self.mesh is not None:
+            d, r = axis_size(self.mesh, "data"), axis_rank(self.mesh, "data")
+            draws = rows_of(self.draws(batch, generator, draws), d, r)
+            batch, group = rows_of(batch, d, r), self.mesh.get_group("data")
+        loss, metrics = self.loss(state.params, state.teacher_params, batch, generator, draws,
+                                  group)
         loss.backward()
-        step_optimizer(state.optimizer, list(state.params.parameters()), self.cfg, state.step)
+        step_optimizer(state.optimizer, list(state.params.parameters()), self.cfg, state.step,
+                       placement=self.placement)
         if state.ema_params is not None:
             ema_update(state.ema_params.parameters(), state.params.parameters(),
                        decay=self.ema_decay)
         state.step += 1
         return state, {k: v.detach() for k, v in metrics.items()}
+
+    def full_state_dict(self, module: nn.Module) -> Dict[str, torch.Tensor]:
+        """The whole state dict of a student-shaped module (the student or
+        its EMA); on a mesh a collective that gathers the ``model`` parts."""
+        if self.mesh is None:
+            return {k: v.detach() for k, v in module.state_dict().items()}
+        named = dict(module.named_parameters())
+        return {k: self.placement.gather(k, v.detach()) if k in named else v.detach()
+                for k, v in module.state_dict().items()}
 
     # ------------------------------------------------------------------ chain
     def next_stage(self, student_steps: Optional[int] = None) -> "Distiller":
@@ -216,4 +273,4 @@ class Distiller:
             student_steps if student_steps is not None else max(1, self.student_steps // 2),
             cfg=self.cfg, teacher_cfg_strength=0.0, sway_sampling_coef=self.sway_sampling_coef,
             substeps=self.substeps, velocity_clamp=self.velocity_clamp,
-            frac_lengths_mask=self.frac_lengths_mask)
+            frac_lengths_mask=self.frac_lengths_mask, mesh=self.mesh)

@@ -13,8 +13,20 @@ Random draws: ``draws`` may carry any of them (``frac`` [B], ``span`` [B]
 uniforms placing each span, ``x0`` [B, T, D], ``time`` [B],
 ``prosody_mel_keep`` / ``prosody_text_keep`` bool masks, ``dropout`` a CPU
 ``torch.Generator`` for the DiT's dropout seeds, else the global one); the
-rest come from ``generator``. Torch seeds cannot reproduce ``jax.random`` noise, so parity
-tests fill ``draws`` from the JAX function's own splits.
+rest come from ``generator`` (``loss_draws``, in a fixed order). Torch
+seeds cannot reproduce ``jax.random`` noise, so parity tests fill ``draws``
+from the JAX function's own splits.
+
+Data parallelism (``group``, the JAX ``loss_psum_axis``): the batch is this
+process's rows of the global batch, and the flow loss's numerator and
+denominator, the accent cross-entropy's sum and its B, and the CTC term's
+sum and ``n_sel`` are summed over the group, so the local loss is the
+global batch's and the ``n_sel > 2`` gate is global. The sums are one
+autograd-aware all-reduce (``torch.distributed.nn.functional.all_reduce``,
+whose backward sums the gradient over the group too): each process's
+gradient is then its rows' part times the group's size, and the mean over
+the group (``parallel/mesh.py:ParamPlacement.reduce_grads``) is the global
+batch's gradient, as ``pmean`` after ``psum`` is in JAX.
 
 CTC: ``optax.ctc_loss`` takes logits and paddings; ``F.ctc_loss`` takes
 ``(T, B, C)`` log-probs and lengths. An infeasible row (fewer frames than
@@ -34,6 +46,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from lemas_tts_tpu_torch.utils.masks import lens_to_mask, mask_from_frac_lengths
+
+PROSODY_DROPOUT = 0.2  # on both prosody maps while training
 
 
 class _GradReverse(torch.autograd.Function):
@@ -102,6 +116,49 @@ def _draw(draws: Dict, key: str, make):
     return make() if v is None else v
 
 
+def loss_draws(batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None,
+               draws: Optional[Dict] = None, frac_lengths_mask=(0.7, 1.0),
+               prosody_dropout: float = 0.0) -> Dict:
+    """Every random draw of ``cfm_training_loss`` for ``batch``: those in
+    ``draws`` as given, the others from ``generator`` in the loss's order
+    (``frac``, ``span``, ``x0``, ``time``, then the prosody keep masks when
+    ``prosody_dropout`` > 0 and the batch has the prosody maps). A meshed
+    trainer draws them for the global batch and gives each process its
+    rows."""
+    draws = dict(draws or {})
+    mel = batch["mel"]
+    B, dev = mel.shape[0], mel.device
+    lo, hi = frac_lengths_mask
+    draws["frac"] = _draw(draws, "frac", lambda: lo + (hi - lo) * torch.rand(
+        B, generator=generator, device=dev))
+    draws["span"] = _draw(draws, "span", lambda: torch.rand(B, generator=generator, device=dev))
+    draws["x0"] = _draw(draws, "x0", lambda: torch.randn(mel.shape, generator=generator,
+                                                         device=dev, dtype=mel.dtype))
+    draws["time"] = _draw(draws, "time", lambda: torch.rand(B, generator=generator, device=dev,
+                                                            dtype=mel.dtype))
+    pm, pt = batch.get("prosody_mel_cond"), batch.get("prosody_text_cond")
+    if pm is not None and prosody_dropout > 0:
+        keep = 1.0 - prosody_dropout
+
+        def bern(shape):
+            return torch.rand(shape, generator=generator, device=dev) < keep
+
+        draws["prosody_mel_keep"] = _draw(draws, "prosody_mel_keep", lambda: bern(pm.shape))
+        if pt is not None:
+            draws["prosody_text_keep"] = _draw(draws, "prosody_text_keep",
+                                               lambda: bern(pt.shape))
+    return draws
+
+
+def group_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x`` summed over ``group`` (None: ``x``), differentiably."""
+    if group is None:
+        return x
+    from lemas_tts_tpu_torch.parallel.tensor import sum_over
+
+    return sum_over(x, group)
+
+
 def cfm_training_loss(dit, aux: Dict[str, nn.Module], batch: Dict[str, torch.Tensor], *,
                       generator: Optional[torch.Generator] = None,
                       draws: Optional[Dict] = None,
@@ -109,13 +166,16 @@ def cfm_training_loss(dit, aux: Dict[str, nn.Module], batch: Dict[str, torch.Ten
                       drop_text: bool = False, accent_weight: float = 0.1,
                       ctc_weight: float = 0.1, vocab_size: Optional[int] = None,
                       prosody_to_mel: Optional[nn.Module] = None,
-                      prosody_dropout: float = 0.2):
+                      prosody_dropout: float = PROSODY_DROPOUT, group=None):
     """The training loss of one batch: ``batch`` holds ``mel`` [B, T, D],
     ``mel_lengths`` [B] (each >= 1), ``text`` [B, nt] (-1 padded), ``langs``
     [B] and optionally ``prosody_mel_cond`` / ``prosody_text_cond``
     [B, *, 512]; ``aux`` holds ``accent`` and optionally ``ctc``. Returns
-    ``(total, metrics)``; ``generator`` draws on the batch's device."""
-    draws = dict(draws or {})
+    ``(total, metrics)``; ``generator`` draws on the batch's device.
+    ``group``: the batch is this process's rows, and the loss is the global
+    batch's (module docstring)."""
+    draws = loss_draws(batch, generator, draws, frac_lengths_mask,
+                       prosody_dropout if prosody_to_mel is not None else 0.0)
     mel = batch["mel"]
     lens = batch["mel_lengths"]
     text = batch["text"]
@@ -129,17 +189,10 @@ def cfm_training_loss(dit, aux: Dict[str, nn.Module], batch: Dict[str, torch.Ten
         torch._assert_async((lens >= 1).all(), "every mel_lengths must be >= 1")
 
     mask = lens_to_mask(lens, T)
-    lo, hi = frac_lengths_mask
-    frac = _draw(draws, "frac",
-                 lambda: lo + (hi - lo) * torch.rand(B, generator=generator, device=dev))
-    span_rand = _draw(draws, "span", lambda: torch.rand(B, generator=generator, device=dev))
-    rand_span_mask = mask_from_frac_lengths(lens, frac, T, rand=span_rand) & mask
+    rand_span_mask = mask_from_frac_lengths(lens, draws["frac"], T, rand=draws["span"]) & mask
 
     x1 = mel
-    x0 = _draw(draws, "x0", lambda: torch.randn(mel.shape, generator=generator, device=dev,
-                                                dtype=mel.dtype))
-    time = _draw(draws, "time", lambda: torch.rand(B, generator=generator, device=dev,
-                                                   dtype=mel.dtype))
+    x0, time = draws["x0"], draws["time"]
     t = time[:, None, None]
     phi = (1 - t) * x0 + t * x1
     flow = x1 - x0
@@ -152,15 +205,9 @@ def cfm_training_loss(dit, aux: Dict[str, nn.Module], batch: Dict[str, torch.Ten
     if pm_cond is not None and prosody_to_mel is not None:
         if prosody_dropout > 0:
             keep = 1.0 - prosody_dropout
-
-            def bern(shape):
-                return torch.rand(shape, generator=generator, device=dev) < keep
-
-            pm_keep = _draw(draws, "prosody_mel_keep", lambda: bern(pm_cond.shape))
-            pm_cond = pm_cond * (pm_keep.to(pm_cond.dtype) / keep)
+            pm_cond = pm_cond * (draws["prosody_mel_keep"].to(pm_cond.dtype) / keep)
             if pt_cond is not None:
-                pt_keep = _draw(draws, "prosody_text_keep", lambda: bern(pt_cond.shape))
-                pt_cond = pt_cond * (pt_keep.to(pt_cond.dtype) / keep)
+                pt_cond = pt_cond * (draws["prosody_text_keep"].to(pt_cond.dtype) / keep)
         cond = cond + prosody_to_mel(pm_cond[:, :T, :])
     if getattr(dit, "prosody_text_proj", None) is None:
         pt_cond = None  # the JAX DiT ignores prosody text without the encoder
@@ -174,19 +221,13 @@ def cfm_training_loss(dit, aux: Dict[str, nn.Module], batch: Dict[str, torch.Ten
     diff = torch.clamp(pred.float(), -20.0, 20.0) - flow.float()
     diff = torch.where(torch.isfinite(diff), diff, 0.0)
     mexp = rand_span_mask[..., None].float()
-    denom = torch.clamp(mexp.sum() * D, min=1.0)
-    loss = (diff.square() * mexp).sum() / denom
-    loss = torch.where(torch.isnan(loss) | (loss > 300.0), 300.0, loss)
-
-    # accent loss over the gradient-reversed cond
+    # the accent loss over the gradient-reversed cond
     accent_mean = aux["accent"](cond_grl).mean(dim=1)
-    accent_loss = F.cross_entropy(accent_mean, langs.long(), reduction="sum") / B
-    accent_loss = torch.where(torch.isfinite(accent_loss), accent_loss, 0.0)
-    total = loss + accent_weight * accent_loss
-
-    # CTC on the high-t samples
-    ctc_val = torch.zeros((), device=dev)
-    if "ctc" in aux and vocab_size is not None:
+    parts = [(diff.square() * mexp).sum(), mexp.sum(),
+             F.cross_entropy(accent_mean, langs.long(), reduction="sum"),
+             torch.tensor(float(B), device=dev)]
+    use_ctc_head = "ctc" in aux and vocab_size is not None
+    if use_ctc_head:  # CTC on the high-t samples
         logits = aux["ctc"](pred)  # [B, T, V+1]
         log_probs = F.log_softmax(logits.float(), dim=-1).transpose(0, 1)
         labels = torch.clamp(text.long(), min=0)
@@ -199,8 +240,18 @@ def cfm_training_loss(dit, aux: Dict[str, nn.Module], batch: Dict[str, torch.Ten
                | ~ctc_feasible(labels, label_lens, in_lens))
         per_sample = torch.where(bad, 300.0, torch.where(bad, 0.0, per_sample))
         sel = (time > 0.5).float()
-        n_sel = sel.sum()
-        ctc_mean = (per_sample * sel).sum() / torch.clamp(n_sel, min=1.0)
+        parts += [(per_sample * sel).sum(), sel.sum()]
+    sums = group_sum(torch.stack(parts), group)  # one all-reduce over the data shards
+
+    loss = sums[0] / torch.clamp(sums[1] * D, min=1.0)
+    loss = torch.where(torch.isnan(loss) | (loss > 300.0), 300.0, loss)
+    accent_loss = sums[2] / sums[3]
+    accent_loss = torch.where(torch.isfinite(accent_loss), accent_loss, 0.0)
+    total = loss + accent_weight * accent_loss
+    ctc_val = torch.zeros((), device=dev)
+    if use_ctc_head:
+        n_sel = sums[5]
+        ctc_mean = sums[4] / torch.clamp(n_sel, min=1.0)
         use_ctc = (n_sel > 2) & torch.isfinite(ctc_mean) & (ctc_mean > 1e-6)
         ctc_val = torch.where(use_ctc, ctc_mean, 0.0)
         total = total + ctc_weight * ctc_val

@@ -48,6 +48,7 @@ from lemas_tts_tpu_torch.models.modules import (
     TimestepEmbedding,
     TrainRoute,
     dense,
+    fold_seed,
 )
 from lemas_tts_tpu_torch.ops.rope import abs_pos_embedding, rope_angles
 
@@ -130,6 +131,9 @@ class DiT(nn.Module):
                                      if arch.long_skip_connection else None)
         self.norm_out = AdaLayerNormFinal(arch.dim)
         self.proj_out = nn.Linear(arch.dim, mel_dim)
+        # the data shard this process trains (cfm/train.py): its dropout
+        # masks come from streams of their own, as JAX folds the key per shard
+        self.dropout_fold = 0
 
     def embed_text(self, text_ids: torch.Tensor, seq_len: int, drop_text: bool = False):
         """Text embedding [B, seq_len, text_dim], computed once per utterance."""
@@ -171,14 +175,18 @@ class DiT(nn.Module):
         return h, t_emb, rope_angles(N * s, self.arch.dim_head, device=x.device)[i * N:(i + 1) * N]
 
     def run_blocks(self, h, t_emb, mask, angles, start: int, stop: int,
-                   train: Optional[list] = None, seq_group=None) -> torch.Tensor:
+                   train: Optional[list] = None, seq_group=None,
+                   remat: Optional[bool] = None) -> torch.Tensor:
         """Blocks ``[start, stop)`` of the stack over ``h`` (the block-range
         cache runs the stack in three such ranges). ``train``: one
-        ``TrainRoute`` a block, for the training route."""
+        ``TrainRoute`` a block, for the training route; ``remat`` (default
+        ``arch.checkpoint_activations``) recomputes each block in the
+        backward pass."""
+        remat = self.arch.checkpoint_activations if remat is None else remat
         for i, blk in enumerate(self.transformer_blocks[start:stop]):
             if train is None:
                 h = blk(h, t_emb, mask=mask, angles=angles, seq_group=seq_group)
-            elif self.arch.checkpoint_activations and torch.is_grad_enabled():
+            elif remat and torch.is_grad_enabled():
                 h = checkpoint(blk, h, t_emb, mask, angles, train[start + i],
                                use_reentrant=False)
             else:
@@ -189,13 +197,14 @@ class DiT(nn.Module):
                      generator: Optional[torch.Generator]) -> list:
         """One ``TrainRoute`` a block: dropout ``arch.dropout`` unless
         ``deterministic``, each block's dropout seed drawn from ``generator``
-        (a CPU generator; the global one when None)."""
+        (a CPU generator; the global one when None) and folded with
+        ``dropout_fold``."""
         depth = len(self.transformer_blocks)
         p = 0.0 if deterministic else float(self.arch.dropout)
         if p <= 0:
             return [TrainRoute() for _ in range(depth)]
         seeds = torch.randint(0, 2 ** 62, (depth,), generator=generator).tolist()
-        return [TrainRoute(p, s) for s in seeds]
+        return [TrainRoute(p, fold_seed(s, self.dropout_fold)) for s in seeds]
 
     def head(self, h: torch.Tensor, t_emb: torch.Tensor, residual=None) -> torch.Tensor:
         """The long skip (with ``residual``, the blocks' input), final AdaLN

@@ -32,6 +32,12 @@ takes the unfused chain on either device: AdaLN in PyTorch, attention by
 apply them (after the FF GELU and after ``to_out``). The kernels define no
 backward, so it runs none of them.
 
+Under tensor parallelism (``parallel/tensor.py``) the split modules carry
+a ``tp`` record and hold their slice of the split weights: column-parallel
+q/k/v and FF-in, row-parallel ``to_out``, FF-out and AdaLN modulations
+(``row_dense``), this process's heads in attention. Only the training route
+takes them.
+
 Under sequence parallelism (``seq_group``, ``parallel/sequence.py``) the
 block takes the unfused attention side with ``ring_attention`` and keeps
 K2, as the JAX block does under ``seq_axis``; the conv position embedding
@@ -64,28 +70,43 @@ from lemas_tts_tpu_torch.ops.ring_attention import halo_exchange, ring_attention
 from lemas_tts_tpu_torch.ops.rope import apply_rope
 
 
+def fold_seed(seed: int, k: int) -> int:
+    """A seed of its own for stream ``k`` of ``seed`` (``k`` 0: ``seed``)."""
+    return (seed + k * 0x9E3779B97F4A7C15) % 2 ** 62
+
+
 class TrainRoute:
     """How a block runs on the training route: the dropout rate (0 when
     deterministic) and the seed of the block's own dropout generator, so a
-    recomputed block (activation checkpointing) draws the same masks."""
+    recomputed block (activation checkpointing) draws the same masks.
+    ``drop(x, stream)`` draws from stream 0 (the block's generator) or from
+    a stream of its own (a ``model`` split's part of a split activation)."""
 
     def __init__(self, dropout: float = 0.0, seed: Optional[int] = None):
         self.dropout = dropout
         self.seed = seed
         self.generator: Optional[torch.Generator] = None
+        self.streams: dict = {}
 
     def start(self, device: torch.device) -> "TrainRoute":
         """A fresh generator from the seed, for one (re)run of the block."""
         if self.dropout > 0:
             self.generator = torch.Generator(device=device).manual_seed(self.seed)
+            self.streams = {}
         return self
 
-    def drop(self, x: torch.Tensor) -> torch.Tensor:
+    def drop(self, x: torch.Tensor, stream: int = 0) -> torch.Tensor:
         """flax ``nn.Dropout``: keep with probability 1 - p, scale by 1 / (1 - p)."""
         if self.dropout <= 0:
             return x
+        gen = self.generator
+        if stream:
+            gen = self.streams.get(stream)
+            if gen is None:
+                gen = self.streams[stream] = torch.Generator(device=x.device).manual_seed(
+                    fold_seed(self.seed, stream))
         keep = 1.0 - self.dropout
-        mask = torch.rand(x.shape, generator=self.generator, device=x.device) < keep
+        mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
         return torch.where(mask, x / keep, 0.0)
 
 
@@ -106,6 +127,13 @@ def dense(x: torch.Tensor, lin: nn.Module) -> torch.Tensor:
     if isinstance(lin, QuantLinear):
         return lin(x)
     y = torch.matmul(x, lin.weight.to(x.dtype).t())
+    return y if lin.bias is None else y + lin.bias.to(x.dtype)
+
+
+def row_dense(x: torch.Tensor, lin: nn.Linear, tp) -> torch.Tensor:
+    """A row-parallel ``dense``: this process's part of x times its part of
+    the weight, summed over the ``model`` group, then the bias once."""
+    y = tp.reduce_out(torch.matmul(x, lin.weight.to(x.dtype).t()))
     return y if lin.bias is None else y + lin.bias.to(x.dtype)
 
 
@@ -254,12 +282,16 @@ class FeedForward(nn.Module):
         inner = int(dim * mult)
         self.ff = nn.Sequential(nn.Sequential(nn.Linear(dim, inner), nn.GELU(approximate="tanh")),
                                 nn.Dropout(0.0), nn.Linear(inner, dim))
+        self.tp = None  # parallel/tensor.py: column-parallel in, row-parallel out
 
     def forward(self, x: torch.Tensor, train: Optional[TrainRoute] = None) -> torch.Tensor:
+        tp = self.tp
+        if tp is not None:
+            x = tp.copy_in(x)
         h = F.gelu(dense(x, self.ff[0][0]), approximate="tanh")
-        if train is not None:
-            h = train.drop(h)
-        return dense(h, self.ff[2])
+        if train is not None:  # a split hidden draws its columns' masks from a stream of its own
+            h = train.drop(h, 0 if tp is None else 1 + tp.rank)
+        return dense(h, self.ff[2]) if tp is None else row_dense(h, self.ff[2], tp)
 
 
 class Attention(nn.Module):
@@ -286,6 +318,7 @@ class Attention(nn.Module):
             self.k_norm = RMSNorm(dim_head)
         else:
             self.q_norm = self.k_norm = None
+        self.tp = None  # parallel/tensor.py: this process's heads
 
     def forward(self, x, mask=None, angles=None, train: Optional[TrainRoute] = None,
                 seq_group=None):
@@ -314,27 +347,36 @@ class Attention(nn.Module):
 
     def split_rope(self, q, k, v, angles):
         """q, k, v [B, N, H*D] -> [B, H, N, D], with the qk norm and the rope
-        on the first ``pe_attn_head`` heads (all by default)."""
+        on the first ``pe_attn_head`` heads (all by default). Under tensor
+        parallelism H is this process's heads, the global heads from
+        ``rank * H`` on."""
         B, N, _ = q.shape
+        heads = q.shape[-1] // self.dim_head
+        first = 0 if self.tp is None else self.tp.rank * heads
 
         def split(t):
-            return t.view(B, N, self.heads, self.dim_head).transpose(1, 2)
+            return t.view(B, N, heads, self.dim_head).transpose(1, 2)
 
         q, k, v = split(q), split(k), split(v)
         if self.q_norm is not None:
             q, k = self.q_norm(q), self.k_norm(k)
         if angles is not None:
             pn = self.heads if self.pe_attn_head is None else self.pe_attn_head
+            pn = min(max(pn - first, 0), heads)  # this process's heads that take the rope
             q = torch.cat([apply_rope(q[:, :pn], angles), q[:, pn:]], dim=1)
             k = torch.cat([apply_rope(k[:, :pn], angles), k[:, pn:]], dim=1)
         return q, k, v
 
     def forward_train(self, x, mask, angles, train: TrainRoute):
         B, N, _ = x.shape
+        tp = self.tp
+        if tp is not None:
+            x = tp.copy_in(x)
         q, k, v = self.split_rope(*(dense(x, lin) for lin in (self.to_q, self.to_k, self.to_v)),
                                   angles)
         out = sdpa_train(q, k, v, mask).transpose(1, 2).reshape(B, N, -1)
-        out = train.drop(dense(out, self.to_out[0]))
+        out = dense(out, self.to_out[0]) if tp is None else row_dense(out, self.to_out[0], tp)
+        out = train.drop(out)
         if mask is not None:
             out = torch.where(mask[..., None], out, 0.0)  # zero padded queries
         return out
@@ -346,6 +388,15 @@ class Attention(nn.Module):
         return out
 
 
+def modulation(e: torch.Tensor, lin: nn.Linear, tp) -> torch.Tensor:
+    """The AdaLN modulation ``dense(e, lin)``; under tensor parallelism
+    row-parallel over its input (the JAX plan's ``mod``), ``lin`` holding
+    this process's input columns."""
+    if tp is None:
+        return dense(e, lin)
+    return row_dense(tp.take(tp.copy_in(e), lin.weight.shape[1]), lin, tp)
+
+
 class AdaLayerNorm(nn.Module):
     """AdaLN-zero: 6 modulation chunks, shift/scale/gate (msa) then
     shift/scale/gate (mlp)."""
@@ -353,9 +404,10 @@ class AdaLayerNorm(nn.Module):
     def __init__(self, dim: int):
         super().__init__()
         self.linear = nn.Linear(dim, dim * 6)
+        self.tp = None  # parallel/tensor.py: row-parallel over the input
 
     def forward(self, emb: torch.Tensor):
-        return dense(F.silu(emb), self.linear).chunk(6, dim=-1)
+        return modulation(F.silu(emb), self.linear, self.tp).chunk(6, dim=-1)
 
 
 class AdaLayerNormFinal(nn.Module):
@@ -364,9 +416,10 @@ class AdaLayerNormFinal(nn.Module):
     def __init__(self, dim: int):
         super().__init__()
         self.linear = nn.Linear(dim, dim * 2)
+        self.tp = None  # parallel/tensor.py: row-parallel over the input
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
-        scale, shift = dense(F.silu(emb), self.linear).chunk(2, dim=-1)
+        scale, shift = modulation(F.silu(emb), self.linear, self.tp).chunk(2, dim=-1)
         return adaln_modulate(x, scale, shift)
 
 
@@ -411,6 +464,8 @@ class DiTBlock(nn.Module):
             x = x + g_a[:, None] * self.attn(adaln_modulate(x, sc_a, sh_a), mask=mask,
                                              angles=angles, train=train)
             return x + g_m[:, None] * self.ff(adaln_modulate(x, sc_m, sh_m), train)
+        if self.attn.tp is not None:
+            raise ValueError("a tensor-parallel block runs only the training route")
         n, cdt = x.shape[1], x.dtype
         x = x.contiguous()  # the conv position embedding leaves a transposed layout
         if angles is not None and seq_group is None and self.fused_attn_ok(n):

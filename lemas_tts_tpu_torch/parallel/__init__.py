@@ -1,5 +1,6 @@
-"""Multi-GPU serving on ``torch.distributed`` (counterpart of
+"""Multi-GPU serving and training on ``torch.distributed`` (counterpart of
 ``lemas_tts_tpu/parallel/``): process-group set-up (``distributed``), the
-device mesh and the data-parallel sampler (``mesh``) and the
-sequence-parallel sampler (``sequence``). Training parallelism (the JAX
-package's DP/FSDP specs and ``pipeline.py``) is not ported yet."""
+device mesh, the data-parallel sampler and the training plans (``mesh``),
+tensor parallelism of the DiT's training route (``tensor``), the
+sequence-parallel sampler (``sequence``) and pipeline parallelism
+(``pipeline``)."""

@@ -13,9 +13,8 @@
 Run as modules: ``python -m lemas_tts_tpu_torch.scripts.tts_multilingual
 --help``. They run on CUDA unless ``--device cpu`` is given, and never fall
 back to another device. An empty ``--ref_text`` and ``evaluate --asr``
-transcribe with Whisper (``infer/asr.py``, which needs ``transformers``). A
-flag that asks for a feature the port does not have yet (multi-GPU
-training and distillation) raises ``NotImplementedError`` naming it;
-``serve_http --multihost`` and ``denoise --data_parallel`` run under
-``torchrun``.
+transcribe with Whisper (``infer/asr.py``, which needs ``transformers``).
+``serve_http --multihost``, ``denoise --data_parallel``, ``train`` (with
+``--model_parallel``, ``--pipe_parallel``, ``--microbatches``, ``--fsdp``)
+and ``distill`` (``--model_parallel``) run multi-GPU under ``torchrun``.
 """

@@ -15,8 +15,11 @@ reference layout) and ``student.json`` beside it, which ``TTS`` and
 student another head split of the same inner width (e.g. 8 x 128 for a
 16 x 64 teacher), recorded in ``student.json``'s ``arch``.
 
-Runs on CUDA unless ``--device cpu``; ``--model_parallel > 1`` raises
-``NotImplementedError`` (multi-GPU is not ported).
+Runs on CUDA unless ``--device cpu``. Under ``torchrun --nproc_per_node N``
+(a job of more than one process) the stages run on a ``("data", "model")``
+mesh over every process, ``--model_parallel`` its tensor-parallel degree:
+every process loads the same global batches and distils its rows, and
+process 0 logs and writes the stages (``cfm/distill.py``).
 """
 
 from __future__ import annotations
@@ -46,7 +49,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--synthetic", type=int, default=0,
                    help="Use N synthetic samples (smoke runs).")
     p.add_argument("--ckpt_dir", type=str, required=True)
-    p.add_argument("--model_parallel", type=int, default=1, help="Not ported (> 1 raises).")
+    p.add_argument("--model_parallel", type=int, default=1,
+                   help="Tensor-parallel degree of the ('data', 'model') mesh in a job.")
     p.add_argument("--block_cache", type=str, default="",
                    help="block-cache spec to record in student.json (TTS then serves the "
                         "student with it; empty = cache off, the default)")
@@ -86,11 +90,9 @@ def save_stage(out: Path, student_sd, meta: dict) -> None:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.model_parallel > 1:
-        raise NotImplementedError("--model_parallel: multi-GPU distillation is not ported: "
-                                  "ROADMAP item A14 (a)")
 
     import torch
+    import torch.distributed as dist
 
     from lemas_tts_tpu_torch.api import seeded_init, select_device
     from lemas_tts_tpu_torch.cfm.data import DataLoader
@@ -98,11 +100,20 @@ def main(argv=None) -> int:
     from lemas_tts_tpu_torch.cfm.train import batch_to_device
     from lemas_tts_tpu_torch.config import DiTArch, TrainConfig, load_model_config
     from lemas_tts_tpu_torch.models.dit import DiT
+    from lemas_tts_tpu_torch.parallel.distributed import initialize, is_primary
+    from lemas_tts_tpu_torch.parallel.mesh import axis_size, make_mesh
     from lemas_tts_tpu_torch.scripts.train import load_dataset, resolve_vocab
     from lemas_tts_tpu_torch.utils.profiling import JsonLogger
 
     device = select_device(args.device)
-    log = JsonLogger(path=args.log_file or None)
+    initialize(device_type=device.type)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    mesh = make_mesh(world, args.model_parallel, device.type) if world > 1 else None
+    logger = JsonLogger(path=args.log_file or None) if is_primary() else None
+
+    def log(event, **fields):
+        if logger is not None:
+            logger.log(event, **fields)
     cfg = load_model_config(args.config)
     tcfg = TrainConfig(learning_rate=args.lr,
                        num_warmup_updates=max(1, args.steps_per_stage // 20),
@@ -139,6 +150,7 @@ def main(argv=None) -> int:
         if parse_block_cache(args.block_cache) is None:
             raise SystemExit(f"--block_cache {args.block_cache!r} is not a valid spec")
     loader = DataLoader(dataset, tcfg, seed=args.seed,
+                        batch_multiple=1 if mesh is None else axis_size(mesh, "data"),
                         to_device=lambda b: batch_to_device(b, device))
     teacher = load_teacher(args.teacher)
     stages = [int(s) for s in args.stages.split(",") if s.strip()]
@@ -148,7 +160,7 @@ def main(argv=None) -> int:
         # students) are guided already and run single-pass, in the student geometry
         distiller = Distiller(dit if si == 0 or student_dit is None else student_dit, k,
                               cfg=tcfg, teacher_cfg_strength=args.teacher_cfg if si == 0 else 0.0,
-                              sway_sampling_coef=args.sway, student_model=student_dit)
+                              sway_sampling_coef=args.sway, student_model=student_dit, mesh=mesh)
         state = distiller.init_state(teacher)
         t0 = time.time()
         step = 0
@@ -160,12 +172,12 @@ def main(argv=None) -> int:
                 state, metrics = distiller.distill_step(state, batch, gen)
                 step += 1
                 if step % args.log_every == 0 or step == args.steps_per_stage:
-                    log.log("distill_step", stage=k, step=step, loss=float(metrics["loss"]),
-                            batch=list(batch["mel"].shape[:2]),
-                            sps=step / max(time.time() - t0, 1e-9))
+                    log("distill_step", stage=k, step=step, loss=float(metrics["loss"]),
+                        batch=list(batch["mel"].shape[:2]),
+                        sps=step / max(time.time() - t0, 1e-9))
             if step >= args.steps_per_stage:
                 break
-        teacher = {n: v.detach().clone() for n, v in state.ema_params.state_dict().items()}
+        teacher = {n: v.clone() for n, v in distiller.full_state_dict(state.ema_params).items()}
         meta = {"student_steps": k, "cfg_strength": 0.0, "sway_sampling_coef": args.sway,
                 "teacher": args.teacher, "teacher_cfg_strength": args.teacher_cfg,
                 "stage_index": si, "steps_per_stage": args.steps_per_stage}
@@ -175,10 +187,15 @@ def main(argv=None) -> int:
         if args.block_cache:
             meta["block_cache"] = args.block_cache
         out = Path(args.ckpt_dir) / f"stage_{k}"
-        save_stage(out, teacher, meta)
+        if is_primary():
+            save_stage(out, teacher, meta)
+        if world > 1:
+            dist.barrier()
         del state, distiller
-        log.log("stage_done", stage=k, path=str(out))
-        print(f"[distill] stage NFE={k} done -> {out} (sample with steps={k}, cfg_strength=0)")
+        log("stage_done", stage=k, path=str(out))
+        if is_primary():
+            print(f"[distill] stage NFE={k} done -> {out} (sample with steps={k}, "
+                  f"cfg_strength=0)")
     return 0
 
 

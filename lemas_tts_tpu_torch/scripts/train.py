@@ -14,8 +14,17 @@
 
 Runs on CUDA unless ``--device cpu``. ``--checkpoint_activations``
 recomputes each DiT block in the backward pass (``arch.checkpoint_activations``).
-``--model_parallel``/``--pipe_parallel`` > 1 and ``--fsdp`` raise
-``NotImplementedError``: multi-GPU training is not ported.
+
+Multi-GPU: run it under ``torchrun --nproc_per_node N`` (one process per
+GPU; on the CPU with ``--device cpu``, over gloo). In a job of more than
+one process the mesh spans every process: ``("data", "model")`` with
+``--model_parallel`` (tensor parallelism) and ``--fsdp`` (ZeRO-3 over
+``data``), or ``("data", "pipe")`` with ``--pipe_parallel`` stages and
+``--microbatches`` (default: the stages; composes with ``--fsdp``, not
+with ``--model_parallel``). Every process loads the same global batches
+(a multiple of ``data`` x microbatches) and trains its rows; process 0
+logs and writes the checkpoints. Without a job, or in a job of one, there
+is no mesh (``--fsdp`` and ``--model_parallel`` change nothing, as in JAX).
 """
 
 from __future__ import annotations
@@ -69,10 +78,6 @@ def synthetic_dataset(n: int, mel_dim: int, vocab_size: int, seed: int = 0):
     return out
 
 
-MULTI_GPU_FLAGS = ("multi-GPU training is not ported: ROADMAP item A14 (a) (data parallel, "
-                   "FSDP) and A14 (c) (pipeline parallel)")
-
-
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Train the CFM/DiT acoustic model.")
     p.add_argument("--config", type=str, default="multilingual")
@@ -85,11 +90,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Resume from the latest checkpoint in --ckpt_dir.")
     p.add_argument("--steps", type=int, default=0, help="0 -> epochs from config.")
     p.add_argument("--epochs", type=int, default=0, help="0 -> config value.")
-    p.add_argument("--model_parallel", type=int, default=1, help="Not ported (> 1 raises).")
-    p.add_argument("--pipe_parallel", type=int, default=1, help="Not ported (> 1 raises).")
+    p.add_argument("--model_parallel", type=int, default=1,
+                   help="Tensor-parallel degree of the ('data', 'model') mesh.")
+    p.add_argument("--pipe_parallel", type=int, default=1,
+                   help="GPipe stages over the DiT blocks (parallel/pipeline.py); exclusive of "
+                        "--model_parallel > 1.")
     p.add_argument("--microbatches", type=int, default=0,
-                   help="Pipeline microbatches (only with --pipe_parallel > 1).")
-    p.add_argument("--fsdp", action="store_true", help="Not ported (raises).")
+                   help="Pipeline microbatches per step (0 -> the pipe degree).")
+    p.add_argument("--fsdp", action="store_true",
+                   help="ZeRO-3 parameter/moment/EMA sharding over the 'data' axis (composes "
+                        "with --model_parallel and with --pipe_parallel).")
     p.add_argument("--grad_accum", type=int, default=0,
                    help="Gradient accumulation mini-steps per optimizer update "
                         "(0 -> config value).")
@@ -105,9 +115,27 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def refuse_unported(args) -> None:
-    if args.model_parallel > 1 or args.pipe_parallel > 1 or args.fsdp:
-        raise NotImplementedError(f"--model_parallel/--pipe_parallel/--fsdp: {MULTI_GPU_FLAGS}")
+def job_mesh(args, device):
+    """Join a configured job (``torchrun``'s environment) and make the
+    mesh of the flags: None without a job or in a job of one."""
+    import torch.distributed as dist
+
+    from lemas_tts_tpu_torch.parallel.distributed import initialize
+    from lemas_tts_tpu_torch.parallel.mesh import make_mesh
+    from lemas_tts_tpu_torch.parallel.pipeline import make_pipe_mesh
+
+    initialize(device_type=device.type)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if args.pipe_parallel > 1:
+        if args.model_parallel > 1:
+            raise ValueError("--pipe_parallel composes with data parallelism, not "
+                             "--model_parallel")
+        if world % args.pipe_parallel:
+            raise ValueError(f"--pipe_parallel {args.pipe_parallel} in a job of {world} "
+                             f"processes: run one process per device (torchrun "
+                             f"--nproc_per_node)")
+        return make_pipe_mesh(world, args.pipe_parallel, device.type)
+    return make_mesh(world, args.model_parallel, device.type) if world > 1 else None
 
 
 def resolve_vocab(vocab_file: str):
@@ -141,7 +169,6 @@ def main(argv=None) -> int:
     if args.microbatches and args.pipe_parallel <= 1:
         print("--microbatches only applies with --pipe_parallel > 1", file=sys.stderr)
         return 2
-    refuse_unported(args)
 
     import torch
 
@@ -151,10 +178,18 @@ def main(argv=None) -> int:
     from lemas_tts_tpu_torch.cfm.train import Trainer, batch_to_device
     from lemas_tts_tpu_torch.config import TrainConfig, load_model_config
     from lemas_tts_tpu_torch.models.dit import DiT
+    from lemas_tts_tpu_torch.parallel.distributed import is_primary
+    from lemas_tts_tpu_torch.parallel.mesh import axis_size
+    from lemas_tts_tpu_torch.parallel.pipeline import PipelinedTrainer
     from lemas_tts_tpu_torch.utils.profiling import JsonLogger
 
     device = select_device(args.device)
-    log = JsonLogger(path=args.log_file or None)
+    mesh = job_mesh(args, device)
+    logger = JsonLogger(path=args.log_file or None) if is_primary() else None
+
+    def log(event, **fields):
+        if logger is not None:
+            logger.log(event, **fields)
     cfg = load_model_config(args.config)
     tcfg = TrainConfig(
         epochs=args.epochs or TrainConfig().epochs,
@@ -171,18 +206,25 @@ def main(argv=None) -> int:
 
     dit = seeded_init(lambda: DiT(arch, mel_dim=mel_dim, text_num_embeds=vocab.size,
                                   use_prosody_encoder=cfg.use_prosody_encoder), args.seed)
-    trainer = Trainer(dit.to(device), vocab_size=vocab.size, mel_dim=mel_dim, cfg=tcfg,
-                      use_ctc=cfg.use_ctc_loss, use_prosody=cfg.use_prosody_encoder)
-    loader = DataLoader(dataset, tcfg, seed=args.seed,
+    common = dict(vocab_size=vocab.size, mel_dim=mel_dim, cfg=tcfg, use_ctc=cfg.use_ctc_loss,
+                  use_prosody=cfg.use_prosody_encoder, mesh=mesh, fsdp=args.fsdp)
+    if args.pipe_parallel > 1:
+        microbatches = args.microbatches or args.pipe_parallel
+        trainer = PipelinedTrainer(dit.to(device), num_microbatches=microbatches, **common)
+        batch_multiple = axis_size(mesh, "data") * microbatches
+    else:
+        trainer = Trainer(dit.to(device), **common)
+        batch_multiple = 1 if mesh is None else axis_size(mesh, "data")
+    loader = DataLoader(dataset, tcfg, seed=args.seed, batch_multiple=batch_multiple,
                         to_device=lambda b: batch_to_device(b, device))
     mgr = CheckpointManager(args.ckpt_dir, tcfg)
     state = trainer.init_state(args.seed)
     if args.resume:
         try:
             trainer.restore_state(state, mgr.restore())
-            log.log("resumed", step=state.step)
+            log("resumed", step=state.step)
         except FileNotFoundError:
-            log.log("resume_requested_but_no_checkpoint")
+            log("resume_requested_but_no_checkpoint")
 
     host_rng = random.Random(args.seed)
     max_steps = args.steps or tcfg.epochs * max(1, len(loader))
@@ -203,12 +245,13 @@ def main(argv=None) -> int:
             if mgr.due(step):
                 mgr.maybe_save(step, trainer.checkpoint_payload(state))
             if step % args.log_every == 0 or step == max_steps:
-                log.log("train_step", step=step, loss=float(metrics["loss"]),
-                        flow=float(metrics["flow_loss"]), batch=list(batch["mel"].shape[:2]),
-                        sps=(step - start) / max(time.time() - t0, 1e-9))
+                log("train_step", step=step, loss=float(metrics["loss"]),
+                    flow=float(metrics["flow_loss"]), batch=list(batch["mel"].shape[:2]),
+                    sps=(step - start) / max(time.time() - t0, 1e-9))
     mgr.write(mgr.last_path, trainer.checkpoint_payload(state))
-    log.log("train_done", step=step)
-    print(f"[train] done at step {step} -> {args.ckpt_dir}")
+    log("train_done", step=step)
+    if is_primary():
+        print(f"[train] done at step {step} -> {args.ckpt_dir}")
     return 0
 
 

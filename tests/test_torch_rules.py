@@ -39,7 +39,7 @@ def test_import_leaves_jax_out():
         " 'cfm.train', 'cfm.data', 'cfm.checkpoint', 'cfm.distill', 'models.speaker',"
         " 'eval.metrics', 'scripts.train', 'scripts.distill', 'scripts.evaluate', 'infer.asr',"
         " 'parallel.distributed', 'parallel.mesh', 'parallel.sequence', 'ops.ring_attention',"
-        " 'serve.multihost'):\n"
+        " 'serve.multihost', 'parallel.tensor', 'parallel.pipeline'):\n"
         "    assert 'lemas_tts_tpu_torch.' + sub in names, sub\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
@@ -95,10 +95,11 @@ def test_entry_points_match_c_sources():
 
 
 def test_refusals_left_are_the_multi_gpu_flags():
-    """The attention backends and ASR are ported: the one ``refuse_unported``
-    left is ``scripts/train.py``'s (multi-GPU flags), and no
-    ``NotImplementedError`` of the port names ``--attn_backend`` or an empty
-    ``ref_text``."""
+    """The attention backends, ASR and multi-GPU training are ported: no
+    ``refuse_unported`` is left (the last, ``scripts/train.py``'s multi-GPU
+    flags, went with them), and no ``NotImplementedError`` of the port names
+    ``--attn_backend``, an empty ``ref_text``, a mesh, FSDP or a ROADMAP
+    item."""
     defs = []
     for path in sorted(PKG.rglob("*.py")):
         for node in ast.walk(ast.parse(path.read_text())):
@@ -107,8 +108,10 @@ def test_refusals_left_are_the_multi_gpu_flags():
             if (isinstance(node, ast.Raise) and isinstance(node.exc, ast.Call)
                     and getattr(node.exc.func, "id", "") == "NotImplementedError"):
                 text = ast.unparse(node.exc)
-                assert "attn_backend" not in text and "ref_text" not in text, (path, text)
-    assert defs == ["scripts/train.py"]
+                for word in ("attn_backend", "ref_text", "mesh", "fsdp", "model_parallel",
+                             "pipe_parallel", "A14"):
+                    assert word not in text, (path, text)
+    assert defs == []
 
 
 def test_tts_without_cuda_raises():

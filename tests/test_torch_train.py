@@ -332,18 +332,75 @@ def test_trainer_steps_match_jax(accum):
     assert moved > 0  # the EMA moved with the updates
 
 
-@pytest.mark.parametrize("kwargs", [dict(mesh=object()), dict(fsdp=True)])
+@pytest.mark.parametrize("kwargs", [dict(mesh="one process"), dict(fsdp=True)])
 def test_trainer_multi_gpu_not_ported(kwargs):
-    dit = DiT(DiTArch(**ARCH), mel_dim=D, text_num_embeds=V)
-    with pytest.raises(NotImplementedError, match="A14"):
-        Trainer(dit, vocab_size=V, mel_dim=D, **kwargs)
+    """Multi-GPU training is ported (``tests/test_torch_train_parallel.py``
+    holds it at 2-8 processes). In one process: ``Trainer`` on a mesh of
+    one (a process group over a hash store) takes the unmeshed step, and
+    ``fsdp=True`` without a mesh is a no-op, as in JAX
+    (``lemas_tts_tpu/cfm/train.py:80``). Two steps from the same weights
+    and draws; parameters and EMA within 1e-6 of the unmeshed trainer's,
+    AdamW moments within 1e-5 of their peak (the same products; the clip's
+    norm is summed in another order)."""
+    import torch.distributed as dist
+
+    from lemas_tts_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = TrainConfig(learning_rate=1e-3, num_warmup_updates=0, audio_drop_prob=0.0,
+                      text_drop_prob=0.0)
+    tb = tbatch(make_batch(4))
+
+    def run(**kw):
+        torch.manual_seed(0)
+        tr = Trainer(DiT(DiTArch(**ARCH), mel_dim=D, text_num_embeds=V), vocab_size=V,
+                     mel_dim=D, cfg=cfg, **kw)
+        state = tr.init_state(0)
+        for i in range(2):
+            state, m = tr.train_step(state, tb, torch.Generator().manual_seed(i),
+                                     random.Random(0))
+        return tr, tr.checkpoint_payload(state)
+
+    plain, want = run()
+    assert not dist.is_initialized()
+    try:
+        if kwargs.get("mesh"):
+            tr, got = run(mesh=make_mesh(device_type="cpu"))
+            assert tr.placement is not None and tr.placement.size["data"] == 1
+        else:
+            tr, got = run(**kwargs)
+            assert tr.fsdp is False and tr.placement is None
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    for part in ("model_state_dict", "ema_model_state_dict"):
+        for k, w in want[part].items():
+            np.testing.assert_allclose(got[part][k].numpy(), w.numpy(), rtol=0, atol=1e-6,
+                                       err_msg=k)
+    for i, w in want["optimizer_state_dict"]["state"].items():
+        g = got["optimizer_state_dict"]["state"][i]
+        for k in ("exp_avg", "exp_avg_sq"):
+            np.testing.assert_allclose(g[k].numpy(), w[k].numpy(), rtol=0,
+                                       atol=1e-5 * float(w[k].abs().max()))
+    assert got["step"] == want["step"] == 2
 
 
 @pytest.mark.parametrize("flag", [["--model_parallel", "2"], ["--pipe_parallel", "2"],
                                   ["--fsdp"]])
 def test_train_cli_multi_gpu_flags_raise(flag, tmp_path):
+    """The multi-GPU flags run (``tests/test_torch_pipeline_parallel.py``
+    runs them in a job of 2). Without a job there is no mesh, as in JAX:
+    ``--model_parallel 2`` and ``--fsdp`` train unmeshed; ``--pipe_parallel
+    2`` needs two processes and raises before any process group is made."""
+    import torch.distributed as dist
+
     from lemas_tts_tpu_torch.scripts import train
 
-    with pytest.raises(NotImplementedError, match="A14"):
-        train.main(["--synthetic", "4", "--tiny", "--ckpt_dir", str(tmp_path), "--device",
-                    "cpu", *flag])
+    argv = ["--synthetic", "4", "--tiny", "--ckpt_dir", str(tmp_path), "--device", "cpu",
+            "--steps", "1", *flag]
+    if "--pipe_parallel" in flag:
+        with pytest.raises(ValueError, match="one process per device"):
+            train.main(argv)
+    else:
+        assert train.main(argv) == 0
+        assert (tmp_path / "model_last.pt").is_file()
+    assert not dist.is_initialized()
