@@ -156,6 +156,17 @@ Phases, in order (any failure raises; the exit code is then non-zero):
      (one NFE-8 stage) under the job; ``TTS`` on that student (K1-K3 depth
      x 8 each a request, eager and graphed). The phase then destroys its
      process group.
+ 19. probes: the measurement tools of ``lemas_tts_tpu_torch/scripts/`` at
+     flagship width, each printing its JSON lines: ``kernel_check`` (K1-K3
+     under ``vmem`` against ``xla``, N 1024, B 1 and 8, rel-L2 <= 5e-2);
+     ``profile_sampler`` on the graphed B 1 sampler (card busy, idle share,
+     ``mfu`` from ``utils/flops.py``, in (0, 1.05]); ``latency_probe`` at the
+     serving defaults, a closed loop of 4 requests and ``--loaded_ttfb``
+     for 10 s with nothing shed; ``cutoff_probe``, ``blockcache_probe`` and
+     ``quant_probe`` at two settings each, their launches equal to the
+     blocks their settings run; ``attn_pack_probe`` (K4 bit-equal to K3),
+     ``widehead_probe --no_e2e``, ``distill_probe --stages 8 --steps 2`` and
+     ``student_stack_probe`` with one spec.
 On CUDA every request's sampler is a graph replay (its first request of a
 bucket runs eagerly and captures), so every count above is launches on the
 card. The line before the last is the ``kernels`` JSON record; the last line
@@ -178,6 +189,11 @@ import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
+sys.path.insert(0, str(REPO))
+try:  # the card's timing: CUDA events behind a spin, busy as a union of kernel intervals
+    from lemas_tts_tpu_torch.utils.profiling import device_ms, profile_card
+except ImportError:  # not in a checkout: main() says so and exits 2
+    device_ms = profile_card = None
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak (data sheet, SXM, 700 W)
 H100_F32_FLOPS = 67e12  # non-tensor-core f32 peak
 H100_BYTES = 3.35e12  # HBM3 bandwidth
@@ -208,27 +224,6 @@ def time_ms(fns, iters: int = 20) -> float:
         f()
     torch.cuda.synchronize()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    a.record()
-    for i in range(iters):
-        fns[i % len(fns)]()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / iters
-
-
-def device_ms(fns, iters: int = 20) -> float:
-    """Card time per call over ``iters`` calls cycling through ``fns``, after
-    one warm-up round: the card first spins for ~10 ms (``torch.cuda._sleep``)
-    while the host queues the events and the calls behind it, so the events
-    time the calls back to back on the card and leave out the host's issue
-    time, which ``time_ms`` of a ~40 us kernel counts."""
-    import torch
-
-    for f in fns:
-        f()
-    torch.cuda.synchronize()
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(20_000_000)  # clock cycles
     a.record()
     for i in range(iters):
         fns[i % len(fns)]()
@@ -1137,45 +1132,22 @@ def phase_edit(dev: dict, model: str, vocab: Path, wav_path: Path, align_dir: Pa
 
 
 def profiled(fn, label: str, top: int = 12) -> dict:
-    """``fn()`` once under torch.profiler: the card's busy time (the union of
-    its kernels' intervals: a graph's kernels may overlap), the kernels' summed
-    time by kernel, and the idle share of the call's wall time (which ends in
-    a sync). Fails if the busy time exceeds the wall time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    cuda = torch.autograd.DeviceType.CUDA
-    rows = []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", 0.0)
-        if e.device_type == cuda and us > 0:
-            rows.append((us, e.count, e.key))
-    rows.sort(reverse=True)
-    summed = sum(r[0] for r in rows)
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == cuda and e.time_range.end > e.time_range.start)
-    busy, end = 0.0, float("-inf")
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    out = {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3, "summed_ms": summed / 1e3,
-           "kernels": sum(r[1] for r in rows), "idle": 1 - busy / wall_us}
+    """``fn()`` once under torch.profiler (``utils/profiling.py:profile_card``):
+    the card's busy time (the union of its kernels' intervals: a graph's
+    kernels may overlap), the kernels' summed time by kernel, and the idle
+    share of the call's wall time (which ends in a sync). Fails if the busy
+    time exceeds the wall time."""
+    out = profile_card(fn)
+    rows, summed = out.pop("rows"), out["summed_ms"] * 1e3
     print(f"[profile] {label} under torch.profiler: wall {out['wall_ms']:.1f} ms, card busy "
-          f"{out['busy_ms']:.1f} ms (union of {len(spans)} intervals; kernel times summed "
+          f"{out['busy_ms']:.1f} ms (union of {out['intervals']} intervals; kernel times summed "
           f"{out['summed_ms']:.1f} ms) in {out['kernels']} kernels, idle share "
           f"{out['idle']:.3f}", flush=True)
     for us, count, key in rows[:top]:
         print(f"[profile] {us / 1e3:9.2f} ms {100 * us / max(summed, 1e-9):5.1f} % x{count:6d}  "
               f"{key[:90]}", flush=True)
-    check(0 < busy <= wall_us, f"{label}: card busy {busy:.0f} us against a wall of "
-                               f"{wall_us:.0f} us")
+    check(0 < out["busy_ms"] <= out["wall_ms"], f"{label}: card busy {out['busy_ms']:.3f} ms "
+                                                f"against a wall of {out['wall_ms']:.3f} ms")
     return out
 
 
@@ -3415,12 +3387,158 @@ def _mesh_denoise(dev: dict, d: Path) -> None:
     check(same, "denoise --data_parallel differs from the plain run")
 
 
+def sampler_blocks(settings, depth: int) -> int:
+    """Blocks one sampler call runs (each block launches K1, K3 and K2 once
+    on the flagship path), from the settings' schedule: depth a step, less
+    the cached range on the block cache's cached steps, twice a midpoint
+    step."""
+    steps = settings.steps
+    if settings.block_cache_range is None:
+        return depth * steps * (2 if settings.method == "midpoint" else 1)
+    _, pre, tail = serving_refresh_steps(settings, steps)
+    lo, hi = settings.block_cache_range
+    return depth * (pre + tail) + (depth - (hi - lo)) * (steps - pre - tail)
+
+
+PROBE_MFU_MAX = 1.05  # model FLOP utilisation above this is a wrong count
+
+
+def phase_probes(dev: dict) -> dict:
+    """The measurement tools (``scripts/``) at flagship width on the card,
+    each printing its own JSON lines: ``kernel_check`` (vmem against xla,
+    N 1024, B 1 and 8); ``profile_sampler`` (the graphed B 1 sampler at NFE
+    32, CFG 2: card busy, idle share, mfu in (0, ``PROBE_MFU_MAX``]);
+    ``latency_probe`` at the serving defaults, a closed loop of 4 requests
+    and ``--loaded_ttfb`` for 10 s (no request shed); ``cutoff_probe``,
+    ``blockcache_probe`` and ``quant_probe`` at two specs (modes) each, their
+    launch counts equal to the blocks their settings run; ``attn_pack_probe``
+    (K4 bit-equal to K3); ``widehead_probe --no_e2e``; ``distill_probe
+    --stages 8 --steps 2``; ``student_stack_probe`` with one spec. Returns
+    the launch counts of the sampler tools (the kernel-only checks and
+    timings are not counted)."""
+    import torch
+
+    from lemas_tts_tpu_torch import TTS
+    from lemas_tts_tpu_torch.config import resolve_quant
+    from lemas_tts_tpu_torch.scripts import (attn_pack_probe, blockcache_probe, cutoff_probe,
+                                             distill_probe, kernel_check, latency_probe,
+                                             profile_sampler, quant_probe, student_stack_probe,
+                                             widehead_probe)
+
+    t_phase = time.perf_counter()
+    totals = dict.fromkeys(kernel_counters(), 0)
+    depth = 22
+
+    def run(label, fn, want=None):
+        """fn() with the counts set to 0 just before and read just after
+        (``want``: the counts it must give); None counts nothing."""
+        reset_counters()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        got = read_counters()
+        print(f"[probes] {label}: {time.perf_counter() - t0:.1f} s, launches "
+              f"{ {k: v for k, v in got.items() if v} }", flush=True)
+        if want is not None:
+            want = {k: want.get(k, 0) for k in got}
+            check(got == want, f"[probes] {label}: launches {got}, expected {want}")
+            for k in totals:
+                totals[k] += got[k]
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    def each(kernels, n):
+        return {k: n for k in kernels}
+
+    recs = run("kernel_check N 1024, B 1 and 8",
+               lambda: kernel_check.check_kernels([1024], [1, 8], device="cuda", verbose=False))
+    print(json.dumps({"kernel_check": "ok", "device": dev["kind"], "records": recs}), flush=True)
+
+    prof = run("profile_sampler B 1 (capture, a timed replay, a profiled replay)",
+               lambda: profile_sampler.profile(profile_sampler.build_parser().parse_args(
+                   ["--batch", "1", "--nfe", "32", "--top", "8"])),
+               each(FLAGSHIP_KERNELS, 3 * depth * 32))
+    for ms, n, name in prof.pop("top"):
+        print(f"[probes] profile_sampler {ms:9.3f} ms x{n:6d}  {name[:90]}")
+    print(json.dumps(prof), flush=True)
+    check(prof["mfu"] is not None and 0 < prof["mfu"] <= PROBE_MFU_MAX,
+          f"profile_sampler mfu {prof['mfu']} outside (0, {PROBE_MFU_MAX}]")
+
+    def latency():
+        tts = TTS(model="multilingual", quantization=resolve_quant("default"))
+        parse = latency_probe.build_parser().parse_args
+        closed = latency_probe.run(parse(["--requests", "4"]), tts)["latency_probe"]
+        loaded = latency_probe.run(parse(["--loaded_ttfb", "--qps", "1", "--secs", "10",
+                                          "--max_batch", "2"]), tts)["latency_probe"]
+        return closed, loaded
+
+    closed, loaded = run("latency_probe closed loop and --loaded_ttfb", latency)
+    lat_launches = read_counters()
+    check(closed["shed"] == 0 and closed["latency"]["count"] == 4,
+          f"latency_probe closed loop: {closed}")
+    check(loaded["shed"] == 0 and loaded["stream_ttfb"] and loaded["batched"]
+          and loaded["batched"]["count"] == loaded["fired"],
+          f"latency_probe --loaded_ttfb shed requests or finished none: {loaded}")
+    check(lat_launches["vmem_attention_nhd"] > 0, "latency_probe launched no K3")
+    for k in totals:  # int8 serving: K3 only; every launch is a request's
+        totals[k] += lat_launches[k]
+
+    cut = cutoff_probe.build_argparser().parse_args(["--cutoffs", "0.25,1.0"])
+    run("cutoff_probe (full CFG, 2 cutoffs; eager)", lambda: cutoff_probe.run_probe(cut),
+        each(FLAGSHIP_KERNELS, 3 * depth * cut.nfe))
+
+    bc = blockcache_probe.build_argparser().parse_args(
+        ["--specs", "0-22:2+t2,4-20:3", "--batch", "2", "--reps", "2"])
+    bc_blocks = sum(sampler_blocks(blockcache_probe.cache_settings(bc, spec), depth)
+                    for spec in (None, "0-22:2+t2", "4-20:3"))
+    run("blockcache_probe (none + 2 specs; graphs: eager run, capture, 2 replays)",
+        lambda: blockcache_probe.run_probe(bc), each(FLAGSHIP_KERNELS, 3 * bc_blocks))
+
+    qa = quant_probe.build_argparser().parse_args(
+        ["--geometries", "16x64", "--speed", "--reps", "2"])
+    q_blocks = sum(sampler_blocks(s, depth) for s in quant_probe.mode_settings(qa).values())
+    recs = run("quant_probe int8 against bf16, exact and serving (graphs)",
+               lambda: quant_probe.run(qa),
+               {**each(FLAGSHIP_KERNELS, 3 * q_blocks), "vmem_attention_nhd": 6 * q_blocks})
+    for r in recs:
+        lo, hi = INT8_REL_L2
+        print(f"[probes] quant_probe {r['mode']}: int8 rel-L2 {r['rel_l2']:.3e} "
+              f"(INT8_REL_L2 band {lo:g}-{hi:g}: {lo <= r['rel_l2'] <= hi}), int8 "
+              f"{r['int8_wall_s']:.4f} s against bf16 {r['bf16_wall_s']:.4f} s", flush=True)
+        check(0 < r["rel_l2"] < kernel_check.REL_TOL,
+              f"quant_probe {r['mode']}: int8 against bf16 rel-L2 {r['rel_l2']}")
+
+    run("attn_pack_probe", lambda: attn_pack_probe.run(attn_pack_probe.build_argparser()
+                                                       .parse_args(["--shapes", "1x1024",
+                                                                    "8x1024", "--reps", "50"])))
+    run("widehead_probe --no_e2e", lambda: widehead_probe.main(
+        ["--no_e2e", "--shapes", "1x1024", "8x1024", "--reps", "50"]))
+
+    da = distill_probe.build_argparser().parse_args(
+        ["--stages", "8", "--steps", "2", "--synthetic", "16", "--reps", "2"])
+    # the teacher's graph (3 runs of NFE 32), the student eager twice, its graph 3 runs
+    run("distill_probe --stages 8 --steps 2", lambda: distill_probe.run(da),
+        each(FLAGSHIP_KERNELS, 3 * depth * 32 + 5 * depth * 8))
+
+    sa = student_stack_probe.build_argparser().parse_args(
+        ["--steps", "8", "--specs", "0-22:2+t2", "--batch", "2", "--reps", "2"])
+    sub = blockcache_probe.build_argparser().parse_args(
+        ["--nfe", "8", "--cfg", "0", "--depth", str(sa.depth)])
+    s_blocks = sum(sampler_blocks(blockcache_probe.cache_settings(sub, spec), depth)
+                   for spec in (None, "0-22:2+t2"))
+    run("student_stack_probe 8 x 128, NFE 8, one spec", lambda: student_stack_probe.run(sa),
+        each(FLAGSHIP_KERNELS, 3 * s_blocks))
+    print(f"[probes] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return totals
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     if not (REPO / "lemas_tts_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke.py must run from a checkout of the repository "
               "(lemas_tts_tpu_torch/ not found beside it)", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(REPO))
     import torch
 
     if not torch.cuda.is_available():
@@ -3434,7 +3552,8 @@ def main() -> int:
     graphed, profiles = phase_graph(dev)
     for more in (phase_frontend(dev), graphed, phase_serve(dev, profiles["eager"]),
                  phase_prosody(dev), phase_bigvgan(dev), phase_unett(dev), phase_uvr5(dev),
-                 phase_train(dev), phase_splash(dev), phase_asr(dev), phase_mesh(dev)):
+                 phase_train(dev), phase_splash(dev), phase_asr(dev), phase_mesh(dev),
+                 phase_probes(dev)):
         launches = {k: launches[k] + more[k] for k in launches}
     kernels = [records[k] for k in ("qkv_block", "vmem_attention_nhd", "ffn_block",
                                      "vmem_attention_nhd_pack", "vmem_attention",
@@ -3442,6 +3561,7 @@ def main() -> int:
     for rec in kernels:
         rec["launches"] = launches[rec["name"]]
         check(rec["launches"] > 0, f"{rec['name']} was not launched on the slice's paths")
+    print(f"[smoke] every phase passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(dev["card"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],

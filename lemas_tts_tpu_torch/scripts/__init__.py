@@ -9,6 +9,9 @@
  - ``train``                    — CFM training with checkpoints and resume
  - ``distill``                  — progressive distillation into few-step students
  - ``evaluate``                 — objective metrics of synthesized audio
+ - ``kernel_check``, ``profile_sampler``, ``latency_probe``, ``parity_check``
+   and the ``*_probe`` scripts — the measurement tools (correctness gate,
+   trace and mfu, serving latency, checkpoint parity, sampler trades)
 
 Run as modules: ``python -m lemas_tts_tpu_torch.scripts.tts_multilingual
 --help``. They run on CUDA unless ``--device cpu`` is given, and never fall

@@ -1,7 +1,10 @@
 """Stage timers, structured JSON-lines logging and the per-request trace
 schema of the serving engine (counterpart of
 ``lemas_tts_tpu/utils/profiling.py``, without its ``jax.profiler`` capture:
-the port traces the card with ``torch.profiler``)."""
+the port traces the card with ``torch.profiler``), and the card's timing:
+``device_ms`` (CUDA events around calls queued behind a spin),
+``profile_card`` (busy time as the union of kernel intervals, idle share)
+and ``summarize_trace`` (a saved Chrome trace)."""
 
 from __future__ import annotations
 
@@ -87,3 +90,100 @@ class JsonLogger:
         with self._lock:
             self._fh.write(line + "\n")
             self._fh.flush()
+
+
+# ------------------------------------------------------------ card timing
+
+
+def device_ms(fns, iters: int = 20) -> float:
+    """Card time per call over ``iters`` calls cycling through ``fns``, after
+    one warm-up round: the card first spins for ~10 ms (``torch.cuda._sleep``)
+    while the host queues the events and the calls behind it, so the events
+    time the calls back to back on the card and leave out the host's issue
+    time, which back-to-back host timing of a ~40 us kernel counts."""
+    import torch
+
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)  # clock cycles
+    a.record()
+    for i in range(iters):
+        fns[i % len(fns)]()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def interval_union(spans) -> float:
+    """Total length covered by ``(start, end)`` intervals: the card's busy
+    time from its kernels' intervals (a graph's kernels may overlap, so their
+    summed time overstates it)."""
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
+def profile_card(fn, trace_path: Optional[str] = None) -> Dict[str, Any]:
+    """``fn()`` once under ``torch.profiler`` (CPU and CUDA activities), the
+    call ending in a sync: wall ms, the card's busy ms (``interval_union`` of
+    its kernel intervals), the kernels' summed ms, their count, the idle
+    share of the wall, the number of intervals and ``rows`` ``[(us, count,
+    name)]`` of card time by kernel, largest first. ``trace_path`` keeps the
+    Chrome trace (``summarize_trace`` reads it)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = sorted(((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+                   if e.device_type == cuda and getattr(e, "self_device_time_total", 0) > 0),
+                  reverse=True)
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == cuda and e.time_range.end > e.time_range.start]
+    busy = interval_union(spans)
+    if trace_path:
+        prof.export_chrome_trace(trace_path)
+    return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
+            "summed_ms": sum(r[0] for r in rows) / 1e3, "kernels": sum(r[1] for r in rows),
+            "idle": 1 - busy / wall_us, "intervals": len(spans), "rows": rows}
+
+
+def summarize_trace(path: str, top: int = 25) -> str:
+    """Tabulate a Chrome trace that ``torch.profiler`` wrote: per event
+    category, the card's kernels (``kernel``, with their busy union) or, in
+    a trace with none (a CPU run), the host's operators (``cpu_op``), the
+    ``top`` names by total time."""
+    import collections
+
+    with open(path, encoding="utf-8") as fh:
+        events = json.load(fh).get("traceEvents", [])
+    out = []
+    for cat in ("kernel", "cpu_op"):
+        evs = [e for e in events if e.get("cat") == cat and e.get("ph") == "X"]
+        if not evs:
+            continue
+        tot: collections.Counter = collections.Counter()
+        cnt: collections.Counter = collections.Counter()
+        for e in evs:
+            tot[e["name"]] += float(e.get("dur", 0.0)) / 1e3
+            cnt[e["name"]] += 1
+        head = f"== {cat}: {len(evs)} events, summed {sum(tot.values()):.3f} ms"
+        if cat == "kernel":
+            spans = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0))) for e in evs]
+            head += f", card busy {interval_union(spans) / 1e3:.3f} ms (union)"
+        out.append(head)
+        for name, ms in tot.most_common(top):
+            out.append(f"{ms:9.3f} ms  n={cnt[name]:>5}  {name[:110]}")
+        if cat == "kernel":
+            break  # a card trace: its host operators are not the time
+    return "\n".join(out) or "(no kernel or operator events in the trace)"

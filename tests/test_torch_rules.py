@@ -22,8 +22,8 @@ PKG = REPO / "lemas_tts_tpu_torch"
 
 def test_import_leaves_jax_out():
     """Importing every module of the port (and building nothing), its
-    ``text/``, ``scripts/``, ``uvr5/`` and ``eval/`` subpackages and the
-    training and multi-GPU modules included, pulls in
+    ``text/``, ``scripts/``, ``uvr5/`` and ``eval/`` subpackages, the
+    training and multi-GPU modules and the measurement tools included, pulls in
     neither jax nor lemas_tts_tpu (nor the tests' torch mirrors)."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -39,7 +39,12 @@ def test_import_leaves_jax_out():
         " 'cfm.train', 'cfm.data', 'cfm.checkpoint', 'cfm.distill', 'models.speaker',"
         " 'eval.metrics', 'scripts.train', 'scripts.distill', 'scripts.evaluate', 'infer.asr',"
         " 'parallel.distributed', 'parallel.mesh', 'parallel.sequence', 'ops.ring_attention',"
-        " 'serve.multihost', 'parallel.tensor', 'parallel.pipeline'):\n"
+        " 'serve.multihost', 'parallel.tensor', 'parallel.pipeline', 'utils.flops',"
+        " 'utils.misc', 'scripts._probe_common', 'scripts.kernel_check',"
+        " 'scripts.profile_sampler', 'scripts.cutoff_probe', 'scripts.blockcache_probe',"
+        " 'scripts.quant_probe', 'scripts.attn_pack_probe', 'scripts.widehead_probe',"
+        " 'scripts.latency_probe', 'scripts.distill_probe', 'scripts.student_stack_probe',"
+        " 'scripts.parity_check'):\n"
         "    assert 'lemas_tts_tpu_torch.' + sub in names, sub\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
