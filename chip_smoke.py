@@ -167,12 +167,26 @@ Phases, in order (any failure raises; the exit code is then non-zero):
      blocks their settings run; ``attn_pack_probe`` (K4 bit-equal to K3),
      ``widehead_probe --no_e2e``, ``distill_probe --stages 8 --steps 2`` and
      ``student_stack_probe`` with one spec.
+ 20. assets: the flagship ``multilingual`` model with a seeded ``TTS``'s
+     random weights written as a reference checkpoint (``ema_model.``
+     keys) and a Vocos ``pytorch_model.bin``; ``validate_assets`` on them
+     (parity and the phone goldens skipped: no reference repository, no
+     espeak): ``convert_*`` where ``tensorstore`` imports (skipped with the
+     reason where not), ``smoke_infer`` at NFE 32 (K1-K3 22 x 32 each, its
+     wave the seeded model's byte for byte, a TTS on what it loaded giving
+     the seeded mel bit for bit), the three reprobes with the launches their
+     settings run; ``export_wav(remove_silence=True)``; the Gradio
+     ``infer_fn`` plain (704 each) and in fast mode (the block cache's
+     count); ``serve_http`` on the native scheduler (``csrc/host``), one
+     wave of 8 ``/tts`` with ``ref_b64`` as one batch of 8; ``read_audio``
+     of a FLAC where ``ffmpeg`` is.
 On CUDA every request's sampler is a graph replay (its first request of a
 bucket runs eagerly and captures), so every count above is launches on the
 card. The line before the last is the ``kernels`` JSON record; the last line
-is ``{"ok": true, "device": {...}}``. Needs only torch, numpy and the CUDA
-toolkit (and ``transformers`` where it is installed, for ``[asr]``'s tiny
-Whisper): no JAX, no yaml.
+is ``{"ok": true, "device": {...}}``. Needs only torch, numpy, the CUDA
+toolkit and ``g++`` (and ``transformers`` where it is installed, for
+``[asr]``'s tiny Whisper, ``tensorstore`` for ``[assets]``' orbax steps):
+no JAX, no yaml.
 """
 
 from __future__ import annotations
@@ -1489,9 +1503,12 @@ def phase_serve(dev: dict, eager_b1: dict) -> dict:
         vocab.write_text("\n".join(CHAR_VOCAB) + "\n")
         ref_path = str(d / "ref.wav")
         write_wav(ref_path, _reference_wave(16000, 3.0, seed=0), 16000)
+        # the serving default's 15 ms batching window (the JAX server's) is
+        # shorter than eight clients take to post here: wait up to 2 s for a
+        # full batch
         args = serve_http.build_parser().parse_args(
             ["--port", "0", "--vocab_file", str(vocab), "--frontend", "none", "--max_batch", "8",
-             "--warmup_batches", "1,8"])
+             "--warmup_batches", "1,8", "--max_wait_ms", "2000"])
         ready, box, failed = threading.Event(), [], []
 
         def run_server():
@@ -1509,9 +1526,6 @@ def phase_serve(dev: dict, eager_b1: dict) -> dict:
             raise failed[0]
         httpd, engine = box[0]
         port = httpd.server_address[1]
-        # the engine's 15 ms batching window (the JAX server's) is shorter
-        # than eight clients take to post here: wait up to 2 s for a full batch
-        engine.batcher.max_wait_us = 2_000_000
 
         def memory(when: str) -> None:
             print(f"[serve] card memory {when}: reserved {torch.cuda.memory_reserved() / 2**20:.0f}"
@@ -3276,7 +3290,8 @@ def _mesh_serve(dev: dict, vocab: Path, ref_path: str) -> dict:
 
     args = serve_http.build_parser().parse_args(
         ["--port", "0", "--vocab_file", str(vocab), "--frontend", "none", "--max_batch", "8",
-         "--warmup_batches", "8", "--warmup_durations", "1024", "--multihost"])
+         "--warmup_batches", "8", "--warmup_durations", "1024", "--multihost",
+         "--max_wait_ms", "2000"])  # one batch of 8 (see phase_serve)
     ready, box, failed = threading.Event(), [], []
 
     def run_server():
@@ -3294,7 +3309,6 @@ def _mesh_serve(dev: dict, vocab: Path, ref_path: str) -> dict:
         raise failed[0]
     httpd, engine = box[0]
     port = httpd.server_address[1]
-    engine.batcher.max_wait_us = 2_000_000  # one batch of 8 (see phase_serve)
     try:
         print(f"[mesh] serve_http --multihost ready (warm-ups included) in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -3533,6 +3547,306 @@ def phase_probes(dev: dict) -> dict:
     return totals
 
 
+SMOKE_TEXT = "Hello from the runbook."  # validate_assets' smoke request
+
+
+def _runbook(argv: list) -> tuple:
+    """``validate_assets.main(argv)`` with its stdout shown and kept: (exit
+    code, step records by name, the summary line)."""
+    import io
+
+    from lemas_tts_tpu_torch.scripts import validate_assets
+
+    buf = io.StringIO()
+
+    class Tee(io.TextIOBase):
+        def write(self, text):
+            buf.write(text)
+            sys.__stdout__.write(text)
+            return len(text)
+
+    with contextlib.redirect_stdout(Tee()):
+        rc = validate_assets.main(argv)
+    lines = buf.getvalue().splitlines()
+    recs = {r["step"]: r for r in (json.loads(ln[len("[step] "):]) for ln in lines
+                                   if ln.startswith("[step] "))}
+    return rc, recs, json.loads(lines[-1])
+
+
+def _reprobe_launches(steps: dict, depth: int) -> dict:
+    """The launches each reprobe step of the runbook must make, from the
+    settings its argv gives its probe: ``cutoff_probe`` full CFG and each
+    cutoff (eager), ``blockcache_probe`` the uncached and each spec's graph
+    (the eager first call and ``--reps`` replays), ``quant_probe`` each
+    geometry's and mode's bf16 (K1-K3) and int8 (K3 only) sampler once
+    (eager)."""
+    from lemas_tts_tpu_torch.scripts import blockcache_probe, cutoff_probe, quant_probe
+
+    cut = cutoff_probe.build_argparser().parse_args(steps["reprobe_cutoff"].argv)
+    n_cut = 1 + len([c for c in cut.cutoffs.split(",") if c])
+    bc = blockcache_probe.build_argparser().parse_args(steps["reprobe_blockcache"].argv)
+    bc_blocks = sum(sampler_blocks(blockcache_probe.cache_settings(bc, spec), depth)
+                    for spec in [None] + [s for s in bc.specs.split(",") if s])
+    qa = quant_probe.build_argparser().parse_args(steps["reprobe_quant"].argv)
+    q_blocks = len(quant_probe.geometries(qa)) * sum(
+        sampler_blocks(st, depth) for st in quant_probe.mode_settings(qa).values())
+    return {"reprobe_cutoff": expected_launches(FLAGSHIP_KERNELS, n_cut * depth * cut.nfe),
+            "reprobe_blockcache": expected_launches(FLAGSHIP_KERNELS, (1 + bc.reps) * bc_blocks),
+            "reprobe_quant": {**expected_launches(FLAGSHIP_KERNELS, q_blocks),
+                              "vmem_attention_nhd": 2 * q_blocks}}
+
+
+def phase_assets(dev: dict) -> dict:
+    """The JAX package's remaining runtime on the card, on the flagship
+    ``multilingual`` model (1024 x 22, 16 x 64 heads) with the seeded random
+    weights of a port ``TTS``, written as a reference-layout checkpoint
+    (``ema_model.`` keys) and a Vocos ``pytorch_model.bin``:
+    ``validate_assets`` on them (parity and the goldens skipped: no reference
+    repository, no espeak), its smoke at NFE 32 launching K1-K3 22 x 32
+    times each and writing the seeded model's wave bit for bit, the loaded
+    model's mel equal to the seeded one's, the three reprobes with the
+    launches their settings give, the ``convert_*`` steps run where
+    ``tensorstore`` imports and skipped with the reason where not; the
+    Gradio ``infer_fn`` plain (K1-K3 22 x 32) and in fast mode (the block
+    cache's count); ``serve_http`` on the native scheduler, one wave of 8
+    ``/tts`` with ``ref_b64`` forming one batch of 8; ``export_wav(
+    remove_silence=True)``; ``read_audio`` of a non-WAV file where ``ffmpeg``
+    is. Returns the launch counts of these runs."""
+    import base64
+    import importlib.util
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from lemas_tts_tpu_torch import TTS
+    from lemas_tts_tpu_torch.api import process_phone_list
+    from lemas_tts_tpu_torch.config import SERVING_BLOCK_CACHE, SamplerConfig
+    from lemas_tts_tpu_torch.scripts import inference_gradio, serve_http, validate_assets
+    from lemas_tts_tpu_torch.text import TextNorm
+    from lemas_tts_tpu_torch.utils.audio_io import read_audio, write_wav
+
+    t_phase = time.perf_counter()
+    totals = dict.fromkeys(kernel_counters(), 0)
+    quiet = lambda *_: None  # noqa: E731
+
+    def add(got):
+        for k in totals:
+            totals[k] += got.get(k, 0)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        ref_path = str(d / "ref.wav")
+        write_wav(ref_path, _reference_wave(16000, 3.0, seed=0), 16000)
+        phone = TextNorm("phone")
+        seqs = [_frontend_units(phone, t) for t in (REF_TEXT, GEN_TEXT, SMOKE_TEXT)]
+        units = sorted({u for q in seqs for u in q + process_phone_list(q)} - {" "})
+        vocab = d / "vocab.txt"
+        vocab.write_text("\n".join([" "] + units) + "\n")
+
+        # ---- the assets: a seeded TTS's random weights, in the reference layouts
+        t0 = time.perf_counter()
+        seeded = TTS(model="multilingual", vocab_file=str(vocab))
+        ckpt, voc = d / "model_last.pt", d / "vocos"
+        torch.save({"ema_model_state_dict": {f"ema_model.transformer.{k}": v.float().cpu()
+                                             for k, v in seeded.dit.state_dict().items()}}, ckpt)
+        voc.mkdir()
+        torch.save({k: v.float().cpu() for k, v in seeded.vocoder.state_dict().items()},
+                   voc / "pytorch_model.bin")
+        a = seeded.config.arch
+        print(f"[assets] seeded flagship TTS ({a.dim} x {a.depth}, {a.heads} x {a.dim_head} "
+              f"heads) written as {ckpt.name} ({ckpt.stat().st_size / 2**20:.0f} MiB, "
+              f"ema_model. keys) and vocos/pytorch_model.bin in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+        # ---- validate_assets on them
+        have_ts = validate_assets.have_tensorstore()
+        out = d / "validated"
+        argv = ["--ckpt", str(ckpt), "--use_ema", "--vocab_file", str(vocab), "--vocos", str(voc),
+                "--model", "multilingual", "--ref_audio", ref_path, "--ref_text", REF_TEXT,
+                "--smoke_nfe", "32", "--probe_args", f"--batch 2 --vocab {seeded.vocab.size}",
+                "--skip", "parity_capture,parity_compare,phone_goldens", "--out", str(out)]
+        steps = {st.name: st for st in validate_assets.build_steps(
+            validate_assets.build_parser().parse_args(argv))}
+        want = {"smoke_infer": expected_launches(FLAGSHIP_KERNELS, a.depth * 32),
+                **_reprobe_launches(steps, a.depth)}
+        reset_counters()
+        t0 = time.perf_counter()
+        rc, recs, summary = _runbook(argv)
+        print(f"[assets] validate_assets: exit {rc} in {time.perf_counter() - t0:.1f} s; "
+              f"{summary}", flush=True)
+        check(rc == 0 and summary["failed"] == [], f"validate_assets failed: {summary}")
+        for name, launches in want.items():
+            launches = {k: v for k, v in launches.items() if v}
+            got = {k: v for k, v in recs[name].get("launches", {}).items() if v}
+            print(f"[assets] {name}: {recs[name]['status']}, {recs[name]['time_s']} s, launches "
+                  f"{got} (expected {launches})", flush=True)
+            check(recs[name]["status"] == "pass" and got == launches,
+                  f"{name}: {recs[name]}, expected launches {launches}")
+            add(got)
+        converts = ("convert_cfm", "convert_vocoder", "convert_uvr5")
+        if have_ts:
+            check(recs["convert_cfm"]["status"] == recs["convert_vocoder"]["status"] == "pass"
+                  and (out / "native_model" / "_METADATA").is_file(), "convert_* did not run")
+            check(recs["smoke_infer"]["loaded"] == str(out / "native_model"),
+                  "smoke_infer did not load the orbax directory")
+        else:
+            check(all(recs[s]["status"] == "skip" and "tensorstore" in recs[s]["reason"]
+                      for s in converts[:2]), "convert_* not skipped for tensorstore")
+            check(recs["smoke_infer"]["loaded"] == str(ckpt), "smoke_infer loaded another file")
+        print(f"[assets] tensorstore {'imports: convert_* ran' if have_ts else 'absent: convert_*'}"
+              f" {'' if have_ts else 'skipped with the reason'}: "
+              + ", ".join(f"{s} {recs[s]['status']}" for s in converts)
+              + f"; smoke_infer loaded {Path(recs['smoke_infer']['loaded']).name}", flush=True)
+
+        # ---- the loaded model against the seeded one: same wave, same mel
+        seeded_wave, sr, seeded_mel = seeded.infer(ref_path, REF_TEXT, SMOKE_TEXT, nfe_step=32,
+                                                   seed=0, show_info=quiet)
+        write_wav(str(d / "seeded.wav"), seeded_wave.astype(np.float32), sr)
+        same_file = (d / "seeded.wav").read_bytes() == (out / "smoke.wav").read_bytes()
+        loaded = TTS(model="multilingual", ckpt_file=recs["smoke_infer"]["loaded"],
+                     vocab_file=str(vocab), vocoder_local_path=str(voc))
+        reset_counters()
+        wave, _, mel = loaded.infer(ref_path, REF_TEXT, SMOKE_TEXT, nfe_step=32, seed=0,
+                                    show_info=quiet)
+        got = read_counters()
+        add(got)
+        print(f"[assets] smoke.wav equal to the seeded TTS's wave, byte for byte: {same_file}; "
+              f"a TTS on {Path(recs['smoke_infer']['loaded']).name}: mel {tuple(mel.shape)} "
+              f"bit-equal to the seeded TTS's: {np.array_equal(mel, seeded_mel)}, wave equal: "
+              f"{np.array_equal(wave, seeded_wave)}; launches {got}", flush=True)
+        check(same_file and np.array_equal(mel, seeded_mel) and np.array_equal(wave, seeded_wave),
+              "the loaded checkpoint does not reproduce the seeded model")
+        check(got == want["smoke_infer"], f"loaded TTS launches {got}")
+
+        # ---- export_wav(remove_silence=True)
+        gap = np.concatenate([wave, np.zeros(2 * sr, np.float32), wave])
+        seeded.export_wav(gap, str(d / "full.wav"))
+        seeded.export_wav(gap, str(d / "cut.wav"), remove_silence=True)
+        full, _ = read_audio(str(d / "full.wav"))
+        cut, _ = read_audio(str(d / "cut.wav"))
+        print(f"[assets] export_wav(remove_silence=True): {cut.shape[1]} samples of "
+              f"{full.shape[1]} (a 2 s gap cut)", flush=True)
+        check(cut.shape[1] < full.shape[1] and bool(np.isfinite(cut).all()),
+              "remove_silence did not shorten the file")
+        del seeded, loaded
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- the Gradio infer_fn on the card, plain and in fast mode
+        gargs = inference_gradio.build_parser().parse_args(
+            ["--ckpt_file", str(ckpt), "--vocab_file", str(vocab)])
+        infer_fn, _ = inference_gradio.make_handlers(gargs, RuntimeError)
+        rwav, rsr = read_audio(ref_path)
+        pcm = (rwav[0] * 32767).astype(np.int16)
+        for fast in (False, True):
+            reset_counters()
+            t0 = time.perf_counter()
+            (out_sr, audio), seed = infer_fn((rsr, pcm), REF_TEXT, GEN_TEXT, 32, 2.0, 1.0, 1.0,
+                                             1.0, True, False, fast, "3")
+            torch.cuda.synchronize()
+            got = read_counters()
+            tts = inference_gradio.get_tts("multilingual", str(ckpt), str(vocab))
+            settings = tts.synth._settings(SamplerConfig(
+                nfe_steps=32, cfg_strength=2.0, sway_sampling_coef=1.0,
+                cfg_cutoff=1.0 if fast else None, block_cache=SERVING_BLOCK_CACHE if fast else None))
+            blocks = sampler_blocks(settings, a.depth)
+            print(f"[assets] gradio infer_fn ({'fast mode' if fast else 'plain'}) on "
+                  f"{tts.device}: {audio.size / out_sr:.3f} audio-s int16 at {out_sr} Hz, seed "
+                  f"{seed}, in {time.perf_counter() - t0:.1f} s; launches {got} (expected "
+                  f"{blocks} each)", flush=True)
+            check(tts.device.type == "cuda" and out_sr == 24000 and audio.dtype == np.int16
+                  and np.abs(audio).max() > 0 and seed == "3", "infer_fn output")
+            check(got == expected_launches(FLAGSHIP_KERNELS, blocks), f"infer_fn launches {got}")
+            add(got)
+        inference_gradio._model_cache.clear()
+        del tts
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- serve_http on the native scheduler: one wave of 8 /tts with ref_b64
+        args = serve_http.build_parser().parse_args(
+            ["--port", "0", "--ckpt_file", str(ckpt), "--vocab_file", str(vocab),
+             "--max_batch", "8", "--warmup_batches", "8",
+             "--max_wait_ms", "2000"])  # one batch of 8 (see phase_serve)
+        ready, box, failed = threading.Event(), [], []
+
+        def run_server():
+            try:
+                serve_http.serve(args, ready_event=ready, server_box=box)
+            except BaseException as e:  # handed to the main thread below
+                failed.append(e)
+                ready.set()
+
+        t0 = time.perf_counter()
+        server = threading.Thread(target=run_server, daemon=True)
+        server.start()
+        check(ready.wait(600), "serve_http did not start")
+        if failed:
+            raise failed[0]
+        httpd, engine = box[0]
+        port = httpd.server_address[1]
+        try:
+            check(engine.batcher.is_native, "serve_http's engine is not on the native scheduler")
+            print(f"[assets] serve_http ready in {time.perf_counter() - t0:.1f} s on the "
+                  "native scheduler", flush=True)
+            depth = len(engine.synth.dit_model.transformer_blocks)
+            _, prefix, tail = serving_refresh_steps(serving_settings(engine.synth))
+            per_batch = expected_launches(("vmem_attention_nhd",), (prefix + tail) * depth)
+            ref_b64 = base64.b64encode(Path(ref_path).read_bytes()).decode()
+            results = [None] * 8
+            start = threading.Barrier(9)
+
+            def client(i):
+                start.wait()
+                results[i] = _http(port, "POST", "/tts", dict(ref_b64=ref_b64, ref_text=REF_TEXT,
+                                                              text=GEN_TEXT, seed=i))
+
+            threads = [threading.Thread(target=client, args=(i,)) for i in range(8)]
+            for t in threads:
+                t.start()
+            reset_counters()
+            start.wait()
+            t1 = time.perf_counter()
+            for t in threads:
+                t.join(timeout=600)
+            wall = time.perf_counter() - t1
+            got = read_counters()
+            add(got)
+            check(all(r is not None and r[0] == 200 for r in results),
+                  f"/tts: {[r and r[:2] for r in results]}")
+            stats = json.loads(_http(port, "GET", "/stats")[2])
+            print(f"[assets] a wave of 8 /tts with ref_b64 in {wall:.3f} s; /stats scheduler "
+                  f"{stats['scheduler']!r}, batch sizes {stats['batch_sizes']}; launches {got} "
+                  f"(one batch of 8: {per_batch})", flush=True)
+            check(stats["scheduler"] == "native" and stats["batch_sizes"] == [8],
+                  f"the wave did not form one batch of 8 on the native scheduler: {stats}")
+            check(got == per_batch, f"the wave's launches {got}, expected {per_batch}")
+        finally:
+            httpd.shutdown()
+            server.join(timeout=120)
+        check(not server.is_alive(), "serve_http did not stop")
+        del engine, httpd
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- read_audio of a container other than WAV
+        if shutil.which("ffmpeg"):
+            flac = d / "ref.flac"
+            subprocess.run(["ffmpeg", "-v", "quiet", "-y", "-i", ref_path, str(flac)], check=True,
+                           timeout=120)
+            w, r = read_audio(str(flac))
+            how = "soundfile" if importlib.util.find_spec("soundfile") else "ffmpeg"
+            print(f"[assets] read_audio of a FLAC through {how}: {w.shape} at {r} Hz", flush=True)
+            check(w.shape[-1] == 48000 and r == 16000 and bool(np.isfinite(w).all()),
+                  "read_audio of the FLAC")
+        else:
+            print("[assets] ffmpeg absent on this machine: read_audio of a non-WAV container "
+                  "not run", flush=True)
+    print(f"[assets] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return totals
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not (REPO / "lemas_tts_tpu_torch" / "__init__.py").is_file():
@@ -3553,7 +3867,7 @@ def main() -> int:
     for more in (phase_frontend(dev), graphed, phase_serve(dev, profiles["eager"]),
                  phase_prosody(dev), phase_bigvgan(dev), phase_unett(dev), phase_uvr5(dev),
                  phase_train(dev), phase_splash(dev), phase_asr(dev), phase_mesh(dev),
-                 phase_probes(dev)):
+                 phase_probes(dev), phase_assets(dev)):
         launches = {k: launches[k] + more[k] for k in launches}
     kernels = [records[k] for k in ("qkv_block", "vmem_attention_nhd", "ffn_block",
                                      "vmem_attention_nhd_pack", "vmem_attention",

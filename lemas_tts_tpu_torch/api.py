@@ -47,12 +47,22 @@ Differences from the JAX package:
    seeds (SPMD, as under ``torchrun``), and every process gets the whole
    result. Batches shard over ``data``; on a ``("data", "seq")`` mesh each
    utterance's sequence shards over ``seq`` (DiT only).
- - Not ported yet: native orbax checkpoints, ``hf://`` checkpoint URIs and
-   ``export_wav(remove_silence=...)`` have no keyword here, so passing one
-   gives a ``TypeError``.
  - A missing checkpoint or vocoder gives random weights (seeded), as in the
    JAX package; reference ``.pt``/``.safetensors`` checkpoints and the
    published Vocos ``pytorch_model.bin`` load directly (same key names).
+ - ``ckpt_file`` may be a JAX native checkpoint, an orbax directory (its
+   ``_METADATA``): ``convert_checkpoint --ckpt`` output, a distillation
+   stage (``student.json`` beside it), read with ``tensorstore``
+   (``infer/checkpoints.py``, an optional dependency) and carried over by
+   ``weights.py``. A port directory (``model.pt``, ``model_last.pt``) loads
+   as a training or distillation run. An int8 native tree raises
+   ``ValueError``: load the float one, with ``quantization=``. A vocoder
+   path that is, or holds under ``native/``, an orbax directory loads it
+   too (the JAX package takes ``native/`` for Vocos only).
+ - ``hf://<org>/<repo>/<file>`` checkpoints resolve through the Hugging Face
+   hub cache (``resolve_ckpt``, ``hf_cache_dir``); with no vocoder weights
+   at the default path, Vocos comes from the hub's cache, and from the
+   network only under ``LEMAS_HF_FALLBACK=1``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -90,6 +100,37 @@ def find_pretrained_root() -> Path:
     return THIS_FILE.parent.parent / "pretrained_models"
 
 
+def resolve_ckpt(path: str, hf_cache_dir: Optional[str] = None) -> str:
+    """``hf://<org>/<repo>/<file>`` -> the file in the Hugging Face hub cache
+    (``huggingface_hub.hf_hub_download``); any other path unchanged."""
+    if not path.startswith("hf://"):
+        return path
+    from huggingface_hub import hf_hub_download
+
+    parts = path[len("hf://"):].split("/", 2)
+    if len(parts) < 3 or not all(parts):
+        raise ValueError(f"bad checkpoint URI {path!r}: expected hf://<org>/<repo>/<file>")
+    return hf_hub_download(repo_id=f"{parts[0]}/{parts[1]}", filename=parts[2],
+                           cache_dir=hf_cache_dir)
+
+
+def hub_vocos(hf_cache_dir: Optional[str] = None) -> Optional[str]:
+    """The published Vocos ``pytorch_model.bin`` from the hub cache, or, under
+    ``LEMAS_HF_FALLBACK=1``, downloaded; None when neither gives it."""
+    try:
+        from huggingface_hub import hf_hub_download
+
+        return hf_hub_download("charactr/vocos-mel-24khz", "pytorch_model.bin",
+                               local_files_only=True, cache_dir=hf_cache_dir)
+    except Exception:
+        if os.environ.get("LEMAS_HF_FALLBACK") == "1":
+            from huggingface_hub import hf_hub_download
+
+            return hf_hub_download("charactr/vocos-mel-24khz", "pytorch_model.bin",
+                                   cache_dir=hf_cache_dir)
+    return None
+
+
 def select_device(device: Optional[str]) -> torch.device:
     """``None`` -> CUDA (raises without it); anything else as asked, checked."""
     dev = torch.device(device or "cuda")
@@ -117,7 +158,8 @@ class TTS:
                  ode_method: str = "euler", use_ema: bool = False,
                  vocoder_local_path: Optional[str] = None, use_prosody_encoder: bool = False,
                  prosody_cfg_path: str = "", prosody_ckpt_path: str = "",
-                 device: Optional[str] = None, frontend: Optional[str] = "phone",
+                 device: Optional[str] = None, hf_cache_dir: Optional[str] = None,
+                 frontend: Optional[str] = "phone",
                  compute_dtype: Optional[str] = None, quantization: Optional[str] = None,
                  attn_backend: Optional[str] = None, mesh=None):
         from functools import partial
@@ -128,7 +170,6 @@ class TTS:
         from lemas_tts_tpu_torch.models.unett import UNetT
         from lemas_tts_tpu_torch.ops.attention import check_backend
         from lemas_tts_tpu_torch.ops.quant import MODES, quantize_dense_tree
-        from lemas_tts_tpu_torch.weights import load_reference_checkpoint
 
         if ode_method not in ("euler", "midpoint"):
             raise ValueError(f"unknown ode_method: {ode_method!r}")
@@ -185,12 +226,16 @@ class TTS:
         # ---- a distilled student's sidecar, read before the backbone is built:
         # its head split (same parameters) and, at infer time, its sampler settings
         self.student: Optional[dict] = None
+        self.hf_cache_dir = hf_cache_dir
         if ckpt_file:
+            from lemas_tts_tpu_torch.infer.checkpoints import is_native
             from lemas_tts_tpu_torch.weights import checkpoint_file
 
+            ckpt_file = resolve_ckpt(ckpt_file, hf_cache_dir)
             sidecar = (Path(ckpt_file) if os.path.isdir(ckpt_file)
                        else Path(ckpt_file).parent) / "student.json"
-            ckpt_file = str(checkpoint_file(ckpt_file))
+            if not is_native(ckpt_file):
+                ckpt_file = str(checkpoint_file(ckpt_file))
             if sidecar.is_file():
                 import dataclasses
                 import json
@@ -211,8 +256,12 @@ class TTS:
                                                  attn_backend=self.attn_backend), seed=0)
         pros_to_mel = None
         if ckpt_file:
-            state, pros_to_mel = load_reference_checkpoint(ckpt_file, use_ema=use_ema)
-            self.dit.load_state_dict(state)
+            from lemas_tts_tpu_torch.infer.checkpoints import load_cfm_checkpoint
+
+            loaded = load_cfm_checkpoint(ckpt_file, use_ema=use_ema,
+                                         backbone=self.config.backbone)
+            self.dit.load_state_dict(loaded["dit"])
+            pros_to_mel = loaded.get("prosody_to_mel")
         else:
             warnings.warn("no checkpoint — random-initializing model weights")
         if quantization is not None:  # from the float weights, before the dtype cast
@@ -238,7 +287,7 @@ class TTS:
                 ckpt_path=prosody_ckpt_path or self.config.prosody_ckpt_path, device=self.device)
 
         # ---- vocoder (the config's mel_spec_type)
-        self.vocoder = self._build_vocoder(mel, dtype, vocoder_local_path)
+        self.vocoder = self._build_vocoder(mel, dtype, vocoder_local_path, hf_cache_dir)
 
         for m in (self.dit, self.vocoder):
             cast_matrices(m, dtype).to(self.device).eval()
@@ -247,11 +296,16 @@ class TTS:
                                  prosody_to_mel=self.prosody_to_mel, mesh=mesh)
 
     @staticmethod
-    def _build_vocoder(mel, dtype: torch.dtype, vocoder_local_path: Optional[str]):
+    def _build_vocoder(mel, dtype: torch.dtype, vocoder_local_path: Optional[str],
+                       hf_cache_dir: Optional[str] = None):
         """Vocos (the published ``pytorch_model.bin``) or BigVGAN (NVIDIA's
-        generator, weight norm folded); random weights from a seed when the
-        default path holds none, ``FileNotFoundError`` when a path that was
-        given holds none."""
+        generator, weight norm folded), or either from a native (orbax)
+        directory, the path itself or its ``native/``; at the default path
+        Vocos may come from the hub (``hub_vocos``); random weights from a
+        seed when the default path holds none, ``FileNotFoundError`` when a
+        path that was given holds none."""
+        from lemas_tts_tpu_torch import weights
+        from lemas_tts_tpu_torch.infer.checkpoints import load_native, native_dir
         from lemas_tts_tpu_torch.models.bigvgan import BigVGAN, BigVGANConfig
         from lemas_tts_tpu_torch.models.vocos import Vocos
         from lemas_tts_tpu_torch.weights import find_bigvgan_checkpoint, load_bigvgan_checkpoint
@@ -270,6 +324,14 @@ class TTS:
                                                  compute_dtype=dtype), seed=1)
             ckpt = voc_path / "pytorch_model.bin"
             ckpt = ckpt if ckpt.is_file() else None
+        nat = native_dir(voc_path) if voc_path.is_dir() else None
+        if nat is not None:
+            carry = weights.bigvgan_state_from_jax if bigvgan else weights.vocos_state_from_jax
+            vocoder.load_state_dict(carry(load_native(nat)))
+            return vocoder
+        if ckpt is None and not bigvgan and vocoder_local_path is None:
+            hub = hub_vocos(hf_cache_dir)
+            ckpt = Path(hub) if hub is not None else None
         if ckpt is None:
             if vocoder_local_path is not None:
                 raise FileNotFoundError(f"no vocoder weights at {voc_path}")
@@ -318,9 +380,14 @@ class TTS:
 
         return transcribe(ref_audio, language, device=self.device)
 
-    def export_wav(self, wav: np.ndarray, file_wave: str) -> None:
+    def export_wav(self, wav: np.ndarray, file_wave: str, remove_silence: bool = False) -> None:
+        """Write ``wav`` as 16-bit PCM; ``remove_silence`` first cuts its
+        silences longer than a second (``audio_prep.remove_long_silence``)."""
+        from lemas_tts_tpu_torch.infer.audio_prep import remove_long_silence
         from lemas_tts_tpu_torch.utils.audio_io import write_wav
 
+        if remove_silence:
+            wav = remove_long_silence(np.asarray(wav), self.target_sample_rate)
         write_wav(file_wave, np.asarray(wav), self.target_sample_rate)
 
     def export_spectrogram(self, spec: np.ndarray, file_spec: str) -> None:
@@ -337,7 +404,7 @@ class TTS:
         plt.savefig(file_spec)
         plt.close(fig)
 
-    def infer(self, ref_file, ref_text: str, gen_text: str, show_info=print,
+    def infer(self, ref_file, ref_text: str, gen_text: str, show_info=print, progress=None,
               target_rms: float = 0.1, cross_fade_duration: float = 0.15,
               use_acc_grl: bool = False, ref_ratio: Optional[float] = None,
               no_ref_audio: bool = False, cfg_strength: float = 2.0, nfe_step: int = 32,
@@ -354,8 +421,9 @@ class TTS:
         ``use_prosody_encoder`` conditions a prosody model's request on the
         reference's prosody. An empty ``ref_text`` is transcribed by
         ``transcribe_fn(wave, sr)``, by default :meth:`transcribe`, once for
-        each reference audio (``infer/preprocess.py``'s cache). Returns
-        ``(wav, sample_rate, spec)``."""
+        each reference audio (``infer/preprocess.py``'s cache). ``progress``
+        is taken for the JAX signature (a Gradio progress callback) and
+        unused there as here. Returns ``(wav, sample_rate, spec)``."""
         from lemas_tts_tpu_torch.infer.pipeline import chunk_text
         from lemas_tts_tpu_torch.infer.preprocess import preprocess_ref_audio_text
 

@@ -1,5 +1,7 @@
 """Host-side reference-audio conditioning: silence clipping & trimming
-(copy of ``lemas_tts_tpu/infer/audio_prep.py`` without the native scanner).
+(copy of ``lemas_tts_tpu/infer/audio_prep.py``); the silence scan's
+sliding-window dBFS runs in the C++ host runtime (``native/audio.py:
+scan_dbfs``), as the JAX package's does when its library is built.
 
 Numpy re-implementation of the pydub-based preprocessing
 (``utils_infer.py:306-393,631-640``): same thresholds (dBFS), same 6 s/12 s
@@ -42,9 +44,11 @@ def detect_silence(
     silence_starts = []
     last_start = length_ms - min_silence_len
 
-    for start_ms in range(0, last_start + 1, seek_step):
-        s = _samples(start_ms, sr)
-        if dbfs(x[s : s + win]) < silence_thresh:
+    from lemas_tts_tpu_torch.native.audio import scan_dbfs
+
+    profile = scan_dbfs(x, sr, min_silence_len, seek_step)
+    for i, start_ms in enumerate(range(0, last_start + 1, seek_step)):
+        if i < len(profile) and profile[i] < silence_thresh:
             silence_starts.append(start_ms)
     if last_start > 0 and last_start % seek_step:
         # pydub always tests the final (unaligned) window too
@@ -146,3 +150,11 @@ def clip_ref_audio(x: np.ndarray, sr: int, show_info=print) -> np.ndarray:
     # + 50 ms trailing silence (utils_infer.py:361)
     return np.concatenate([clipped, np.zeros(_samples(50, sr), dtype=x.dtype)])
 
+
+
+def remove_long_silence(x: np.ndarray, sr: int) -> np.ndarray:
+    """Generated-audio long-silence removal (``utils_infer.py:631-640``)."""
+    segs = split_on_silence(x, sr, 1000, -50.0, 500, 10)
+    if not segs:
+        return x
+    return np.concatenate(segs)

@@ -24,7 +24,7 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 from functools import lru_cache
-from typing import Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -240,3 +240,62 @@ class BigVGAN(nn.Module):
             keep = torch.repeat_interleave(frame_mask, self.cfg.total_upsample, dim=-1)
             wav = torch.where(keep[:, : wav.shape[-1]], wav, 0.0)
         return wav
+
+
+# ------------------------------------------------- reference -> JAX layout
+def _fold_wn(sd: Mapping[str, np.ndarray], p: str) -> np.ndarray:
+    """weight_norm fold in numpy, as the JAX converter does it: w = g · v /
+    ‖v‖ (norm over the in and k axes per out channel); a plain ``.weight``
+    when the file is not weight-normed."""
+    if f"{p}.weight" in sd:
+        return np.asarray(sd[f"{p}.weight"])
+    g = np.asarray(sd[f"{p}.weight_g"])  # [out, 1, 1]
+    v = np.asarray(sd[f"{p}.weight_v"])  # [out, in, k]
+    norm = np.sqrt((v ** 2).sum(axis=(1, 2), keepdims=True))
+    return g * v / np.maximum(norm, 1e-12)
+
+
+def _conv_p(sd, p) -> Dict[str, np.ndarray]:
+    out = {"kernel": np.transpose(_fold_wn(sd, p), (2, 1, 0))}  # torch [out, in, k]
+    if f"{p}.bias" in sd:
+        out["bias"] = np.asarray(sd[f"{p}.bias"])
+    return out
+
+
+def _convT_p(sd, p) -> Dict[str, np.ndarray]:
+    # torch ConvTranspose1d [in, out, k] -> [k, out, in] (transpose_kernel)
+    out = {"kernel": np.transpose(_fold_wn(sd, p), (2, 1, 0))}
+    if f"{p}.bias" in sd:
+        out["bias"] = np.asarray(sd[f"{p}.bias"])
+    return out
+
+
+def _act_p(sd, p, variant: str) -> Dict[str, np.ndarray]:
+    out = {"alpha": np.asarray(sd[f"{p}.act.alpha"])}
+    if variant == "snakebeta":
+        out["beta"] = np.asarray(sd[f"{p}.act.beta"])
+    return out
+
+
+def convert_bigvgan(sd: Mapping[str, np.ndarray],
+                    cfg: BigVGANConfig = BigVGANConfig()) -> Dict[str, Any]:
+    """NVIDIA BigVGAN generator state dict (numpy) -> the JAX ``BigVGAN``'s
+    param tree, leaf for leaf what
+    ``lemas_tts_tpu/models/bigvgan.py:convert_bigvgan`` gives
+    (``scripts/convert_checkpoint.py --bigvgan``)."""
+    params: Dict[str, Any] = {"conv_pre": _conv_p(sd, "conv_pre"),
+                              "act_post": _act_p(sd, "activation_post", cfg.activation),
+                              "conv_post": _conv_p(sd, "conv_post")}
+    n_res = len(cfg.resblock_kernel_sizes)
+    for i in range(len(cfg.upsample_rates)):
+        params[f"up_{i}"] = _convT_p(sd, f"ups.{i}.0")
+        for j in range(n_res):
+            r = f"resblocks.{i * n_res + j}"
+            blk: Dict[str, Any] = {}
+            for d in range(len(cfg.resblock_dilation_sizes[j])):
+                blk[f"conv1_{d}"] = _conv_p(sd, f"{r}.convs1.{d}")
+                blk[f"conv2_{d}"] = _conv_p(sd, f"{r}.convs2.{d}")
+                blk[f"act1_{d}"] = _act_p(sd, f"{r}.activations.{2 * d}", cfg.activation)
+                blk[f"act2_{d}"] = _act_p(sd, f"{r}.activations.{2 * d + 1}", cfg.activation)
+            params[f"res_{i}_{j}"] = blk
+    return params

@@ -9,8 +9,9 @@ bucket-padded batch decode equals per-sample exact-length decodes.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Dict, Mapping, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -94,3 +95,32 @@ class Vocos(nn.Module):
         return istft(spec, self.n_fft, self.hop_length, frame_mask=frame_mask)
 
     forward = decode
+
+
+def convert_vocos(sd: Mapping[str, np.ndarray]) -> Dict[str, Any]:
+    """charactr/vocos ``pytorch_model.bin`` state dict (numpy) -> the JAX
+    ``Vocos``'s param tree, leaf for leaf what
+    ``lemas_tts_tpu/models/vocos.py:convert_vocos`` gives
+    (``scripts/convert_checkpoint.py --vocos``)."""
+
+    def lin(p):
+        return {"kernel": np.asarray(sd[f"{p}.weight"]).T, "bias": np.asarray(sd[f"{p}.bias"])}
+
+    def conv(p):
+        return {"kernel": np.transpose(np.asarray(sd[f"{p}.weight"]), (2, 1, 0)),
+                "bias": np.asarray(sd[f"{p}.bias"])}
+
+    def ln(p):
+        return {"scale": np.asarray(sd[f"{p}.weight"]), "bias": np.asarray(sd[f"{p}.bias"])}
+
+    bb: Dict[str, Any] = {"embed": conv("backbone.embed"), "norm": ln("backbone.norm"),
+                          "final_layer_norm": ln("backbone.final_layer_norm")}
+    i = 0
+    while f"backbone.convnext.{i}.dwconv.weight" in sd:
+        key = f"backbone.convnext.{i}"
+        bb[f"convnext_{i}"] = {"dwconv": conv(f"{key}.dwconv"), "norm": ln(f"{key}.norm"),
+                               "pwconv1": lin(f"{key}.pwconv1"),
+                               "pwconv2": lin(f"{key}.pwconv2"),
+                               "gamma": np.asarray(sd[f"{key}.gamma"])}
+        i += 1
+    return {"backbone": bb, "out": lin("head.out")}

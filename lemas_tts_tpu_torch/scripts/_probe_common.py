@@ -51,6 +51,19 @@ def random_dit(arch, mel_dim: int, vocab: int, device: torch.device,
     return cast_matrices(model, dtype).to(device).eval()
 
 
+def probe_checkpoint(path: str) -> dict:
+    """The backbone's state dict from a probe's ``--ckpt``: a directory is a
+    native (orbax) artifact, what ``convert_checkpoint``/``validate_assets``
+    write; a file a reference ``.pt``/``.safetensors`` checkpoint (EMA
+    weights preferred), as in the JAX probes."""
+    from lemas_tts_tpu_torch.infer.checkpoints import load_cfm_checkpoint, load_native_cfm
+    from lemas_tts_tpu_torch.weights import dit_state_from_jax
+
+    if Path(path).is_dir():
+        return dit_state_from_jax(load_native_cfm(path)[0])
+    return load_cfm_checkpoint(path)["dit"]
+
+
 def probe_model_and_inputs(args):
     """``(model, inputs)`` for a probe namespace with ``ckpt``, ``dim``,
     ``depth``, ``heads``, ``seed``, ``batch``, ``n`` (and optionally
@@ -75,13 +88,7 @@ def probe_model_and_inputs(args):
                    conv_layers=getattr(args, "conv_layers", None) or 4)
     state = None
     if getattr(args, "ckpt", None):
-        if Path(args.ckpt).is_dir():
-            raise NotImplementedError(
-                f"{args.ckpt} is a directory (a native orbax artifact): reading orbax is "
-                "ROADMAP A16; pass a reference .pt/.safetensors checkpoint file")
-        from lemas_tts_tpu_torch.weights import load_reference_checkpoint
-
-        state, _ = load_reference_checkpoint(args.ckpt)
+        state = probe_checkpoint(args.ckpt)
     model = random_dit(arch, D, vocab, device, state=state,
                        quant=getattr(args, "quant", None) or None)
 

@@ -6,8 +6,10 @@
       --data manifest.jsonl --ckpt_dir ckpts/distilled
 
 Teacher sources: a training directory of ``scripts/train.py`` (its EMA
-weights), a stage directory of this script, or a reference ``.pt`` /
-``.safetensors`` CFM checkpoint (EMA preferred). Each stage writes
+weights), a stage directory of this script, a reference ``.pt`` /
+``.safetensors`` CFM checkpoint (EMA preferred), or a JAX native (orbax)
+directory: a JAX training run (its ``model_last``'s EMA params) or a native
+DiT tree (``load_teacher``). Each stage writes
 ``<ckpt_dir>/stage_<K>/model.pt`` (the stage's EMA student, in the
 reference layout) and ``student.json`` beside it, which ``TTS`` and
 ``serve_http`` read to pin the student's sampler settings (``steps=K``,
@@ -37,7 +39,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--config", type=str, default="multilingual")
     p.add_argument("--vocab_file", type=str, default="")
     p.add_argument("--teacher", type=str, required=True,
-                   help="Training or stage directory, or a reference .pt/.safetensors.")
+                   help="Training or stage directory, a reference .pt/.safetensors, "
+                        "or a JAX orbax directory.")
     p.add_argument("--stages", type=str, default="16,8",
                    help="Comma-separated student NFE per stage (halving chain).")
     p.add_argument("--steps_per_stage", type=int, default=2000)
@@ -71,9 +74,22 @@ def build_parser() -> argparse.ArgumentParser:
 
 def load_teacher(path: str):
     """The teacher backbone's state dict from a training directory (EMA), a
-    stage directory or a reference checkpoint file (EMA preferred)."""
-    from lemas_tts_tpu_torch.weights import checkpoint_file, load_reference_checkpoint
+    stage directory or a reference checkpoint file (EMA preferred), or from
+    a JAX native (orbax) directory, read as the JAX ``load_teacher`` reads
+    it: a training run's ``model_last`` (or the run's directory itself) gives
+    its ``ema_params``, else its ``params["dit"]``; any other tree (a stage,
+    ``convert_checkpoint`` output) is the DiT's params."""
+    from lemas_tts_tpu_torch.infer.checkpoints import is_native, load_native
+    from lemas_tts_tpu_torch.weights import (checkpoint_file, dit_state_from_jax,
+                                             load_reference_checkpoint)
 
+    p = Path(path)
+    native = next((c for c in (p / "model_last", p) if is_native(c)), None)
+    if native is not None:
+        tree = load_native(native)
+        if "ema_params" in tree:
+            tree = tree["ema_params"] if tree["ema_params"] is not None else tree["params"]["dit"]
+        return dit_state_from_jax(tree)
     return load_reference_checkpoint(str(checkpoint_file(path)), use_ema=True)[0]
 
 

@@ -11,7 +11,8 @@ Manifest: JSONL, one utterance a line —
 mel-ized with the config's frontend. Reported: mel MSE/MAE and MCD
 (DTW-aligned with ``--dtw``), speaker cosine (with ``--speaker_ckpt``, a
 torch file of a ``models.speaker.SpeakerEncoder`` state dict at the default
-channel widths; its input and embedding widths are read from the file),
+channel widths, or the JAX package's orbax tree of its variables; its input
+and embedding widths are read from the weights),
 WER/CER (with transcripts; ``--asr`` transcribes a hyp WAV that has no
 ``hyp_text`` with Whisper, ``infer/asr.py``, on ``--device``). Runs on CUDA
 unless ``--device cpu``.
@@ -36,7 +37,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="DTW-align frames for MCD (length-mismatched pairs).")
     p.add_argument("--n_coeffs", type=int, default=13)
     p.add_argument("--speaker_ckpt", type=str, default="",
-                   help="SpeakerEncoder state dict (torch file) for speaker cosine.")
+                   help="SpeakerEncoder state dict (torch file) or JAX variables (orbax "
+                        "directory) for speaker cosine.")
     p.add_argument("--asr", action="store_true",
                    help="Transcribe hyp wavs for WER/CER when hyp_text is absent.")
     p.add_argument("--device", type=str, default=None,
@@ -94,7 +96,12 @@ def main(argv=None) -> int:
         from lemas_tts_tpu_torch.eval.metrics import speaker_similarity
         from lemas_tts_tpu_torch.models.speaker import SpeakerConfig, SpeakerEncoder
 
-        sd = torch.load(args.speaker_ckpt, map_location="cpu", weights_only=True)
+        from lemas_tts_tpu_torch.infer.checkpoints import is_native, load_native
+        from lemas_tts_tpu_torch.weights import speaker_state_from_jax
+
+        sd = (speaker_state_from_jax(load_native(args.speaker_ckpt))
+              if is_native(args.speaker_ckpt)
+              else torch.load(args.speaker_ckpt, map_location="cpu", weights_only=True))
         enc = SpeakerEncoder(SpeakerConfig(input_dim=sd["blocks.0.conv.conv.weight"].shape[1],
                                            embed_dim=sd["fc.weight"].shape[0]))
         enc.load_state_dict(sd)

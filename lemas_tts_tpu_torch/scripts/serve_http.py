@@ -90,10 +90,13 @@ def _wav_bytes(wav: np.ndarray, sr: int) -> bytes:
 def _decode_ref(payload: dict):
     """(mono wave [T] float32, sr) from ``ref_b64`` WAV bytes or a
     server-local ``ref_path``."""
+    from lemas_tts_tpu_torch.native.audio import wav_decode
     from lemas_tts_tpu_torch.utils.audio_io import decode_wav, read_audio
 
     if payload.get("ref_b64"):
-        wav, sr = decode_wav(base64.b64decode(payload["ref_b64"]), "ref_b64")
+        raw = base64.b64decode(payload["ref_b64"])
+        # the C++ codec, and the numpy decoder for what it does not take
+        wav, sr = wav_decode(raw) or decode_wav(raw, "ref_b64")
     elif payload.get("ref_path"):
         wav, sr = read_audio(payload["ref_path"])
     else:
@@ -380,6 +383,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="DiT W8A8 quantization: 'default' is config.SERVING_QUANT (int8), "
                         "'int8' / 'int8_ff' explicit, 'none' float.")
     p.add_argument("--max_batch", type=int, default=4)
+    p.add_argument("--max_wait_ms", type=float, default=15.0,
+                   help="How long a non-full batch waits for more requests, from its "
+                        "first request's arrival.")
     p.add_argument("--max_streams", type=int, default=2,
                    help="Concurrent /tts_stream requests (more get 503).")
     p.add_argument("--no_warmup", action="store_true")
@@ -492,6 +498,7 @@ def serve(args, *, ready_event: Optional[threading.Event] = None,
         n = dispatch_warmup(synth, cfg, duration_buckets=dd, batch_buckets=warmup_batches(args))
         print(f"[serve_http] dispatch-path warmup: {n} dispatches")
     engine = ServingEngine(synth, cfg=cfg, max_batch=args.max_batch,
+                           max_wait_ms=args.max_wait_ms,
                            trace_requests=True if args.trace_requests else None)
     if dispatch is not None:
         # a follower's death poisons the engine: its futures fail, requests get 503

@@ -1,8 +1,9 @@
-"""Shape-bucketed micro-batching queue of the serving engine (counterpart of
-``lemas_tts_tpu/native/batcher.py``'s pure-Python ``_PyBatcher``, the same
-semantics as ``native/scheduler.cpp``, which the port does not load).
+"""The pure-Python shape-bucketed micro-batching queue (counterpart of
+``lemas_tts_tpu/native/batcher.py``'s ``_PyBatcher``), with the semantics of
+the C++ queue ``csrc/host/scheduler.cpp``. The serving engine takes the C++
+queue (``native/batcher.py:Batcher``); ``Batcher(native=False)`` is this one.
 
-    b = Batcher(max_batch=8, max_wait_ms=20)
+    b = PyBatcher(max_batch=8, max_wait_ms=20)
     rid = b.submit(bucket=1024, cost=duration_frames)   # request threads
     ids, bucket = b.next_batch(timeout_ms=100)          # the device loop
 
@@ -19,7 +20,7 @@ from collections import deque
 from typing import Dict, List, Optional, Tuple
 
 
-class Batcher:
+class PyBatcher:
     def __init__(self, max_batch: int = 8, max_cost: int = 0, max_wait_ms: float = 20.0):
         self.max_batch = max(1, int(max_batch))
         self.max_cost = max_cost

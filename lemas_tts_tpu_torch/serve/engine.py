@@ -1,8 +1,8 @@
 """Continuous-batching TTS serving engine (counterpart of
 ``lemas_tts_tpu/serve/engine.py``).
 
-Request threads submit :class:`TTSRequest`s; the micro-batcher
-(``serve/batcher.py``) groups concurrent requests by sampler settings and
+Request threads submit :class:`TTSRequest`s; the micro-batcher (the C++
+queue of ``native/batcher.py``) groups concurrent requests by sampler settings and
 duration bucket; one worker thread drives the card with
 ``Synthesizer.synthesize_requests`` (each row its own reference), which on
 CUDA replays the bucket's sampler graph. The model and its graphs are built
@@ -28,7 +28,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 
 from lemas_tts_tpu_torch.config import SamplerConfig
-from lemas_tts_tpu_torch.serve.batcher import Batcher
+from lemas_tts_tpu_torch.native.batcher import Batcher
 from lemas_tts_tpu_torch.utils.profiling import TIMERS, JsonLogger, trace_record
 
 # composite bucket = cfg_id * _BUCKET_STRIDE + duration bucket; the stride
@@ -283,6 +283,7 @@ class ServingEngine:
             shed = dict(self._shed)
             sizes = list(self._batch_sizes)
         return {"queue_depth": self.batcher.depth(), "timers": TIMERS.snapshot(),
+                "scheduler": "native" if self.batcher.is_native else "python",
                 "latency": lat, "settings_variants": n_cfgs, "shed": shed,
                 "batch_sizes": sizes,
                 "degraded": str(self._poisoned) if self._poisoned else None}

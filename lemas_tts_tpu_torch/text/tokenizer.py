@@ -10,13 +10,15 @@ espeak-ng is a C library loaded via ``phonemizer`` (+ optional
 ``available()`` reports whether the backend can be constructed so callers can
 fall back to the char frontend.
 
-Copy of ``lemas_tts_tpu/text/tokenizer.py`` without its two codec wrappers
-(``AudioTokenizer``, ``AudioSR``), which no entry point calls. Pause markers
-follow :data:`PAUSE_TOKENS`: only an exact ``#1``-``#4`` is one.
+Copy of ``lemas_tts_tpu/text/tokenizer.py``, its two codec wrappers
+(``AudioTokenizer``, ``AudioSR``, which no entry point calls) gated on their
+optional packages as there. Pause markers follow :data:`PAUSE_TOKENS`: only
+an exact ``#1``-``#4`` is one.
 """
 
 from __future__ import annotations
 
+import math
 import os
 import re
 from typing import List
@@ -109,3 +111,78 @@ def txt2phone(tokenizer: TextTokenizer, text: str) -> str:
         elif part:
             phones += tokenizer.phonemize_to_tokens(part)
     return "|".join(phones).replace("(|", "(").replace("|)", ")")
+
+
+class AudioTokenizer:
+    """Neural audio codec tokenizer (reference ``tokenizer.py:146-178``: an
+    EnCodec wrapper via audiocraft, defined but never called by any entry
+    point). Kept for API parity, gated on the optional dependency. Runs on
+    CUDA unless ``device="cpu"`` (``api.select_device``)."""
+
+    def __init__(self, device=None, signature=None) -> None:
+        try:
+            from audiocraft.solvers import CompressionSolver  # optional dep
+        except ImportError as e:
+            raise ImportError(
+                "AudioTokenizer needs the optional 'audiocraft' package "
+                "(unused by the TTS pipeline; reference tokenizer.py:146-178)") from e
+        from lemas_tts_tpu_torch.api import select_device
+
+        self._device = select_device(device)
+        model = CompressionSolver.model_from_checkpoint(signature)
+        self.sample_rate = model.sample_rate
+        self.channels = model.channels
+        self.codec = model.to(self._device)
+
+    @property
+    def device(self):
+        return self._device
+
+    def encode(self, wav):
+        codes = self.codec.encode(wav.to(self._device))
+        return [(codes[0], None)]
+
+    def decode(self, frames):
+        return self.codec.decode(frames[0][0])
+
+
+class AudioSR:
+    """DAC codec wrapper (reference ``tokenizer.py:199-235``, defined but
+    never called). Kept for API parity, gated on the optional dependency.
+    Runs on CUDA unless ``device="cpu"`` (``api.select_device``)."""
+
+    def __init__(self, model_path, device=None) -> None:
+        try:
+            import dac  # optional dep
+        except ImportError as e:
+            raise ImportError(
+                "AudioSR needs the optional 'descript-audio-codec' package "
+                "(unused by the TTS pipeline; reference tokenizer.py:199-235)") from e
+        from lemas_tts_tpu_torch.api import select_device
+
+        self._device = select_device(device)
+        self.codec = dac.DAC.load(model_path)
+        self.codec.to(self._device)
+        self.codec.eval()
+        self.sample_rate = self.codec.sample_rate
+        self.channels = 1
+
+    @property
+    def device(self):
+        return self._device
+
+    def encode(self, wav):
+        import torch
+
+        length = wav.shape[-1]
+        hop = self.codec.hop_length
+        pad = math.ceil(length / hop) * hop - length
+        wav = torch.nn.functional.pad(wav, (0, pad))
+        z, codes, _, _, _ = self.codec.encode(wav.to(self._device))
+        return [(codes, z)]
+
+    def decode(self, frames):
+        import torch
+
+        with torch.no_grad():
+            return self.codec.decode(frames[0][1])

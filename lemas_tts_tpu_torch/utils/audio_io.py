@@ -1,13 +1,19 @@
-"""Host-side WAV file IO with numpy only (counterpart of
-``lemas_tts_tpu/utils/audio_io.py``): 8-, 16-, 24- and 32-bit PCM and
-IEEE float32 WAV, as the JAX package's native decoder
-(``native/audioproc.cpp``) reads them. Other containers (the JAX package's
-``soundfile``/``ffmpeg`` fallbacks) are not ported and raise."""
+"""Host-side audio file IO (counterpart of ``lemas_tts_tpu/utils/audio_io.py``).
+
+WAV goes through the C++ codec (``native/audio.py:wav_decode``: 16-, 24- and
+32-bit PCM and IEEE float32), and what it does not take (8-bit PCM) through
+the numpy decoder ``decode_wav``, which reads the same formats. Other
+containers go through ``soundfile`` when it is importable, else through
+``ffmpeg`` (``-f f32le -ac 1``, mono) with ``ffprobe`` for the rate, as in
+the JAX package; with neither, ``read_audio`` raises ``NotImplementedError``.
+"""
 
 from __future__ import annotations
 
 import os
+import shutil
 import struct
+import subprocess
 import wave
 from typing import Tuple
 
@@ -66,12 +72,45 @@ def decode_wav(buf: bytes, path: str = "<bytes>") -> Tuple[np.ndarray, int]:
 
 
 def read_audio(path: str) -> Tuple[np.ndarray, int]:
-    """Decode an audio file -> (float32 [channels, T], sample_rate). Only WAV
-    is supported in this port."""
-    if not path.lower().endswith(".wav"):
-        raise NotImplementedError(
-            f"cannot decode {path!r}: only WAV files (PCM or float32) are supported")
-    return read_wav(path)
+    """Decode an audio file -> (float32 [channels, T], sample_rate)."""
+    if path.lower().endswith(".wav"):
+        from lemas_tts_tpu_torch.native.audio import wav_decode
+
+        with open(path, "rb") as f:
+            buf = f.read()
+        decoded = wav_decode(buf)
+        return decoded if decoded is not None else decode_wav(buf, path)
+    try:
+        import soundfile as sf
+    except ImportError:
+        sf = None
+    if sf is not None:
+        data, sr = sf.read(path, dtype="float32", always_2d=True)
+        return data.T.copy(), sr
+    if shutil.which("ffmpeg"):
+        return _read_ffmpeg(path)
+    raise NotImplementedError(
+        f"cannot decode {path!r}: a container other than WAV needs the 'soundfile' package "
+        "or the 'ffmpeg' and 'ffprobe' programs, and neither is available")
+
+
+def _read_ffmpeg(path: str) -> Tuple[np.ndarray, int]:
+    """Mono float32 through ``ffmpeg``; the rate from ``ffprobe`` (24 kHz when
+    it is absent or names none, as in the JAX package)."""
+    proc = subprocess.run(["ffmpeg", "-v", "quiet", "-i", path, "-f", "f32le", "-ac", "1", "-"],
+                          capture_output=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"cannot decode audio file: {path}")
+    probe = ""
+    if shutil.which("ffprobe"):
+        # -select_streams a:0: a container may list a video stream first,
+        # whose sample_rate field is empty
+        probe = subprocess.run(["ffprobe", "-v", "quiet", "-select_streams", "a:0",
+                                "-show_entries", "stream=sample_rate", "-of", "csv=p=0", path],
+                               capture_output=True, text=True).stdout.strip()
+    rate = next((ln.strip() for ln in probe.splitlines() if ln.strip()), "")
+    sr = int(rate) if rate.isdigit() else 24000
+    return np.frombuffer(proc.stdout, dtype=np.float32)[None, :].copy(), sr
 
 
 def write_wav(path: str, wav: np.ndarray, sample_rate: int) -> None:

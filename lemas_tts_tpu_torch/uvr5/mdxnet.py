@@ -24,7 +24,7 @@ running statistics (the JAX package folds them into a per-channel affine,
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -190,3 +190,65 @@ def infer_config_from_state_dict(
     return MDXConfig(dim_c=int(dim_c), dim_f=int(dim_f), dim_t=dim_t, n_fft=n_fft, hop=hop,
                      num_blocks=2 * n + 1, l=l, g=int(g), k=k, bn=int(bn), bias=bias,
                      norm=norm)
+
+
+# ------------------------------------------------- reference -> JAX layout
+def _conv2d_p(sd: Mapping[str, np.ndarray], p: str) -> Dict[str, np.ndarray]:
+    # torch [out, in, kh, kw] (a transposed conv's [in, out, kh, kw]) ->
+    # [kh, kw, in, out] ([kh, kw, out, in] with transpose_kernel)
+    out = {"kernel": np.transpose(np.asarray(sd[f"{p}.weight"]), (2, 3, 1, 0))}
+    if f"{p}.bias" in sd:
+        out["bias"] = np.asarray(sd[f"{p}.bias"])
+    return out
+
+
+def _norm_p(sd: Mapping[str, np.ndarray], p: str, mode: str) -> Dict[str, Any]:
+    if mode == "group":
+        return {"gn": {"scale": np.asarray(sd[f"{p}.weight"]),
+                       "bias": np.asarray(sd[f"{p}.bias"])}}
+    # BatchNorm's running statistics folded into an affine, as the JAX package does
+    w, b = np.asarray(sd[f"{p}.weight"]), np.asarray(sd[f"{p}.bias"])
+    mean, var = np.asarray(sd[f"{p}.running_mean"]), np.asarray(sd[f"{p}.running_var"])
+    inv = w / np.sqrt(var + 1e-5)
+    return {"scale": inv, "bias": b - mean * inv}
+
+
+def _tdf_p(sd, p, mode, bias) -> Dict[str, Any]:
+    # torch Sequential: Linear(0), norm(1), ReLU(2)[, Linear(3), norm(4), ReLU(5)]
+    out: Dict[str, Any] = {"lin0_w": np.asarray(sd[f"{p}.0.weight"]).T,
+                           "norm_0": _norm_p(sd, f"{p}.1", mode)}
+    if bias:
+        out["lin0_b"] = np.asarray(sd[f"{p}.0.bias"])
+    if f"{p}.3.weight" in sd:
+        out["lin1_w"] = np.asarray(sd[f"{p}.3.weight"]).T
+        out["norm_1"] = _norm_p(sd, f"{p}.4", mode)
+        if bias:
+            out["lin1_b"] = np.asarray(sd[f"{p}.3.bias"])
+    return out
+
+
+def _tfc_tdf_p(sd, p, cfg: MDXConfig) -> Dict[str, Any]:
+    tfc: Dict[str, Any] = {}
+    for i in range(cfg.l):
+        tfc[f"conv_{i}"] = _conv2d_p(sd, f"{p}.tfc.H.{i}.0")
+        tfc[f"norm_{i}"] = _norm_p(sd, f"{p}.tfc.H.{i}.1", cfg.norm)
+    return {"tfc": tfc, "tdf": _tdf_p(sd, f"{p}.tdf", cfg.norm, cfg.bias)}
+
+
+def convert_convtdfnet(sd: Mapping[str, np.ndarray], cfg: MDXConfig) -> Dict[str, Any]:
+    """A reference ``ConvTDFNet`` state dict (or an ``.onnx`` file's
+    initializers), numpy -> the JAX ``ConvTDFNet``'s param tree, leaf for
+    leaf what ``lemas_tts_tpu/uvr5/mdxnet.py:convert_convtdfnet`` gives
+    (``scripts/convert_checkpoint.py --uvr5``)."""
+    params: Dict[str, Any] = {"first_conv": _conv2d_p(sd, "first_conv.0"),
+                              "first_norm": _norm_p(sd, "first_conv.1", cfg.norm),
+                              "bottleneck": _tfc_tdf_p(sd, "bottleneck_block", cfg),
+                              "final_conv": _conv2d_p(sd, "final_conv.0")}
+    for i in range(cfg.n):
+        params[f"enc_{i}"] = _tfc_tdf_p(sd, f"encoding_blocks.{i}", cfg)
+        params[f"ds_conv_{i}"] = _conv2d_p(sd, f"ds.{i}.0")
+        params[f"ds_norm_{i}"] = _norm_p(sd, f"ds.{i}.1", cfg.norm)
+        params[f"us_conv_{i}"] = _conv2d_p(sd, f"us.{i}.0")
+        params[f"us_norm_{i}"] = _norm_p(sd, f"us.{i}.1", cfg.norm)
+        params[f"dec_{i}"] = _tfc_tdf_p(sd, f"decoding_blocks.{i}", cfg)
+    return params

@@ -112,8 +112,7 @@ def dit_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     sd.text_embedding(p["text_embed"])
 
     blocks = p["blocks"]["block"]
-    if "kernel_q" in blocks.get("attn", {}).get("to_q", {}):
-        raise ValueError("int8-quantized params cannot be carried over; use the float tree")
+    refuse_quantized(blocks)
     depth = int(np.asarray(blocks["attn"]["to_q"]["kernel"]).shape[0])
 
     def layer(tree, i):
@@ -129,6 +128,18 @@ def dit_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     if "prosody_text_proj" in p:
         sd.linear("prosody_text_proj", p["prosody_text_proj"])
     return dict(sd)
+
+
+def refuse_quantized(tree: Mapping[str, Any]) -> None:
+    """``ValueError`` for an int8 tree (``kernel_q`` leaves, the JAX
+    package's ``quantize_dense_tree``): the port quantizes float weights as
+    they load, so it takes the float checkpoint."""
+    from lemas_tts_tpu_torch.infer.checkpoints import has_quantized_leaves
+
+    if has_quantized_leaves(tree):
+        raise ValueError("int8-quantized params (kernel_q leaves) cannot be loaded into the "
+                         "port: load the float checkpoint the quantized tree was converted "
+                         "from, with TTS(quantization=...) to quantize it as it loads")
 
 
 def dit_block_state_from_jax(blk: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -373,44 +384,51 @@ def checkpoint_file(path) -> Path:
     return snaps[-1][1]
 
 
-def load_reference_checkpoint(path: str, use_ema: bool = True):
-    """A reference CFM checkpoint (``.pt`` or ``.safetensors``) -> (the
-    backbone's state dict, its ``prosody_to_mel`` Linear's state dict or None
-    when it has none): EMA or plain weights (``use_ema``, falling back to
-    whichever exists), ``ema_model.`` and ``transformer.`` stripped."""
-    if path.endswith(".safetensors"):
-        from safetensors.torch import load_file
-
-        sd = load_file(path)
-    else:
-        sd = torch.load(path, map_location="cpu", weights_only=True)
-        if "ema_model_state_dict" in sd or "model_state_dict" in sd:
-            first, second = (("ema_model_state_dict", "model_state_dict") if use_ema
-                             else ("model_state_dict", "ema_model_state_dict"))
-            sd = sd.get(first, sd.get(second))
-    has_ema = any(k.startswith("ema_model.") for k in sd)
-    has_plain = any(k.startswith("transformer.") for k in sd)
-    if has_ema and (use_ema or not has_plain):
-        sd = {k[len("ema_model."):]: v for k, v in sd.items() if k.startswith("ema_model.")}
-    prefix = "transformer."
-    backbone = {k[len(prefix):]: v.float() for k, v in sd.items() if k.startswith(prefix)}
-    to_mel = ({k: sd[f"prosody_to_mel.{k}"].float() for k in ("weight", "bias")}
-              if "prosody_to_mel.weight" in sd else None)
-    return backbone, to_mel
-
-
-def load_torch_file(path: str) -> Dict[str, Any]:
+def load_torch_file(path: str, use_ema: bool = True) -> Dict[str, Any]:
     """A ``.safetensors`` or torch (``.pt``/``.ckpt``/``.pth``) file -> its
     dict; of a training file's ``ema_model_state_dict`` and
-    ``model_state_dict``, the first there is."""
+    ``model_state_dict``, the one ``use_ema`` picks, else the other."""
     if str(path).endswith(".safetensors"):
         from safetensors.torch import load_file
 
         return dict(load_file(str(path)))
     obj = torch.load(path, map_location="cpu", weights_only=True)
     if "ema_model_state_dict" in obj or "model_state_dict" in obj:
-        obj = obj.get("ema_model_state_dict", obj.get("model_state_dict"))
+        first, second = (("ema_model_state_dict", "model_state_dict") if use_ema
+                         else ("model_state_dict", "ema_model_state_dict"))
+        obj = obj.get(first, obj.get(second))
     return obj
+
+
+def select_stream(sd: Mapping[str, Any], use_ema: bool = True) -> Dict[str, Any]:
+    """The weights a reference CFM state dict loads as, the port's one rule:
+    ``use_ema`` takes the ``ema_model.`` stream with that prefix stripped,
+    and so does a file with no plain backbone (no ``transformer.`` key);
+    else the plain stream. The EMA's ``initted`` and ``step`` are dropped."""
+    has_ema = any(k.startswith("ema_model.") for k in sd)
+    has_plain = any(k.startswith("transformer.") for k in sd)
+    take_ema = has_ema and (use_ema or not has_plain)
+    out = {}
+    for k, v in sd.items():
+        if k.startswith("ema_model.") != take_ema:
+            continue
+        k = k[len("ema_model."):] if take_ema else k
+        if k not in ("initted", "step"):
+            out[k] = v
+    return out
+
+
+def load_reference_checkpoint(path: str, use_ema: bool = True):
+    """A reference CFM checkpoint (``.pt`` or ``.safetensors``) -> (the
+    backbone's state dict, its ``prosody_to_mel`` Linear's state dict or None
+    when it has none), f32: the weights :func:`select_stream` picks, with
+    ``transformer.`` stripped."""
+    sd = select_stream(load_torch_file(path, use_ema=use_ema), use_ema)
+    prefix = "transformer."
+    backbone = {k[len(prefix):]: v.float() for k, v in sd.items() if k.startswith(prefix)}
+    to_mel = ({k: sd[f"prosody_to_mel.{k}"].float() for k in ("weight", "bias")}
+              if "prosody_to_mel.weight" in sd else None)
+    return backbone, to_mel
 
 
 def load_prosody_checkpoint(path: str) -> Dict[str, torch.Tensor]:

@@ -474,10 +474,17 @@ def test_read_audio_matches_jax(tmp_path, audioproc, kind, channels):
         np.testing.assert_allclose(got, x, atol=2 ** -22)
 
 
-def test_read_audio_refuses_other_formats(tmp_path):
-    (tmp_path / "a.mp3").write_bytes(b"ID3")
-    with pytest.raises(NotImplementedError, match="only WAV"):
-        read_audio(str(tmp_path / "a.mp3"))
+def test_read_audio_refuses_other_formats(tmp_path, monkeypatch):
+    """With neither ``soundfile`` nor ``ffmpeg`` at hand, a container other
+    than WAV raises, naming both; a WAV of a format neither decoder takes
+    raises with its tag."""
+    import sys
+
     (tmp_path / "b.wav").write_bytes(_wav_bytes(np.zeros((1, 8), np.uint8), 6, 8, False))
     with pytest.raises(ValueError, match="format tag 6"):
         read_audio(str(tmp_path / "b.wav"))
+    monkeypatch.setitem(sys.modules, "soundfile", None)  # import soundfile -> ImportError
+    monkeypatch.setenv("PATH", str(tmp_path / "empty"))
+    (tmp_path / "a.mp3").write_bytes(b"ID3")
+    with pytest.raises(NotImplementedError, match="soundfile.*ffmpeg"):
+        read_audio(str(tmp_path / "a.mp3"))

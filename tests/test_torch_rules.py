@@ -23,8 +23,10 @@ PKG = REPO / "lemas_tts_tpu_torch"
 def test_import_leaves_jax_out():
     """Importing every module of the port (and building nothing), its
     ``text/``, ``scripts/``, ``uvr5/`` and ``eval/`` subpackages, the
-    training and multi-GPU modules and the measurement tools included, pulls in
-    neither jax nor lemas_tts_tpu (nor the tests' torch mirrors)."""
+    training and multi-GPU modules, the measurement tools, the native
+    checkpoints, the C++ host runtime and the asset tools included, pulls in
+    neither jax, orbax nor lemas_tts_tpu (nor the tests' torch mirrors), and
+    not tensorstore, which the native checkpoints import when they run."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import lemas_tts_tpu_torch, lemas_tts_tpu_torch.api\n"
@@ -44,12 +46,14 @@ def test_import_leaves_jax_out():
         " 'scripts.profile_sampler', 'scripts.cutoff_probe', 'scripts.blockcache_probe',"
         " 'scripts.quant_probe', 'scripts.attn_pack_probe', 'scripts.widehead_probe',"
         " 'scripts.latency_probe', 'scripts.distill_probe', 'scripts.student_stack_probe',"
-        " 'scripts.parity_check'):\n"
+        " 'scripts.parity_check', 'infer.checkpoints', 'native', 'native.audio',"
+        " 'native.batcher', 'scripts.convert_checkpoint', 'scripts.validate_assets',"
+        " 'scripts.capture_phone_goldens', 'scripts.inference_gradio'):\n"
         "    assert 'lemas_tts_tpu_torch.' + sub in names, sub\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax',"
-        " 'lemas_tts_tpu', 'tests'))\n"
+        " 'orbax', 'tensorstore', 'lemas_tts_tpu', 'tests'))\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -103,8 +107,8 @@ def test_refusals_left_are_the_multi_gpu_flags():
     """The attention backends, ASR and multi-GPU training are ported: no
     ``refuse_unported`` is left (the last, ``scripts/train.py``'s multi-GPU
     flags, went with them), and no ``NotImplementedError`` of the port names
-    ``--attn_backend``, an empty ``ref_text``, a mesh, FSDP or a ROADMAP
-    item."""
+    ``--attn_backend``, an empty ``ref_text``, a mesh, FSDP, orbax or a
+    ROADMAP item."""
     defs = []
     for path in sorted(PKG.rglob("*.py")):
         for node in ast.walk(ast.parse(path.read_text())):
@@ -114,7 +118,7 @@ def test_refusals_left_are_the_multi_gpu_flags():
                     and getattr(node.exc.func, "id", "") == "NotImplementedError"):
                 text = ast.unparse(node.exc)
                 for word in ("attn_backend", "ref_text", "mesh", "fsdp", "model_parallel",
-                             "pipe_parallel", "A14"):
+                             "pipe_parallel", "A14", "A15", "A16", "orbax"):
                     assert word not in text, (path, text)
     assert defs == []
 
@@ -127,6 +131,42 @@ def test_tts_without_cuda_raises():
     for device in (None, "cuda"):
         with pytest.raises(RuntimeError, match="CUDA"):
             TTS(model="tests/data/tiny.yaml", device=device)
+
+
+@pytest.mark.parametrize("name", ["AudioTokenizer", "AudioSR"])
+def test_codec_wrappers_default_to_cuda(name, monkeypatch):
+    """The codec wrappers resolve their device as every entry point does:
+    no device means CUDA (raising without it), and only an explicit "cpu"
+    runs on the CPU. Their optional packages are stood in for by stubs."""
+    import types
+
+    from lemas_tts_tpu_torch.text import tokenizer
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the wrappers would run on it")
+
+    class Codec(torch.nn.Linear):
+        sample_rate, channels = 24000, 1
+
+        def __init__(self):
+            super().__init__(2, 2)
+
+    solvers = types.ModuleType("audiocraft.solvers")
+    solvers.CompressionSolver = types.SimpleNamespace(model_from_checkpoint=lambda sig: Codec())
+    audiocraft = types.ModuleType("audiocraft")
+    audiocraft.solvers = solvers
+    dac = types.ModuleType("dac")
+    dac.DAC = types.SimpleNamespace(load=lambda path: Codec())
+    for mod, obj in (("audiocraft", audiocraft), ("audiocraft.solvers", solvers), ("dac", dac)):
+        monkeypatch.setitem(sys.modules, mod, obj)
+    cls = getattr(tokenizer, name)
+    args = () if name == "AudioTokenizer" else ("model.pth",)
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cls(*args, device=device)
+    wrapper = cls(*args, device="cpu")
+    assert wrapper.device == torch.device("cpu")
+    assert next(wrapper.codec.parameters()).device.type == "cpu"
 
 
 def test_meshes_without_cuda_raise():
