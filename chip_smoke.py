@@ -7,7 +7,8 @@ Phases, in order (any failure raises; the exit code is then non-zero):
      one nvcc per source, all started together; the bf16 K1 (qkv_block), K5
      (attention_bhnd), K2 (ffn_block), K3/K4 (attention_nhd) and K6
      (attention_splash) libraries must each hold wgmma (HGMMA) and TMA-load
-     (UTMALDG) instructions in their SASS;
+     (UTMALDG) instructions in their SASS, K6 also the 128-wide wgmma and
+     setmaxnreg (USETMAXREG), and K6's bf16 kernel must not spill;
   3. kernels: each kernel (K1-K6) against its plain PyTorch version on the
      card, at the shapes of the paths below (K5 also at N 1000 and 1025, K1
      also at rows 3, N 1088, where 128-row tiles straddle batch rows; K1-K3
@@ -17,9 +18,11 @@ Phases, in order (any failure raises; the exit code is then non-zero):
      LN-modulate forms, bit for bit equal, at each tile width); K4 also
      against K3 (bit for bit); K3, K4 and K5 with a batch row whose keys are
      all masked (the value the JAX kernels give); K6 (splash, segment ids)
-     at N 1024 and 1280 with a partly masked row (its pad rows held too)
-     and an all-masked row, at rows 1, with 8 x 128 heads and with no mask,
-     its yardstick ``sdpa`` under the boolean segment mask;
+     at N 1024 and 1280 with a partly masked row (its pad rows held too),
+     an all-masked row and whole 128-key tiles of padding, a row mostly
+     padding, at rows 1, with 8 x 128 heads and with no mask, its yardstick
+     ``sdpa`` under the boolean segment mask, and K5 timed in turns with it
+     at the two main shapes (the K6/K5 ratio printed);
   4. DiT: depth-2 models at full width on the card (kernels) against the same
      weights on the CPU (plain versions), in f32 and bf16, each counting its
      launches: the flagship DiT (K1-K3), the flagship under
@@ -112,8 +115,9 @@ Phases, in order (any failure raises; the exit code is then non-zero):
  15. splash: ``attn_backend="splash"`` at full depth: the flagship (a
      warmed graph, one warm-up and two timed B = 1 requests with K6 depth x
      32 each and no other kernel, a graphed request equal to a direct
-     ``sample_mel``, a profiled request), the MMDiT built from the flagship
-     config (K6 at N 1280), ``e2tts_base`` (K5 at N 1025, where JAX hands
+     ``sample_mel``, a profiled request; its duration printed and K6 held
+     to its plain version at that valid length), the MMDiT built from the
+     flagship config (K6 at N 1280), ``e2tts_base`` (K5 at N 1025, where JAX hands
      splash to its sdpa), ``tts_multilingual.main --attn_backend splash``
      (NFE 16: K6 depth x 16, a WAV written) and
      ``speech_edit_multilingual.main --attn_backend splash`` (K6 depth x 64,
@@ -287,17 +291,33 @@ def phase_build() -> None:
                 elif "registers" in line or "spill" in line:
                     facts.append(line.replace("ptxas info    :", "").strip())
     # the bf16 K1, K5, K2, K3/K4 and K6 must run on wgmma and TMA: count their
-    # SASS instructions (0 would mean a fallback to mma.sync or to plain loads)
+    # SASS instructions (0 would mean a fallback to mma.sync or to plain loads);
+    # K6's S = Q K^T must be the 128-wide form and its warpgroups must trade
+    # registers (setmaxnreg)
     cuobjdump = Path(_cuda.nvcc_path()).with_name("cuobjdump")
     for name in ("qkv_block", "attention_bhnd", "ffn_block", "attention_nhd",
                  "attention_splash"):
         sass = subprocess.run([str(cuobjdump), "-sass", str(_cuda.library_path(name))],
                               capture_output=True, text=True, timeout=300).stdout
-        counts = {op: sum(op in line for line in sass.splitlines())
-                  for op in ("HGMMA", "UTMALDG")}
+        ops = ("HGMMA", "UTMALDG") + (("HGMMA.64x128x16", "USETMAXREG")
+                                      if name == "attention_splash" else ())
+        counts = {op: sum(op in line for line in sass.splitlines()) for op in ops}
         print(f"[build] {name} SASS: {counts['HGMMA']} HGMMA (wgmma), "
-              f"{counts['UTMALDG']} UTMALDG (TMA loads)", flush=True)
-        check(all(counts.values()), f"{name} has no wgmma or no TMA load in its SASS: {counts}")
+              f"{counts['UTMALDG']} UTMALDG (TMA loads)"
+              + (f", {counts['HGMMA.64x128x16']} of them 64x128x16, {counts['USETMAXREG']} "
+                 f"USETMAXREG" if name == "attention_splash" else ""), flush=True)
+        check(all(counts.values()), f"{name} lacks an instruction it must hold: {counts}")
+    # K6's bf16 kernel: ptxas' registers and spills (the consumers' 232 come
+    # from setmaxnreg at run time; ptxas reports the 168 a thread at launch)
+    log = (_cuda.BUILD / "attention_splash.ptxas.txt").read_text().split("Compiling entry")
+    for part in log:
+        if "splash_sm90_kernel" in part.split("\n", 1)[0]:
+            regs = next(line for line in part.splitlines() if "registers" in line)
+            spills = next(line for line in part.splitlines() if "spill" in line)
+            print(f"[build] attention_splash {part.split(chr(39))[1]}: "
+                  f"{regs.split(':', 1)[1].strip()}; {spills.strip()}", flush=True)
+            check(" 0 bytes spill stores, 0 bytes spill loads" in spills,
+                  f"K6's bf16 kernel spills: {spills.strip()}")
 
 
 def _kernel_inputs(torch, rows, n, d, f, heads, dim_head, dtype, seed):
@@ -605,65 +625,96 @@ def phase_split_attention() -> dict:
     return records
 
 
-def phase_splash_attention() -> dict:
-    """K6 against its plain version on the card, with ``sdpa`` under the
-    boolean segment mask as its yardstick: the flagship's shape under
-    ``attn_backend="splash"`` (rows 2, 16 x 64, N 1024) and the MMDiT's
-    joint length (N 1280), each with batch row 0 partly masked (its pad
-    rows compared too: they attend the pad keys) and with row 1 all masked
-    (it attends every key); rows 1, 8 x 128 heads, and no mask (one
-    segment). Returns the record of the flagship shape in bf16."""
+# K6's cases: (rows, N, heads, dim_head, masking, valid lengths or None). A
+# "partial" mask has valid lengths [N - 37, N]; "all_masked" also masks
+# row 1 wholly; "none" passes no mask; "tiles" leaves whole 128-key tiles of
+# padding in row 0 (600 of 1024, 700 of 1280), "mostly" a row that is mostly
+# padding (100 of 1024), where the kernel skips key tiles that no row of a
+# query tile sees.
+SPLASH_CASES = [(2, 1024, 16, 64, "partial", None), (2, 1280, 16, 64, "partial", None),
+                (2, 1024, 16, 64, "all_masked", None), (2, 1280, 16, 64, "all_masked", None),
+                (1, 1024, 16, 64, "partial", None), (2, 1024, 8, 128, "partial", None),
+                (2, 1024, 16, 64, "none", None), (2, 1024, 16, 64, "tiles", [600, 1024]),
+                (2, 1280, 16, 64, "tiles", [700, 1280]), (2, 1024, 16, 64, "mostly", [100, 1024]),
+                (2, 1024, 8, 128, "tiles", [600, 100])]
+
+
+def splash_case(tag: str, rows: int, n: int, heads: int, dh: int, masking: str,
+                valid=None, records: dict = None) -> None:
+    """K6 on one case against its plain version (its pad query rows alone
+    too), timed with its bound over the visible (query, key) pairs and
+    ``sdpa`` under the boolean segment mask as the yardstick; with
+    ``records``, the case is the flagship shape in bf16 and its record is
+    kept. At rows 2, 16 x 64 heads with a partial mask in bf16 (the flagship
+    and MMDiT shapes) K5 runs on the same inputs in turns with K6 (K5, K6,
+    K6, K5) and the K6/K5 ratio is printed."""
     import torch
     import torch.nn.functional as F
 
     from lemas_tts_tpu_torch.ops import attention
 
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[tag]
+    peak = H100_BF16_FLOPS if tag == "bf16" else H100_F32_FLOPS
+    main_shape = records is not None
+    g = torch.Generator(device="cuda").manual_seed(n + dh + rows)
+    sets = []
+    for _ in range(3 if main_shape else 1):
+        q, k, v = (torch.randn(rows, heads, n, dh, generator=g, device="cuda").to(dtype)
+                   for _ in range(3))
+        lens = valid or [n - 37, n][:rows]
+        mask = torch.arange(n, device="cuda")[None, :] < torch.tensor(lens, device="cuda")[:, None]
+        if masking == "all_masked":
+            mask[1] = False
+        sets.append((q, k, v, None if masking == "none" else mask))
+    q, k, v, mask = sets[0]
+    got = attention.splash_attention(*sets[0])
+    ref = attention.splash_attention_plain(*sets[0])
+    shape = f"rows {rows:2d} N {n:4d} heads {heads}x{dh} mask {masking}" + (
+        f" (valid {valid})" if valid else "")
+    pad = torch.zeros(rows, n, dtype=torch.bool, device="cuda") if mask is None else ~mask
+    if bool(pad.any()):
+        pad_err = rel_l2(got.transpose(1, 2)[pad], ref.transpose(1, 2)[pad])
+        print(f"[kernels] splash_attention {tag} {shape}: pad query rows alone rel-L2 "
+              f"{pad_err:.3e} (tol {TOL_REL_L2[tag]:.0e})", flush=True)
+        check(pad_err <= TOL_REL_L2[tag], f"K6 {tag} {shape}: pad rows over tolerance")
+    seg = torch.ones(rows, n, dtype=torch.bool, device="cuda") if mask is None else mask
+    c1 = seg.sum(dim=1).double()
+    pairs = float((c1 * c1 + (n - c1) * (n - c1)).sum())  # visible (query, key) pairs
+    nbytes = 4 * rows * heads * n * dh * q.element_size() + (0 if mask is None else rows * n)
+    flops = 4.0 * heads * dh * pairs
+    same = (seg[:, :, None] == seg[:, None, :])[:, None]
+    lib = ("sdpa", lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=same))
+    kern = [lambda a=a: attention.splash_attention(*a) for a in sets]
+    _report([("splash_attention", (rel_l2(got, ref), max_abs(got, ref)), kern,
+              [lambda: attention.splash_attention_plain(*sets[0])], lib, nbytes, flops,
+              "lemas_tts_tpu_torch/csrc/attention_splash.cu", "lemas_tts_tpu/ops/attention.py:60")],
+            tag, shape, peak, records)
+    if (tag, rows, heads, dh, masking) == ("bf16", 2, 16, 64, "partial") and n in (1024, 1280):
+        k5 = [lambda a=a: attention.vmem_attention(*a) for a in sets]
+        t = [device_ms(f, iters=50) for f in (k5, kern, kern, k5)]
+        k5_ms, k6_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+        print(f"[kernels] splash_attention bf16 {shape}: K6 {k6_ms:.4f} ms, K5 (vmem_attention) "
+              f"on the same inputs {k5_ms:.4f} ms in turns (K5, K6, K6, K5: "
+              f"{', '.join(f'{x:.4f}' for x in t)}), K6/K5 {k6_ms / k5_ms:.3f}", flush=True)
+    del sets, q, k, v, got, ref, same
+    torch.cuda.empty_cache()
+
+
+def phase_splash_attention() -> dict:
+    """K6 against its plain version on the card (``splash_case``) at every
+    case of ``SPLASH_CASES`` in bf16 and f32: the flagship's shape under
+    ``attn_backend="splash"`` (rows 2, 16 x 64, N 1024) and the MMDiT's
+    joint length (N 1280), each with batch row 0 partly masked (its pad rows
+    compared too: they attend the pad keys), with row 1 all masked (it
+    attends every key) and with whole 128-key tiles of padding; a row mostly
+    padding; rows 1, 8 x 128 heads, and no mask (one segment). ``phase_splash``
+    adds the flagship request's own valid length. Returns the record of the
+    flagship shape in bf16."""
     records = {}
-    shapes = [(2, 1024, 16, 64, "partial"), (2, 1280, 16, 64, "partial"),
-              (2, 1024, 16, 64, "all_masked"), (2, 1280, 16, 64, "all_masked"),
-              (1, 1024, 16, 64, "partial"), (2, 1024, 8, 128, "partial"),
-              (2, 1024, 16, 64, "none")]
-    for tag, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
-        peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
-        for rows, n, heads, dh, masking in shapes:
+    for tag in ("bf16", "f32"):
+        for rows, n, heads, dh, masking, valid in SPLASH_CASES:
             main_shape = (tag, rows, n, dh, masking) == ("bf16", 2, 1024, 64, "partial")
-            g = torch.Generator(device="cuda").manual_seed(n + dh + rows)
-            sets = []
-            for _ in range(3 if main_shape else 1):
-                q, k, v = (torch.randn(rows, heads, n, dh, generator=g, device="cuda").to(dtype)
-                           for _ in range(3))
-                valid = torch.tensor([n - 37, n][:rows], device="cuda")
-                mask = torch.arange(n, device="cuda")[None, :] < valid[:, None]
-                if masking == "all_masked":
-                    mask[1] = False
-                sets.append((q, k, v, None if masking == "none" else mask))
-            q, k, v, mask = sets[0]
-            got = attention.splash_attention(*sets[0])
-            ref = attention.splash_attention_plain(*sets[0])
-            shape = f"rows {rows:2d} N {n:4d} heads {heads}x{dh} mask {masking}"
-            pad = torch.zeros(rows, n, dtype=torch.bool, device="cuda") if mask is None else ~mask
-            if bool(pad.any()):
-                pad_err = rel_l2(got.transpose(1, 2)[pad], ref.transpose(1, 2)[pad])
-                print(f"[kernels] splash_attention {tag} {shape}: pad query rows alone rel-L2 "
-                      f"{pad_err:.3e} (tol {TOL_REL_L2[tag]:.0e})", flush=True)
-                check(pad_err <= TOL_REL_L2[tag], f"K6 {tag} {shape}: pad rows over tolerance")
-            seg = (torch.ones(rows, n, dtype=torch.bool, device="cuda") if mask is None
-                   else mask)
-            c1 = seg.sum(dim=1).double()
-            pairs = float((c1 * c1 + (n - c1) * (n - c1)).sum())  # visible (query, key) pairs
-            nbytes = 4 * rows * heads * n * dh * q.element_size() + (0 if mask is None
-                                                                    else rows * n)
-            flops = 4.0 * heads * dh * pairs
-            same = (seg[:, :, None] == seg[:, None, :])[:, None]
-            lib = ("sdpa", lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=same))
-            _report([("splash_attention", (rel_l2(got, ref), max_abs(got, ref)),
-                      [lambda a=a: attention.splash_attention(*a) for a in sets],
-                      [lambda: attention.splash_attention_plain(*sets[0])], lib, nbytes,
-                      flops, "lemas_tts_tpu_torch/csrc/attention_splash.cu",
-                      "lemas_tts_tpu/ops/attention.py:60")],
-                    tag, shape, peak, records if main_shape else None)
-            del sets, q, k, v, got, ref, same
-            torch.cuda.empty_cache()
+            splash_case(tag, rows, n, heads, dh, masking, valid, records if main_shape else None)
     return records
 
 
@@ -2596,7 +2647,8 @@ def phase_splash(dev: dict) -> dict:
     """``attn_backend="splash"`` at full depth: the flagship (a warmed graph,
     one warm-up and two timed B = 1 requests with K6 depth x 32 each and no
     other kernel, a request equal to a direct ``sample_mel``, a profiled
-    request), the MMDiT built from the flagship config (K6 at N 1280),
+    request; K6 then held to its plain version at the request's own valid
+    length), the MMDiT built from the flagship config (K6 at N 1280),
     ``e2tts_base`` (K5 at N 1025: JAX hands that N to its ``sdpa``), the
     two CLIs with ``--attn_backend splash`` (the TTS CLI at NFE 16: K6
     depth x 16; the edit at its defaults: K6 depth x 64, kept frames equal to
@@ -2609,7 +2661,7 @@ def phase_splash(dev: dict) -> dict:
 
     from lemas_tts_tpu_torch import TTS
     from lemas_tts_tpu_torch.config import SamplerConfig
-    from lemas_tts_tpu_torch.infer.pipeline import TEXT_BUCKETS, pick_bucket
+    from lemas_tts_tpu_torch.infer.pipeline import DURATION_BUCKETS, TEXT_BUCKETS, pick_bucket
     from lemas_tts_tpu_torch.infer.preprocess import preprocess_ref_audio_text
     from lemas_tts_tpu_torch.scripts import tts_multilingual
     from lemas_tts_tpu_torch.utils.audio_io import read_audio, write_wav
@@ -2668,15 +2720,33 @@ def phase_splash(dev: dict) -> dict:
                 profile_request(tts, ref_path, REF_TEXT, GEN_TEXT)
                 add(read_counters())
             kernels = {"splash": SPLASH_KERNELS, "xla": (), "vmem": FLAGSHIP_KERNELS}[backend]
+            dispatch = tts.synth._dispatch_chunks
+            durations = []
+
+            def recorded(*args, **kw):  # the request's durations (frames), as K6 sees them
+                pending = dispatch(*args, **kw)
+                durations.append(list(pending["durations"]))
+                return pending
+
+            tts.synth._dispatch_chunks = recorded
             for seed in (7, 8) if backend != "splash" else (7,):  # 8: a replay of 7's graph
                 mel = counted(f"flagship attn_backend={backend} request (seed {seed})",
                               lambda: tts.infer(ref_path, REF_TEXT, GEN_TEXT, seed=seed,
                                                 **quiet)[2], kernels, depth * 32)
                 mels.setdefault(backend, mel)
+            tts.synth._dispatch_chunks = dispatch
             check(bool(np.isfinite(mels[backend]).all()), f"{backend}: mel not finite")
+            if backend == "splash":
+                flagship = (pick_bucket(max(durations[0]), DURATION_BUCKETS), durations[0][0],
+                            tts.config.arch.heads, tts.config.arch.dim_head)
             del tts
             gc.collect()
             torch.cuda.empty_cache()
+        n, dur, heads, dh = flagship
+        print(f"[splash] the flagship request under splash: duration {dur} of bucket {n} "
+              f"frames, so K6 sees valid lengths [{dur}, {dur}] (the CFG pair); K6 there:",
+              flush=True)
+        splash_case("bf16", 2, n, heads, dh, "flagship", [dur, dur])
         for backend in ("xla", "splash"):
             err = rel_l2(torch.from_numpy(mels[backend]), torch.from_numpy(mels["vmem"]))
             print(f"[splash] flagship mel, attn_backend={backend} against vmem on the same "

@@ -41,12 +41,38 @@
 //   The head dim is a template parameter: 64 and 128.
 #include "attention_bhnd.cuh"
 
+// Split of the d64 bf16 kernel: one block of four warpgroups (256 query rows)
+// an SM where the grid fits in one wave, as at rows 2 x 16 heads, N 1024 (128
+// blocks on 132 SMs); else two blocks of two (128 rows) an SM, whose second
+// wave is half as long, as at N 1280 (320 blocks on 264 slots, where blocks
+// of four would need two full waves). On the card the first is the faster
+// per query tile, which is why it is not used everywhere.
+static bool bhnd_four_warpgroups(int device, int batch, int heads, int n) {
+  return (long long)batch * heads * ((n + 255) / 256) <= sm90::sm_count(device);
+}
+
 // device: the CUDA device of the tensors (this library links its own CUDA
 // runtime). mask may be null (every key kept). sm_scale is 1/sqrt(dim_head)
-// rounded to f32 by the caller. dim_head 64 or 128; any n >= 1.
+// rounded to f32 by the caller. dim_head 64 or 128; any n >= 1. bf16 runs the
+// sm_90a kernel with the scores taken into the log2 domain by sm_scale
+// log2 e; f32 the checking path.
 extern "C" int lemas_attention_bhnd(int device, int dtype, int dim_head, const void* q,
                                     const void* k, const void* v, const void* mask, void* out,
                                     int batch, int n, int heads, float sm_scale, void* stream) {
-  return launch_bhnd<false>(device, dtype, dim_head, q, k, v, mask, out, batch, n, heads,
-                            sm_scale, 1.f, stream);
+  if (dim_head != 64 && dim_head != 128) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kBF16) {
+    const float factor = sm_scale * sm90::kLog2e;
+    if (dim_head == 128)
+      return launch_bhnd_sm90<128, 2, 1>(q, k, v, mask, out, batch, n, heads, factor, s);
+    return bhnd_four_warpgroups(device, batch, heads, n)
+               ? launch_bhnd_sm90<64, 4, 1>(q, k, v, mask, out, batch, n, heads, factor, s)
+               : launch_bhnd_sm90<64, 2, 2>(q, k, v, mask, out, batch, n, heads, factor, s);
+  }
+  return dim_head == 64
+             ? launch_bhnd_f32<64, false>(q, k, v, mask, out, batch, n, heads, sm_scale, 1.f, s)
+             : launch_bhnd_f32<128, false>(q, k, v, mask, out, batch, n, heads, sm_scale, 1.f,
+                                           s);
 }

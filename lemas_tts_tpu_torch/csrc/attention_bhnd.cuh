@@ -1,6 +1,8 @@
-// Split-head [B, H, N, D] attention kernels, shared by K5 (attention_bhnd.cu:
-// key-padding mask) and K6 (attention_splash.cu: segment ids). The template
-// flag SEG picks K6's function; with SEG false every line below is K5's.
+// Split-head [B, H, N, D] attention kernels: K5's (attention_bhnd.cu:
+// key-padding mask) in f32 and bf16, and K6's f32 checking path
+// (attention_splash.cu: segment ids; its bf16 kernel is
+// attention_splash_sm90.cuh). The f32 kernel's template flag SEG picks K6's
+// function; with SEG false it is K5's, as is every line of the bf16 kernel.
 //
 // K5: scores (q . k^T) * sm_scale in f32 after the product; a padded key
 //   scores -1e30, a key beyond n -inf (p = 0), the running max starts at
@@ -12,7 +14,7 @@
 //   query so attends the pad keys, and a batch row with every position
 //   padded attends every key. Every query sees at least itself, so a masked
 //   score of -1e30 (splash: -0.7 f32 max) gives p = 0 exactly in both.
-//   N % 64 == 0 (the wrapper hands N % 128 != 0 to K5, as JAX hands it to
+//   N % 128 == 0 (the wrapper hands other N to K5, as JAX hands them to
 //   its XLA sdpa), so no key lies beyond n.
 #pragma once
 
@@ -107,12 +109,12 @@ struct BhndTiles {
 };
 }  // namespace
 
-template <int D, int WGS_, int BPS_, bool SEG>
+template <int D, int WGS_, int BPS_>
 __global__ void __launch_bounds__(BhndTiles<D, WGS_>::THREADS, BPS_)
     attn_bhnd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                           const __grid_constant__ CUtensorMap kmap,
                           const __grid_constant__ CUtensorMap vmap, const uint8_t* mask,
-                          bf16* out, int n, int heads, float factor, float q_scale) {
+                          bf16* out, int n, int heads, float factor) {
   using namespace sm90;
   using Tiles = BhndTiles<D, WGS_>;
   constexpr int WGS = Tiles::WGS, ND = Tiles::ND, NQ = Tiles::NQ, ST = Tiles::ST,
@@ -145,8 +147,7 @@ __global__ void __launch_bounds__(BhndTiles<D, WGS_>::THREADS, BPS_)
   if (wg == WGS) {
     // The producer warp: lane 0 loads the q boxes once, then each tile's K
     // and V boxes into the ring as soon as the consumers release the stage;
-    // every lane writes two of the tile's key bytes and arrives. A key byte
-    // is also K6's segment of the key (kKeyKept 1, kKeyPadded 0).
+    // every lane writes two of the tile's key bytes and arrives.
     const int lane = tid & 31;
     if (lane == 0) {
       mbar_expect_tx(qfull, NQ * kBoxBytes);
@@ -189,27 +190,6 @@ __global__ void __launch_bounds__(BhndTiles<D, WGS_>::THREADS, BPS_)
   for (int i = 0; i < 32; ++i) sc[i] = 0.f;
   RowState st = {{neg_inf(), neg_inf()}, {0.f, 0.f}};
   mbar_wait(qfull, 0);
-  uint8_t qseg[2] = {kKeyKept, kKeyKept};  // K6: the segments of this thread's two rows
-  if constexpr (SEG) {
-    // K6 scales its q boxes in place (one 16-byte chunk a thread a step; the
-    // swizzle only moves whole chunks) before wgmma reads them.
-    bf16* qw = sQ + wg * ND * kBoxElems;
-    for (int i = tid & 127; i < ND * kBoxElems / 8; i += 128) {
-      Vec<bf16>* p = reinterpret_cast<Vec<bf16>*>(qw + 8 * i);
-      Vec<bf16> x = *p;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) x.v[e] = __float2bfloat16(to_f(x.v[e]) * q_scale);
-      *p = x;
-    }
-    fence_proxy_async();
-    warpgroup_sync(1 + wg);
-    const int g = (tid & 31) >> 2, warp = (tid >> 5) & 3;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = row0 + 16 * warp + g + 8 * r;
-      qseg[r] = (mrow == nullptr || row >= n || mrow[row]) ? kKeyKept : kKeyPadded;
-    }
-  }
   // One product in flight at a time (S, softmax, P V), as in K3: the other
   // warpgroups' products fill the tensor cores meanwhile.
   for (int j = 0; j < ntiles; ++j) {
@@ -227,10 +207,7 @@ __global__ void __launch_bounds__(BhndTiles<D, WGS_>::THREADS, BPS_)
 #pragma unroll
     for (int i = 0; i < 32; ++i) fence_reg(sc[i]);
     uint32_t p[4][4];
-    if constexpr (SEG)
-      softmax_step<ND, false, true>(st, sc, o, p, sKeys + s * Tiles::KEYS, factor, qseg);
-    else
-      softmax_step<ND, true>(st, sc, o, p, sKeys + s * Tiles::KEYS, factor);
+    softmax_step<ND, true>(st, sc, o, p, sKeys + s * Tiles::KEYS, factor);
     wgmma_fence();
 #pragma unroll
     for (int c = 0; c < ND; ++c) {  // O += P V: 16 keys (rows of V, 2 KB) a step
@@ -254,64 +231,20 @@ __global__ void __launch_bounds__(BhndTiles<D, WGS_>::THREADS, BPS_)
   sm90::store_rows<ND>(st, o, out + (size_t)bh * n * D, D, row0, n);
 }
 
-template <int D, int WGS, int BPS, bool SEG>
+template <int D, int WGS, int BPS>
 static int launch_bhnd_sm90(const void* q, const void* k, const void* v, const void* mask,
                             void* out, int batch, int n, int heads, float factor,
-                            float q_scale, cudaStream_t s) {
+                            cudaStream_t s) {
   using Tiles = BhndTiles<D, WGS>;
   CUtensorMap qmap, kmap, vmap;
   cudaError_t err = sm90::flat_map(&qmap, q, batch * heads, n, D);
   if (err == cudaSuccess) err = sm90::flat_map(&kmap, k, batch * heads, n, D);
   if (err == cudaSuccess) err = sm90::flat_map(&vmap, v, batch * heads, n, D);
-  if (err == cudaSuccess) err = allow_smem(attn_bhnd_sm90_kernel<D, WGS, BPS, SEG>, Tiles::kBytes);
+  if (err == cudaSuccess) err = allow_smem(attn_bhnd_sm90_kernel<D, WGS, BPS>, Tiles::kBytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((n + Tiles::ROWS - 1) / Tiles::ROWS, heads, batch);
-  attn_bhnd_sm90_kernel<D, WGS, BPS, SEG><<<grid, Tiles::THREADS, Tiles::kBytes, s>>>(
+  attn_bhnd_sm90_kernel<D, WGS, BPS><<<grid, Tiles::THREADS, Tiles::kBytes, s>>>(
       qmap, kmap, vmap, static_cast<const uint8_t*>(mask), static_cast<bf16*>(out), n, heads,
-      factor, q_scale);
+      factor);
   return (int)cudaGetLastError();
-}
-
-// Split of the d64 bf16 kernel: one block of four warpgroups (256 query rows)
-// an SM where the grid fits in one wave, as at rows 2 x 16 heads, N 1024 (128
-// blocks on 132 SMs); else two blocks of two (128 rows) an SM, whose second
-// wave is half as long, as at N 1280 (320 blocks on 264 slots, where blocks
-// of four would need two full waves). On the card the first is the faster
-// per query tile, which is why it is not used everywhere.
-static bool bhnd_four_warpgroups(int device, int batch, int heads, int n) {
-  static int sms[64] = {0};
-  int& count = sms[device & 63];
-  if (count == 0 && cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, device) !=
-                        cudaSuccess)
-    count = 132;
-  return (long long)batch * heads * ((n + 255) / 256) <= count;
-}
-
-// The launch of either kernel: device of the tensors (the library links its
-// own CUDA runtime), dtype code, dim_head 64 or 128. bf16 runs the sm_90a
-// kernel with the scores taken into the log2 domain by `factor` (K5:
-// sm_scale log2 e; K6: log2 e, its q already scaled); f32 the checking path.
-template <bool SEG>
-static int launch_bhnd(int device, int dtype, int dim_head, const void* q, const void* k,
-                       const void* v, const void* mask, void* out, int batch, int n, int heads,
-                       float sm_scale, float q_scale, void* stream) {
-  if (dim_head != 64 && dim_head != 128) return (int)cudaErrorInvalidValue;
-  const cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kBF16) {
-    const float factor = sm_scale * sm90::kLog2e;
-    if (dim_head == 128)
-      return launch_bhnd_sm90<128, 2, 1, SEG>(q, k, v, mask, out, batch, n, heads, factor,
-                                              q_scale, s);
-    return bhnd_four_warpgroups(device, batch, heads, n)
-               ? launch_bhnd_sm90<64, 4, 1, SEG>(q, k, v, mask, out, batch, n, heads, factor,
-                                                 q_scale, s)
-               : launch_bhnd_sm90<64, 2, 2, SEG>(q, k, v, mask, out, batch, n, heads, factor,
-                                                 q_scale, s);
-  }
-  return dim_head == 64
-             ? launch_bhnd_f32<64, SEG>(q, k, v, mask, out, batch, n, heads, sm_scale, q_scale, s)
-             : launch_bhnd_f32<128, SEG>(q, k, v, mask, out, batch, n, heads, sm_scale, q_scale,
-                                         s);
 }

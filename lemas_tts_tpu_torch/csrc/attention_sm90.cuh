@@ -1,7 +1,9 @@
 // Hopper pieces of the bf16 attention kernels (K3 and K4 in attention_nhd.cu,
-// K5 and K6 in attention_bhnd.cuh), on the primitives of sm90.cuh: their TMA maps,
-// in-place rope of a TMA-loaded tile, and one warpgroup's online-softmax step
-// over a 64-key tile whose scores stay in registers.
+// K5 in attention_bhnd.cuh, K6 in attention_splash_sm90.cuh), on the
+// primitives of sm90.cuh: their TMA maps, in-place rope of a TMA-loaded tile,
+// the exp2, the running row state, and one warpgroup's online-softmax step
+// over a 64-key tile whose scores stay in registers (K3-K5; K6 has its own
+// over 128 keys).
 //
 // Elements 8kk .. 8kk + 7 of a m64n64 score accumulator (layout in
 // sm90.cuh), packed in pairs to bf16, are the A fragment of keys
@@ -17,16 +19,17 @@ namespace sm90 {
 constexpr float kLog2e = 1.4426950408889634f;
 
 // ------------------------------------------------------------------ host side
-// Map of a bf16 tensor [batch, n, width] (width contiguous) in 64 x 64
-// boxes with the 128-byte swizzle; coordinates are (column, row, batch row).
-// Rows past n inside a batch row read as zeros.
-static cudaError_t flat_map(CUtensorMap* map, const void* base, int batch, int n, int width) {
+// Map of a bf16 tensor [batch, n, width] (width contiguous) in boxes of
+// box_rows x 64 with the 128-byte swizzle; coordinates are (column, row,
+// batch row). Rows past n inside a batch row read as zeros.
+static cudaError_t flat_map(CUtensorMap* map, const void* base, int batch, int n, int width,
+                            int box_rows = kBox) {
   EncodeTiledFn enc;
   cudaError_t err = encode_fn(&enc);
   if (err != cudaSuccess) return err;
   const cuuint64_t dims[3] = {(cuuint64_t)width, (cuuint64_t)n, (cuuint64_t)batch};
   const cuuint64_t strides[2] = {(cuuint64_t)width * 2, (cuuint64_t)n * width * 2};
-  const cuuint32_t box[3] = {kBox, kBox, 1}, elem[3] = {1, 1, 1};
+  const cuuint32_t box[3] = {kBox, (cuuint32_t)box_rows, 1}, elem[3] = {1, 1, 1};
   const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
                          dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -125,8 +128,8 @@ struct RowState {
   float m[2], l[2];
 };
 
-// Key byte of K5's and K6's tiles (written by the producer warp): kept, padded (mask
-// false) or at or beyond n.
+// Key byte of K3's, K4's and K5's tiles (written by the producer warp): kept,
+// padded (mask false) or at or beyond n.
 constexpr uint8_t kKeyPadded = 0, kKeyKept = 1, kKeyBeyond = 2;
 
 // Score offset of a key byte: 0 if kept, -1e30 if padded; with TAIL (K5's
@@ -143,44 +146,29 @@ __device__ __forceinline__ float key_bias(uint8_t k) {
 // keep the tile's 64 key bytes (nullptr: every key kept). A padded key scores
 // -1e30: fmaf(s, factor, -1e30) is exactly -1e30, as |s| is far below the ulp
 // of 1e30, so no element needs a branch. Without TAIL every key of a tile is
-// below n (K3 and K4 take N % 64 == 0). With SEG (K6's segment ids, no
-// TAIL) a key scores -1e30 where its byte (kKeyKept 1, kKeyPadded 0)
-// differs from qseg of the thread's row. Updates the running max and sum,
+// below n (K3 and K4 take N % 64 == 0). Updates the running max and sum,
 // rescales the ND output accumulators and leaves the unnormalised p, rounded
 // to bf16, in the A fragments p[kk] of the P V product.
-template <int ND, bool TAIL = false, bool SEG = false>
+template <int ND, bool TAIL = false>
 __device__ __forceinline__ void softmax_step(RowState& st, float (&s)[32], float (&o)[ND][32],
                                              uint32_t (&p)[4][4], const uint8_t* keep,
-                                             float factor = kLog2e,
-                                             const uint8_t* qseg = nullptr) {
+                                             float factor = kLog2e) {
   const int t = threadIdx.x & 3;
   float mx[2] = {st.m[0], st.m[1]};
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
-    if constexpr (SEG) {
+    float2 bb = {0.f, 0.f};
+    if (keep != nullptr) {
       const uchar2 kk = *reinterpret_cast<const uchar2*>(keep + 8 * j + 2 * t);
+      bb = {key_bias<TAIL>(kk.x), key_bias<TAIL>(kk.y)};
+    }
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float& x0 = s[4 * j + 2 * r];
-        float& x1 = s[4 * j + 2 * r + 1];
-        x0 = fmaf(x0, factor, kk.x == qseg[r] ? 0.f : attn::kMasked);
-        x1 = fmaf(x1, factor, kk.y == qseg[r] ? 0.f : attn::kMasked);
-        mx[r] = fmaxf(mx[r], fmaxf(x0, x1));
-      }
-    } else {
-      float2 bb = {0.f, 0.f};
-      if (keep != nullptr) {
-        const uchar2 kk = *reinterpret_cast<const uchar2*>(keep + 8 * j + 2 * t);
-        bb = {key_bias<TAIL>(kk.x), key_bias<TAIL>(kk.y)};
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float& x0 = s[4 * j + 2 * r];
-        float& x1 = s[4 * j + 2 * r + 1];
-        x0 = fmaf(x0, factor, bb.x);
-        x1 = fmaf(x1, factor, bb.y);
-        mx[r] = fmaxf(mx[r], fmaxf(x0, x1));
-      }
+    for (int r = 0; r < 2; ++r) {
+      float& x0 = s[4 * j + 2 * r];
+      float& x1 = s[4 * j + 2 * r + 1];
+      x0 = fmaf(x0, factor, bb.x);
+      x1 = fmaf(x1, factor, bb.y);
+      mx[r] = fmaxf(mx[r], fmaxf(x0, x1));
     }
   }
   float alpha[2];

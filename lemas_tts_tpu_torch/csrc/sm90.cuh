@@ -1,11 +1,15 @@
 // Hopper (sm_90a) primitives shared by the bf16 kernels: TMA tensor maps and
-// loads, mbarriers, proxy fences, named barriers and the `wgmma` forms the
-// attention kernels (attention_sm90.cuh) and the GEMM (gemm_sm90.cuh) use.
+// loads, mbarriers, proxy fences, named barriers, register reallocation
+// between warpgroups (`setmaxnreg`) and the `wgmma` forms the attention
+// kernels (attention_sm90.cuh, attention_splash_sm90.cuh) and the GEMM
+// (gemm_sm90.cuh) use.
 //
 // Every bf16 tile in shared memory is made of 64 x 64 boxes (8 KB, 128 bytes
 // a row), each loaded by one TMA copy with the 128-byte swizzle and read by
 // `wgmma` through a descriptor of the same swizzle: chunk c (16 bytes) of
 // row r of a box sits at chunk c ^ (r % 8). Box bases are 1024-byte aligned.
+// K6 loads two boxes stacked in rows (128 x 64, 16 KB) with one copy: the
+// swizzle repeats every 8 rows, so they lie as two boxes would.
 //
 // Register layout of a m64nN f32 accumulator (lane = 4g + t of warp w of the
 // warpgroup): element i is row 16w + g + 8((i >> 1) & 1), column
@@ -48,6 +52,16 @@ static cudaError_t encode_fn(EncodeTiledFn* fn) {
   }
   *fn = cached;
   return cudaSuccess;
+}
+
+// Streaming multiprocessors of the device, looked up once a device.
+static int sm_count(int device) {
+  static int sms[64] = {0};
+  int& count = sms[device & 63];
+  if (count == 0 && cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, device) !=
+                        cudaSuccess)
+    count = 132;
+  return count;
 }
 
 // Map of a row-major bf16 matrix [rows, cols] in boxes of box_rows x
@@ -144,6 +158,30 @@ __device__ __forceinline__ void warpgroup_sync(int id) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
 }
 
+// Named barrier `id` over `count` threads: bar_sync waits until `count`
+// threads have arrived (itself included), bar_arrive adds this thread's
+// arrival without waiting. Two warpgroups hand a turn back and forth with
+// count 256: one syncs on its barrier, the other arrives on it.
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Register reallocation of a warp-specialised block: every warp of a
+// warpgroup runs it together, with no path of the kernel rejoining the
+// warpgroups' after it (else ptxas ignores it, C7508). dec gives registers
+// back to the block's pool, inc waits until the pool holds what it asks.
+template <int REGS>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(REGS));
+}
+template <int REGS>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(REGS));
+}
+
 // ------------------------------------------------------------------- wgmma
 // Descriptor of a 128-byte-swizzled operand at `smem`: `sbo` bytes between
 // 8-row groups, `lbo` bytes between 64-element blocks of an MN-major operand
@@ -207,7 +245,40 @@ __device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[32], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+#define SM90_D64                                                                               \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "  \
+  "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "  \
+  "%56, %57, %58, %59, %60, %61, %62, %63}"
+#define SM90_OUT64(d)                                                                        \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),        \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),           \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),           \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),           \
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),           \
+      "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),           \
+      "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),           \
+      "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),           \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),           \
+      "+f"(d[62]), "+f"(d[63])
+
+// d[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B K-major in shared memory
+// (B: 128 rows, 8-row groups `sbo` apart in the descriptor); accumulate = 0
+// overwrites d.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SM90_D64
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : SM90_OUT64(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 #undef SM90_D32
 #undef SM90_OUT32
+#undef SM90_D64
+#undef SM90_OUT64
 
 }  // namespace sm90

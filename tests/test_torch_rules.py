@@ -103,6 +103,35 @@ def test_entry_points_match_c_sources():
         assert entries == want, lib
 
 
+def test_k6_bf16_kernel_is_its_own():
+    """K6's bf16 kernel is ``csrc/attention_splash_sm90.cuh``'s: the splash
+    library instantiates nothing of K5's bf16 kernel, and K5's bf16 kernel
+    (``attn_bhnd_sm90_kernel``) and the 64-key ``softmax_step`` take no
+    segment flag, so K5's code path cannot drift back into K6's. The f32
+    kernel keeps ``SEG``: it is K6's checking path."""
+    import re
+
+    def source(name):
+        return re.sub(r"//[^\n]*", "", (PKG / "csrc" / name).read_text())
+
+    def template_of(text, fn):
+        """The template parameter list of ``fn``'s definition (its first
+        call-shaped occurrence)."""
+        i = text.index(fn + "(")
+        t = text.rindex("template", 0, i)
+        return text[t:text.index(">", t) + 1]
+
+    splash = source("attention_splash.cu") + source("attention_splash_sm90.cuh")
+    assert "splash_sm90_kernel" in splash
+    assert "attn_bhnd_sm90_kernel" not in splash and "launch_bhnd_sm90" not in splash
+    assert "SEG" not in source("attention_sm90.cuh")
+    assert "SEG" not in template_of(source("attention_sm90.cuh"), "softmax_step")
+    bhnd = source("attention_bhnd.cuh")
+    assert "SEG" not in template_of(bhnd, "attn_bhnd_sm90_kernel")
+    assert "SEG" not in bhnd[bhnd.index(template_of(bhnd, "attn_bhnd_sm90_kernel")):]
+    assert "bool SEG" in template_of(bhnd, "attn_bhnd_kernel")
+
+
 def test_refusals_left_are_the_multi_gpu_flags():
     """The attention backends, ASR and multi-GPU training are ported: no
     ``refuse_unported`` is left (the last, ``scripts/train.py``'s multi-GPU

@@ -8,9 +8,11 @@ against the JAX package on the CPU.
   in the JAX package. Segment ids from the mask: a pad query attends the
   pad keys (its rows are held too, and differ from the key-mask function
   of K5), an all-masked batch row attends every key, no mask is one
-  segment. f32 ``rtol=2e-4``, bf16 rel-L2 <= 2e-2 (the bars of the
-  kernels). At N % 128 != 0 both packages compute ``sdpa``'s function (K5
-  here, XLA ``sdpa`` there).
+  segment; masks that leave whole 128-key tiles of padding and a row that
+  is mostly padding, on which the card's kernel skips tiles. f32
+  ``rtol=2e-4``, bf16 rel-L2 <= 2e-2 (the bars of the kernels). At N % 128
+  != 0 both packages compute ``sdpa``'s function (K5 here, XLA ``sdpa``
+  there).
 - The ``"xla"`` backend (``sdpa``, plain PyTorch) against JAX ``sdpa``, and
   ``attention``'s backend names.
 - The DiT, MMDiT and UNetT at width 128 (2 heads x 64), depth 2, under
@@ -88,7 +90,15 @@ def _inputs(seed, B, H, N, D, masking):
     rng = np.random.default_rng(seed)
     q, k, v = (2 * rng.standard_normal((B, H, N, D)).astype(np.float32) for _ in range(3))
     mask = np.ones((B, N), bool)
-    mask[0, N - N // 4:] = False
+    if masking == "tile_padding":  # whole 128-key tiles of padding behind the valid keys
+        mask[0, max(N - 128 - 37, 37):] = False
+        mask[1, N - 128:] = False
+    elif masking == "mostly_padding":  # a tenth valid; row 1 one valid tile and a bit
+        mask[0, N // 10:] = False
+        if N >= 256:
+            mask[1, 128 + N // 10:] = False
+    else:
+        mask[0, N - N // 4:] = False
     if masking == "all_masked":
         mask[1] = False
     return q, k, v, None if masking == "none" else mask
@@ -112,19 +122,22 @@ def _hold(got, want, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("N,D", [(128, 64), (256, 64), (128, 128)])
-@pytest.mark.parametrize("masking", ["partial", "all_masked", "none"])
+@pytest.mark.parametrize("N,D", [(128, 64), (256, 64), (128, 128), (384, 64), (512, 64),
+                                 (256, 128)])
+@pytest.mark.parametrize("masking", ["partial", "all_masked", "none", "tile_padding",
+                                     "mostly_padding"])
 def test_splash_plain_matches_jax_kernel(jax_splash_interpreted, dtype, N, D, masking):
     """Every row, pad query rows included, against JAX's splash kernel; the
-    pad rows are held alone too, and differ from what K5's key-mask
-    function gives them."""
+    pad rows are held alone too (and, for a partly masked row, differ from
+    what K5's key-mask function gives them)."""
     q, k, v, mask = _inputs(N + D, 2, 2, N, D, masking)
     got, want = _both(jattn.splash_attention, attention.splash_attention, q, k, v, mask, dtype)
     assert got.shape == want.shape == q.shape
     _hold(got, want, dtype)
-    if masking == "partial":
+    if mask is not None and not mask.all():
         pad = ~mask
         _hold(got.transpose(0, 2, 1, 3)[pad], want.transpose(0, 2, 1, 3)[pad], dtype)
+    if masking == "partial":
         keymask = attention.vmem_attention_plain(
             *(torch.from_numpy(a) for a in (q, k, v)), torch.from_numpy(mask)).numpy()
         assert np.abs(keymask.transpose(0, 2, 1, 3)[pad]
