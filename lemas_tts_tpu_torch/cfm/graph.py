@@ -30,14 +30,42 @@ right after its replay. A ``return_trajectory`` graph returns the pair
 
 from __future__ import annotations
 
+import collections
 import threading
-from typing import Optional
+import time
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from lemas_tts_tpu_torch.cfm.sampler import SamplerSettings, device_time_grid, sample_mel
 from lemas_tts_tpu_torch.ops import launches
+from lemas_tts_tpu_torch.utils.profiling import TIMERS
+
+
+class Captures:
+    """Every graph capture of the process: a count, and the
+    ``time.perf_counter()`` start and bucket key of the last ``keep``, so a
+    reader can count the captures that began inside a window (a capture
+    after warm-up stalls its request for the eager run and the capture)."""
+
+    def __init__(self, keep: int = 4096):
+        self._lock = threading.Lock()
+        self.count = 0
+        self._log: collections.deque = collections.deque(maxlen=keep)
+
+    def add(self, key: tuple) -> None:
+        with self._lock:
+            self.count += 1
+            self._log.append((time.perf_counter(), key))
+
+    def since(self, t0: float, t1: float = float("inf")) -> List[Tuple[float, tuple]]:
+        """``(start, key)`` of the kept captures that began in ``[t0, t1]``."""
+        with self._lock:
+            return [c for c in self._log if t0 <= c[0] <= t1]
+
+
+CAPTURES = Captures()
 
 
 def _tensors(out) -> tuple:
@@ -82,6 +110,12 @@ class GraphedSampler:
 
     def _capture(self) -> torch.Tensor:
         """Eager run on a side stream (the result), then the capture."""
+        cond, text_ids = self.inputs["cond"], self.inputs["text_ids"]
+        CAPTURES.add((*cond.shape[:2], text_ids.shape[1], "prosody_text" in self.inputs))
+        with TIMERS.stage("graph.capture"):
+            return self._eager_then_capture()
+
+    def _eager_then_capture(self) -> torch.Tensor:
         dev = self.inputs["cond"].device
         device_time_grid(self.time_grid, dev)  # made before capture, not in it
         cur = torch.cuda.current_stream(dev)

@@ -19,6 +19,14 @@ one's results are read on the host. Inputs go up and results come down
 through pinned memory (``to_device``, ``to_host``), so queueing waits for
 nothing on the card and a read waits for its own batch only.
 
+Each call runs in stage spans (``utils/profiling.py:StageTimers.stage``,
+counted in ``TIMERS``; ``record_function`` ranges while a profiler records):
+``synth.request`` per device batch, inside it ``synth.prep`` (reference,
+text, host arrays, uploads), ``synth.sample``, ``synth.vocode``,
+``synth.fetch`` (copies to the host and the wait on them) and
+``synth.finish`` (trim, RMS restore, cross-fade, clip); a stream's
+mini-batches run the inner five.
+
 With a prosody encoder (the prosody-conditioned model) and
 ``cfg.use_prosody_encoder``, ``_prepare_ref`` embeds the reference's 16 kHz
 resample once a request; the sampler then sees ``prosody_to_mel`` of the
@@ -51,6 +59,7 @@ prosody, which the JAX package's leaves out.
 
 from __future__ import annotations
 
+import itertools
 import logging
 import os
 import re
@@ -77,12 +86,14 @@ from lemas_tts_tpu_torch.ops.mel import MelFrontend
 from lemas_tts_tpu_torch.ops.resample import resample
 from lemas_tts_tpu_torch.parallel.mesh import axis_size, data_parallel
 from lemas_tts_tpu_torch.parallel.sequence import SequenceParallelSampler
+from lemas_tts_tpu_torch.utils.profiling import TIMERS
 from lemas_tts_tpu_torch.utils.vocab import Vocab, pad_text_batch, text_to_ids
 
 logger = logging.getLogger(__name__)
 
 TEXT_BUCKETS = (64, 128, 256, 512, 1024, 2048, 4096)
 BATCH_BUCKETS = (1, 2, 4, 8, 16, 32)
+_CALL_IDS = itertools.count(1)  # names each synth.request span
 
 
 def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -458,10 +469,11 @@ class Synthesizer:
             return (np.zeros(0, np.float32), sr,
                     np.zeros((self.mel_cfg.n_mel_channels, 0), np.float32))
 
-        pending = self._dispatch_chunks(ref_wav, ref_sr, ref_text_units, gen_chunks, cfg=cfg,
-                                        seed=seed, noise_override=noise_override,
-                                        duration_override=duration_override)
-        return self._finalize_chunks(pending, cfg, return_parts=return_parts)
+        with TIMERS.stage("synth.request", f"call {next(_CALL_IDS)}"):
+            pending = self._dispatch_chunks(ref_wav, ref_sr, ref_text_units, gen_chunks,
+                                            cfg=cfg, seed=seed, noise_override=noise_override,
+                                            duration_override=duration_override)
+            return self._finalize_chunks(pending, cfg, return_parts=return_parts)
 
     def _prepare_ref(self, ref_wav: np.ndarray, ref_sr: int, cfg: SamplerConfig) -> dict:
         """RMS normalise, resample to the model rate, reference mel, and under
@@ -502,6 +514,34 @@ class Synthesizer:
         bucket of chunks, queued on the device without a host sync; returns
         the pending results for _finalize_chunks. ``ref_prep`` (from
         ``_prepare_ref``) is the reference prep made once for a stream."""
+        with TIMERS.stage("synth.prep"):
+            pending, settings, inputs = self._prep_chunks(
+                ref_wav, ref_sr, ref_text_units, gen_chunks, cfg, seed, noise_override,
+                duration_override, ref_prep)
+        with TIMERS.stage("synth.sample"):
+            out = self.run_sampler(settings, *inputs)
+        if cfg.no_ref_audio:
+            pending.update(kind="no_ref", results=(out,))
+            return pending
+        B, durations = pending["B"], pending["durations"]
+        # keep >= 1 generated frame when the reference fills the duration
+        starts_l = [min(pending["ref_audio_len"], durations[i] - 1) for i in range(B)]
+        lens_l = [durations[i] - starts_l[i] for i in range(B)]
+        n_out = pick_bucket(max(lens_l), DURATION_BUCKETS)
+        with TIMERS.stage("synth.vocode"):
+            # the vocoder decodes the real rows only, whatever the padded batch
+            starts = to_device(np.asarray(starts_l, np.int64), self.device)
+            lens = to_device(np.asarray(lens_l, np.int64), self.device)
+            sliced, vmask = _slice_for_vocoder(out[:B], starts, lens, n_out)
+            wave = self.vocoder_model.decode(sliced, vmask)
+        pending.update(kind="decode", lens_l=lens_l, results=(wave, sliced))
+        return pending
+
+    def _prep_chunks(self, ref_wav, ref_sr, ref_text_units, gen_chunks, cfg: SamplerConfig,
+                     seed: Optional[int], noise_override: Optional[np.ndarray],
+                     duration_override: Optional[Sequence[int]], ref_prep: Optional[dict]):
+        """The host side of ``_dispatch_chunks`` up to the sampler call:
+        ``(pending, settings, the sampler's inputs on the device)``."""
         sr = self.mel_cfg.target_sample_rate
         hop = self.mel_cfg.hop_length
         D = self.mel_cfg.n_mel_channels
@@ -591,35 +631,36 @@ class Synthesizer:
             test_cond[:, ref_frames:dup_end] = cond_mel[None, : dup_end - ref_frames]
             y0 = (1.0 - t_start) * y0 + t_start * to_device(test_cond, dev)
 
-        out = self.run_sampler(
-            self._settings(cfg, t_start), to_device(cond, dev), to_device(cond_mask, dev),
-            to_device(text_ids, dev), to_device(dur_arr, dev), y0,
-            None if step_cond is None else to_device(step_cond, dev),
-            None if prosody_text is None else to_device(prosody_text, dev))
+        inputs = (to_device(cond, dev), to_device(cond_mask, dev), to_device(text_ids, dev),
+                  to_device(dur_arr, dev), y0,
+                  None if step_cond is None else to_device(step_cond, dev),
+                  None if prosody_text is None else to_device(prosody_text, dev))
         pending = dict(B=B, sr=sr, rms=rms, durations=durations, ref_frames=ref_frames,
-                       ref_audio_len=ref_audio_len)
-        if cfg.no_ref_audio:
-            pending.update(kind="no_ref", host=to_host(out), cond_mean=cond_mean)
-            return pending
-        # keep >= 1 generated frame when the reference fills the duration
-        starts_l = [min(ref_audio_len, durations[i] - 1) for i in range(B)]
-        lens_l = [durations[i] - starts_l[i] for i in range(B)]
-        n_out = pick_bucket(max(lens_l), DURATION_BUCKETS)
-        # the vocoder decodes the real rows only, whatever the padded batch
-        starts = to_device(np.asarray(starts_l, np.int64), dev)
-        lens = to_device(np.asarray(lens_l, np.int64), dev)
-        sliced, vmask = _slice_for_vocoder(out[:B], starts, lens, n_out)
-        pending.update(kind="decode", lens_l=lens_l,
-                       host=to_host(self.vocoder_model.decode(sliced, vmask), sliced))
-        return pending
+                       ref_audio_len=ref_audio_len, cond_mean=cond_mean)
+        return pending, self._settings(cfg, t_start), inputs
+
+    @staticmethod
+    def _start_fetch(pending: dict) -> None:
+        """Queue the copies of a dispatched batch's results to the host (a
+        stream does so before it dispatches the next mini-batch, which the
+        copies then do not wait for; else ``_finalize_chunks`` does)."""
+        pending["host"] = to_host(*pending.pop("results"))
 
     def _finalize_chunks(self, pending: dict, cfg: SamplerConfig, return_parts: bool = False):
         """Fetch the results, trim, restore the RMS, clip and stitch."""
+        with TIMERS.stage("synth.fetch"):
+            if "host" not in pending:
+                self._start_fetch(pending)
+            host, copied = pending["host"]
+            if copied is not None:
+                copied.synchronize()  # this batch's copies only, not work queued after them
+        with TIMERS.stage("synth.finish"):
+            return self._finish_chunks(pending, host, cfg, return_parts)
+
+    def _finish_chunks(self, pending: dict, host: list, cfg: SamplerConfig, return_parts: bool):
+        """Trim the fetched results, restore the RMS, clip and stitch."""
         B, sr, rms = pending["B"], pending["sr"], pending["rms"]
         durations = pending["durations"]
-        host, copied = pending["host"]
-        if copied is not None:
-            copied.synchronize()  # this batch's copies only, not work queued after them
         if pending["kind"] == "no_ref":
             # mean re-alignment of the generated region (cfm.py:464-467)
             ref_frames, ref_audio_len = pending["ref_frames"], pending["ref_audio_len"]
@@ -629,7 +670,8 @@ class Synthesizer:
                 gen_region.mean(axis=1, keepdims=True) - pending["cond_mean"][None])
             gen_slices = [out_np[i, min(ref_audio_len, durations[i] - 1): durations[i], :]
                           for i in range(B)]
-            waves = self.vocode_batch(gen_slices)
+            with TIMERS.stage("synth.vocode"):
+                waves = self.vocode_batch(gen_slices)
         else:
             lens_l = pending["lens_l"]
             waves_np, mels_np = (h.numpy() for h in host)
@@ -677,6 +719,7 @@ class Synthesizer:
             nxt = (self._dispatch_chunks(ref_wav, ref_sr, ref_text_units,
                                          list(gen_chunks[start: start + size]), cfg=bcfg,
                                          seed=seed, ref_prep=ref_prep), bcfg)
+            self._start_fetch(nxt[0])  # its copies queue before the next mini-batch
             if pending is not None:
                 yield from self._stream_waves(*pending)
             pending = nxt
@@ -695,16 +738,49 @@ class Synthesizer:
         """Many independent requests as one sampler call, each batch row with
         its own reference. A request is ``{"ref_wav": [T], "ref_sr": int,
         "ref_units": tokens | str, "gen_units": tokens | str, "seed": int |
-        None}``; settings are shared by the batch. Returns ``[(wave, sr, mel
-        [D, T])]`` in request order; a row's noise is ``initial_noise`` of its
-        own seed, so its result does not depend on its batch."""
+        None}``, and optionally ``"rid"`` (the engine's request id, named in
+        the call's ``synth.request`` span); settings are shared by the batch.
+        Returns ``[(wave, sr, mel [D, T])]`` in request order; a row's noise is
+        ``initial_noise`` of its own seed, so its result does not depend on its
+        batch."""
         max_b = BATCH_BUCKETS[-1]
         if len(requests) > max_b:
             out: List[Tuple[np.ndarray, int, np.ndarray]] = []
             for i in range(0, len(requests), max_b):
                 out += self.synthesize_requests(requests[i: i + max_b], cfg)
             return out
-        sr = self.mel_cfg.target_sample_rate
+        rids = [str(r["rid"]) for r in requests if "rid" in r]
+        with TIMERS.stage("synth.request",
+                          f"rids {','.join(rids)}" if rids else f"call {next(_CALL_IDS)}"):
+            with TIMERS.stage("synth.prep"):
+                rows, inputs = self._prep_requests(requests, cfg)
+            with TIMERS.stage("synth.sample"):
+                mel = self.run_sampler(self._settings(cfg), *inputs)
+            B = len(rows)
+            lens_l = [r["duration"] - r["ref_audio_len"] for r in rows]
+            n_out = pick_bucket(max(lens_l), DURATION_BUCKETS)
+            with TIMERS.stage("synth.vocode"):
+                starts = to_device(np.asarray([r["ref_audio_len"] for r in rows], np.int64),
+                                  self.device)
+                lens = to_device(np.asarray(lens_l, np.int64), self.device)
+                sliced, vmask = _slice_for_vocoder(mel[:B], starts, lens, n_out)
+                waves = self.vocoder_model.decode(sliced, vmask)
+            with TIMERS.stage("synth.fetch"):
+                waves = waves.cpu().numpy()
+                mels_np = sliced.cpu().numpy()
+            with TIMERS.stage("synth.finish"):
+                results = []
+                for i, r in enumerate(rows):
+                    w = waves[i, : self.vocoder_model.wave_length(lens_l[i])]
+                    if 0 < r["rms"] < cfg.target_rms:
+                        w = w * (r["rms"] / cfg.target_rms)
+                    results.append((np.clip(w, -0.999, 0.999), self.mel_cfg.target_sample_rate,
+                                    mels_np[i, :, : lens_l[i]]))
+        return results
+
+    def _prep_requests(self, requests: Sequence[Dict[str, Any]], cfg: SamplerConfig):
+        """The host side of ``synthesize_requests`` up to the sampler call:
+        ``(rows, the sampler's inputs on the device)``."""
         D = self.mel_cfg.n_mel_channels
         dev = self.device
 
@@ -759,24 +835,9 @@ class Synthesizer:
         seeds += [0] * (Bp - B)
         y0 = torch.stack([initial_noise(N, D, dev, s, entropy) for s in seeds])
 
-        mel = self.run_sampler(self._settings(cfg), to_device(cond, dev),
-                               to_device(cond_mask, dev), to_device(text_ids, dev),
-                               to_device(dur_arr, dev), y0, None,
-                               None if prosody_text is None else to_device(prosody_text, dev))
-        lens_l = [r["duration"] - r["ref_audio_len"] for r in rows]
-        n_out = pick_bucket(max(lens_l), DURATION_BUCKETS)
-        starts = to_device(np.asarray([r["ref_audio_len"] for r in rows], np.int64), dev)
-        lens = to_device(np.asarray(lens_l, np.int64), dev)
-        sliced, vmask = _slice_for_vocoder(mel[:B], starts, lens, n_out)
-        waves = self.vocoder_model.decode(sliced, vmask).cpu().numpy()
-        mels_np = sliced.cpu().numpy()
-        results = []
-        for i, r in enumerate(rows):
-            w = waves[i, : self.vocoder_model.wave_length(lens_l[i])]
-            if 0 < r["rms"] < cfg.target_rms:
-                w = w * (r["rms"] / cfg.target_rms)
-            results.append((np.clip(w, -0.999, 0.999), sr, mels_np[i, :, : lens_l[i]]))
-        return results
+        return rows, (to_device(cond, dev), to_device(cond_mask, dev), to_device(text_ids, dev),
+                      to_device(dur_arr, dev), y0, None,
+                      None if prosody_text is None else to_device(prosody_text, dev))
 
     @torch.no_grad()
     def vocode_batch(self, mels: Sequence[np.ndarray]) -> List[np.ndarray]:

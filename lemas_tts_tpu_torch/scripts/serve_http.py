@@ -397,7 +397,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Comma list of duration buckets for --warmup_batches.")
     p.add_argument("--trace_requests", action="store_true",
                    help="One request_trace/stream_trace JSON record per request "
-                        "(utils/profiling.py schema); also LEMAS_REQUEST_TRACE=1.")
+                        "(utils/profiling.py schema: queue_wait_ms, batch_ms, total_ms); also "
+                        "LEMAS_REQUEST_TRACE=1. Stage walls are always in /stats['timers'] "
+                        "(serve.batch, synth.request, synth.prep, synth.sample, synth.vocode, "
+                        "synth.fetch, synth.finish, graph.capture); under any torch.profiler "
+                        "session (utils/profiling.py:profile_card) they are ranges on the "
+                        "card's timeline.")
     p.add_argument("--device", type=str, default=None,
                    help="cuda | cpu (default: cuda; never falls back to the CPU).")
     p.add_argument("--multihost", action="store_true",

@@ -193,7 +193,8 @@ class ServingEngine:
                 with TIMERS.stage("serve.batch"):
                     results = self.synth.synthesize_requests(
                         [dict(ref_wav=r.ref_wav, ref_sr=r.ref_sr, ref_units=r.ref_units,
-                              gen_units=r.gen_units, seed=r.seed) for r in reqs], cfg=cfg)
+                              gen_units=r.gen_units, seed=r.seed, rid=r._rid) for r in reqs],
+                        cfg=cfg)
                 now = time.perf_counter()
                 with self._lock:
                     self._batch_sizes.append(len(reqs))
@@ -216,7 +217,7 @@ class ServingEngine:
                 with self._lock:
                     self._inflight = []
 
-    def _trace(self, req: TTSRequest, t_collect: float, device_s: float, batch_size: int,
+    def _trace(self, req: TTSRequest, t_collect: float, batch_s: float, batch_size: int,
                outcome: str) -> None:
         """One request_trace record when tracing is on."""
         if not self.trace_requests:
@@ -226,7 +227,7 @@ class ServingEngine:
             self.log, "request_trace", rid=req._rid, bucket=req._bucket,
             dur_bucket=req._dur_bucket, batch_size=batch_size,
             queue_wait_ms=round((t_collect - req._t_submit) * 1e3, 2) if req._t_submit else None,
-            device_ms=round(device_s * 1e3, 2),
+            batch_ms=round(batch_s * 1e3, 2),
             total_ms=round((now - req._t_submit) * 1e3, 2) if req._t_submit else None,
             outcome=outcome)
 

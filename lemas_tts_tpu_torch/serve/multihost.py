@@ -434,6 +434,7 @@ class BroadcastSynthesizer:
                     d.dispatches += 1
                     nxt = (synth._dispatch_chunks(ref_wav, ref_sr, ref_text_units, batch,
                                                   cfg=bcfg, seed=seed, ref_prep=ref_prep), bcfg)
+                    synth._start_fetch(nxt[0])
                 if pending is not None:
                     waves, sr, _ = finalize(pending)
                     pending = None
@@ -482,6 +483,7 @@ def follower_serve(dispatch: MultiHostDispatch) -> Dict[str, int]:
             st["pending"].append((synth._dispatch_chunks(ref_wav, ref_sr, ref_units, chunks,
                                                          cfg=bcfg, seed=seed,
                                                          ref_prep=st["prep"]), bcfg))
+            synth._start_fetch(st["pending"][-1][0])
         elif op == _OP_STREAM_FINALIZE:
             p, bcfg = streams[pickle.loads(payload)]["pending"].popleft()
             synth._finalize_chunks(p, bcfg, return_parts=True)

@@ -1,7 +1,8 @@
-"""Stage timers, structured JSON-lines logging and the per-request trace
-schema of the serving engine (counterpart of
-``lemas_tts_tpu/utils/profiling.py``, without its ``jax.profiler`` capture:
-the port traces the card with ``torch.profiler``), and the card's timing:
+"""Stage timers (spans on a ``torch.profiler`` trace while one records),
+structured JSON-lines logging and the per-request trace schema of the
+serving engine (counterpart of ``lemas_tts_tpu/utils/profiling.py``, without
+its ``jax.profiler`` capture: the port traces the card with
+``torch.profiler``), and the card's timing:
 ``device_ms`` (CUDA events around calls queued behind a spin),
 ``profile_card`` (busy time as the union of kernel intervals, idle share)
 and ``summarize_trace`` (a saved Chrome trace)."""
@@ -17,8 +18,20 @@ from collections import defaultdict
 from typing import Any, Dict, Iterator, Optional
 
 
+def _profiler_on() -> bool:
+    """Whether a ``torch.profiler`` session is recording in this process (no
+    session can be while torch is not imported)."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof is not None and prof._is_profiler_enabled
+
+
 class StageTimers:
-    """Named wall-clock timers with count/total/max aggregation."""
+    """Named wall-clock timers with count/total/max aggregation. A stage is
+    also a span: while a ``torch.profiler`` session records, it opens a
+    ``record_function`` range of its name (with ``args``, e.g. the ids of
+    the requests it serves), which the trace shows on the host timeline, on
+    the clock of the card's kernels, nested in the stage around it. With no
+    session, the cost is one flag check and the timer update."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -26,12 +39,20 @@ class StageTimers:
             lambda: {"count": 0, "total_s": 0.0, "max_s": 0.0})
 
     @contextlib.contextmanager
-    def stage(self, name: str) -> Iterator[None]:
+    def stage(self, name: str, args: Optional[str] = None) -> Iterator[None]:
+        span = None
+        if _profiler_on():
+            from torch.profiler import record_function
+
+            span = record_function(name, args)
+            span.__enter__()
         t0 = time.perf_counter()
         try:
             yield
         finally:
             dt = time.perf_counter() - t0
+            if span is not None:
+                span.__exit__(None, None, None)
             with self._lock:
                 s = self._stats[name]
                 s["count"] += 1
@@ -56,7 +77,8 @@ REQUEST_TRACE_FIELDS = {
     "dur_bucket": "duration bucket (frames)",
     "batch_size": "rows in the dispatched batch this request rode in",
     "queue_wait_ms": "submit → batch collection",
-    "device_ms": "batch wall on the device thread (shared by all rows of the batch)",
+    "batch_ms": "wall of the batch's synthesize_requests call on the engine's worker thread "
+                "(host prep, sampler, vocoder, copy to host; shared by all rows of the batch)",
     "total_ms": "submit → result set",
     "outcome": "ok | error | shed_timeout | shed_cancelled",
 }
