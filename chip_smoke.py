@@ -5,8 +5,9 @@ Phases, in order (any failure raises; the exit code is then non-zero):
   1. card: CUDA present, name and power limit from nvidia-smi, TF32 off;
   2. build: the kernels of ``lemas_tts_tpu_torch/csrc`` with nvcc (sm_90a),
      one nvcc per source, all started together; the bf16 K1 (qkv_block), K5
-     (attention_bhnd), K2 (ffn_block), K3/K4 (attention_nhd) and K6
-     (attention_splash) libraries must each hold wgmma (HGMMA) and TMA-load
+     (attention_bhnd), K2 (ffn_block), K3/K4 (attention_nhd), K6
+     (attention_splash) and conv position embedding (conv_taps) libraries
+     must each hold wgmma (HGMMA) and TMA-load
      (UTMALDG) instructions in their SASS, K6 also the 128-wide wgmma and
      setmaxnreg (USETMAXREG), and K6's bf16 kernel must not spill;
   3. kernels: each kernel (K1-K6) against its plain PyTorch version on the
@@ -22,7 +23,13 @@ Phases, in order (any failure raises; the exit code is then non-zero):
      an all-masked row and whole 128-key tiles of padding, a row mostly
      padding, at rows 1, with 8 x 128 heads and with no mask, its yardstick
      ``sdpa`` under the boolean segment mask, and K5 timed in turns with it
-     at the two main shapes (the K6/K5 ratio printed);
+     at the two main shapes (the K6/K5 ratio printed); the conv position
+     embedding's kernel (``[conv]`` lines: ``conv_taps_mish``, k 31, 16
+     groups) timed at rows 2, N 1024 and 1536 and rows 16, N 1536 beside its
+     bound, its plain version, cuDNN's ``F.conv1d`` + ``F.mish`` and the
+     build of its taps, checked
+     at N 1025, unpadded, short N and in f32; every DiT forward below and
+     every request must launch it twice a forward;
   4. DiT: depth-2 models at full width on the card (kernels) against the same
      weights on the CPU (plain versions), in f32 and bf16, each counting its
      launches: the flagship DiT (K1-K3), the flagship under
@@ -296,7 +303,7 @@ def phase_build() -> None:
     # registers (setmaxnreg)
     cuobjdump = Path(_cuda.nvcc_path()).with_name("cuobjdump")
     for name in ("qkv_block", "attention_bhnd", "ffn_block", "attention_nhd",
-                 "attention_splash"):
+                 "attention_splash", "conv_taps"):
         sass = subprocess.run([str(cuobjdump), "-sass", str(_cuda.library_path(name))],
                               capture_output=True, text=True, timeout=300).stdout
         ops = ("HGMMA", "UTMALDG") + (("HGMMA.64x128x16", "USETMAXREG")
@@ -532,6 +539,99 @@ def phase_kernels() -> dict:
     return records
 
 
+CONV_TOL_REL_L2 = {"bf16": 4e-3, "f32": 2e-4}
+
+
+def conv_case(tag: str, rows: int, n: int, padding, seed: int = 0, timed: bool = False):
+    """``conv_taps_mish`` (the conv position embedding's kernel) at dim 1024,
+    16 groups, k 31 against its plain version on the card; with ``timed``,
+    its card time beside the bound, the plain version's and the library's
+    (cuDNN's grouped ``F.conv1d`` and ``F.mish``, the chain the port ran
+    before the kernel and never calls on this path now), and the card time
+    of making its taps from a weight in the compute dtype (``conv_taps``, as
+    ``ConvPositionEmbedding`` does before each launch). Returns the record
+    for the kernels line."""
+    import torch
+    import torch.nn.functional as F
+    from torch import nn
+
+    from lemas_tts_tpu_torch.models.modules import conv1d
+    from lemas_tts_tpu_torch.ops import conv
+
+    dtype = torch.bfloat16 if tag == "bf16" else torch.float32
+    C, G, K = 1024, 16, 31
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    sets = []
+    for _ in range(3 if timed else 1):
+        w = torch.randn(C, C // G, K, generator=g, device="cuda") * (C // G * K) ** -0.5
+        b = torch.randn(C, generator=g, device="cuda") * 0.1
+        x = torch.randn(rows, n, C, generator=g, device="cuda").to(dtype)
+        sets.append((x, conv.conv_taps(w, G, dtype), b.to(dtype), w.to(dtype)))
+    x, taps, b, w = sets[0]
+    before = conv.conv_taps_mish.launches
+    got = conv.conv_taps_mish(x, taps, b, padding)
+    check(conv.conv_taps_mish.launches == before + 1, "conv_taps_mish did not count its launch")
+    ref = conv.conv_taps_mish_plain(x, taps, b, padding)
+    rl2, mab = rel_l2(got, ref), max_abs(got, ref)
+    ok = rl2 <= CONV_TOL_REL_L2[tag] and got.shape == ref.shape
+    shape = f"rows {rows:2d} N {n:4d} padding {padding}"
+    line = (f"[conv] conv_taps_mish {tag:4s} {shape}: rel-L2 {rl2:.3e} max-abs {mab:.3e} "
+            f"(tol {CONV_TOL_REL_L2[tag]:.0e})")
+    if not timed:
+        print(f"{line} {'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"conv_taps_mish {tag} {shape}: rel-L2 {rl2:.3e} over tolerance")
+        return None
+    kern = [lambda s=s: conv.conv_taps_mish(s[0], s[1], s[2], padding) for s in sets]
+    lib_convs = []
+    for xs, _, bs, ws in sets:
+        m = nn.Conv1d(C, C, K, groups=G, device="cuda", dtype=dtype)
+        with torch.no_grad():
+            m.weight.copy_(ws)
+            m.bias.copy_(bs)
+        lib_convs.append((xs, m))
+    lib = [lambda c=c: F.mish(conv1d(c[0], c[1], padding)) for c in lib_convs]
+    ms, wall = device_ms(kern), time_ms(kern)
+    plain_ms = device_ms([lambda: conv.conv_taps_mish_plain(x, taps, b, padding)], iters=3)
+    lib_ms = device_ms(lib)
+    taps_ms = device_ms([lambda s=s: conv.conv_taps(s[3], G, dtype) for s in sets])
+    n_out = got.shape[1]
+    esz = x.element_size()
+    nbytes = (rows * n * C + rows * n_out * C + taps.numel() + C) * esz
+    flops = 2.0 * rows * n_out * C * (C // G) * K
+    peak = H100_BF16_FLOPS if tag == "bf16" else H100_F32_FLOPS
+    bms, by = bound_ms(nbytes, flops, peak)
+    print(f"{line} ms {ms:.4f} (wall {wall:.4f}) plain {plain_ms:.4f} library "
+          f"cuDNN conv1d+mish {lib_ms:.4f} bound {bms:.4f} ({by}, {100 * bms / ms:.1f} % of it) "
+          f"taps build {taps_ms:.4f} {'ok' if ok else 'FAIL'}", flush=True)
+    check(ok, f"conv_taps_mish {tag} {shape}: rel-L2 {rl2:.3e} over tolerance")
+    return {"name": "conv_taps_mish", "route": "cuda",
+            "source": "lemas_tts_tpu_torch/csrc/conv_taps.cu",
+            "replaces": "none (JAX: XLA taps, lemas_tts_tpu/models/modules.py:GroupedConvTaps)",
+            "launches": 0, "max_abs_err": mab, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by, "library_ms": lib_ms}
+
+
+def phase_conv() -> dict:
+    """The conv position embedding's kernel on the card: timed at the
+    flagship's shapes (rows 2 at N 1024 and 1536, a served batch of rows 16
+    at N 1536), checked at ragged N 1025, unpadded (the sequence-parallel
+    halo form), fewer frames than a tile, and in f32 (TF32 off). Returns the
+    record of rows 2, N 1024, bf16 for the kernels line."""
+    import torch
+
+    same = (15, 15)
+    record = conv_case("bf16", 2, 1024, same, timed=True)
+    conv_case("bf16", 2, 1536, same, timed=True)
+    conv_case("bf16", 16, 1536, same, timed=True)
+    for tag, rows, n, padding in (("bf16", 2, 1025, same), ("bf16", 2, 1084, (0, 0)),
+                                  ("bf16", 1, 40, same), ("bf16", 3, 200, (3, 27)),
+                                  ("f32", 2, 1024, same), ("f32", 2, 1025, same),
+                                  ("f32", 2, 1084, (0, 0))):
+        conv_case(tag, rows, n, padding)
+    torch.cuda.empty_cache()
+    return {"conv_taps_mish": record}
+
+
 def _nhd_masked_row(torch, tag: str, args, n: int) -> None:
     """K3 and K4 with batch row 1's keys all masked, against their plain
     versions and against what the JAX kernels give such a row: the mean of v,
@@ -718,6 +818,10 @@ def phase_splash_attention() -> dict:
     return records
 
 
+CONV = "conv_taps_mish"
+CONVS_PER_FORWARD = 2  # the conv position embedding's two convs, once a model forward
+
+
 def kernel_counters() -> dict:
     """The launch counter of every kernel wrapper, by kernel name."""
     from lemas_tts_tpu_torch.ops import launches
@@ -749,8 +853,14 @@ def attn_pack(on: bool):
             os.environ["LEMAS_ATTN_PACK"] = old
 
 
-def expected_launches(kernels, per_call: int) -> dict:
-    return {k: (per_call if k in kernels else 0) for k in kernel_counters()}
+def expected_launches(kernels, blocks: int, forwards: int) -> dict:
+    """The launches of a run of ``blocks`` transformer blocks in ``forwards``
+    model forwards: each block kernel of ``kernels`` once a block, the conv
+    position embedding's kernel twice a forward (on every path of the
+    inference route), no other."""
+    want = {k: (blocks if k in kernels else 0) for k in kernel_counters()}
+    want[CONV] = CONVS_PER_FORWARD * forwards
+    return want
 
 
 # int8 / int8_ff flagship mel against bf16, same weights and noise: the H100
@@ -834,7 +944,7 @@ def depth2_forward(tag: str, label: str, cls, cfg, pack: bool, kernels,
               f"(tol {TOL_REL_L2[dt]:.0e}); card launches {launches}", flush=True)
         check(bool(torch.isfinite(got).all()), f"{label} {dt} output not finite")
         check(rl2 <= TOL_REL_L2[dt], f"{label} {dt}: rel-L2 {rl2:.3e} over tolerance")
-        want = expected_launches(kernels, arch.depth)
+        want = expected_launches(kernels, arch.depth, 1)
         check(launches == want, f"{label} {dt}: launches {launches}, expected {want}")
 
 
@@ -866,7 +976,7 @@ def run_requests(tts, label: str, n: int, kernels, dev: dict, ref_path: str, ref
     import numpy as np
     import torch
 
-    want = expected_launches(kernels, tts.config.arch.depth * 32)
+    want = expected_launches(kernels, tts.config.arch.depth * 32, 32)
     reset_counters()
     timed = []
     for i in range(n):
@@ -1179,7 +1289,7 @@ def phase_edit(dev: dict, model: str, vocab: Path, wav_path: Path, align_dir: Pa
     check(bucket == 1024, f"the edit ({mel.shape[1]} frames) does not land in bucket 1024")
     check(all(t in synth.vocab.char_map for t in seen["tokens"]),
           "an edit unit is not in the vocab")
-    want = expected_launches(kernels, depth * 64)
+    want = expected_launches(kernels, depth * 64, 64)
     check(launches == want, f"edit: launches {launches}, expected {want}")
     kept_equal = np.array_equal(got[keep], ref[keep])
     edited_differ = bool((got[~keep] != ref[~keep]).any(axis=1).all())
@@ -1263,7 +1373,7 @@ def graphed_request(tts, tag: str, kernels, ref_path: str) -> tuple:
         got = read_counters()
     finally:
         del tts.synth.run_sampler
-    want = expected_launches(kernels, tts.config.arch.depth * 32)
+    want = expected_launches(kernels, tts.config.arch.depth * 32, 32)
     check(got == want, f"{tag} graphed request: launches {got}, expected {want}")
     graphs = list(tts.synth._graphs.values())
     check(len(graphs) == 1 and got == {k: graphs[0].launches_per_replay.get(k, 0)
@@ -1331,13 +1441,13 @@ def phase_graph(dev: dict) -> tuple:
     totals = dict.fromkeys(kernel_counters(), 0)
     quiet = dict(show_info=lambda *_: None)
 
-    def count(label, fn, kernels, per_kernel):
+    def count(label, fn, kernels, blocks, forwards):
         """fn() with the counts set to 0 just before and read just after;
-        each kernel of ``kernels`` must launch ``per_kernel`` times, no other."""
+        it must launch ``expected_launches(kernels, blocks, forwards)``."""
         reset_counters()
         out, wall = _timed(fn)
         got = read_counters()
-        want = expected_launches(kernels, per_kernel)
+        want = expected_launches(kernels, blocks, forwards)
         check(got == want, f"{label}: launches {got}, expected {want}")
         for k in totals:
             totals[k] += got[k]
@@ -1406,11 +1516,12 @@ def phase_graph(dev: dict) -> tuple:
         for k in totals:
             totals[k] += got[k]
         new = [g for g in tts.synth._graphs.values() if g is not graphs[0]]
-        one = expected_launches(FLAGSHIP_KERNELS, depth * 32)
+        one = expected_launches(FLAGSHIP_KERNELS, depth * 32, 32)
         print(f"[graph] two first calls at once (B 1, buckets 512 and 768) in "
               f"{time.perf_counter() - t0:.1f} s: launches {got}; the graphs record "
               f"{[g.launches_per_replay for g in new]}", flush=True)
-        check(got == expected_launches(FLAGSHIP_KERNELS, 2 * depth * 32) and len(new) == 2
+        check(got == expected_launches(FLAGSHIP_KERNELS, 2 * depth * 32, 2 * 32)
+              and len(new) == 2
               and all({k: g.launches_per_replay.get(k, 0) for k in one} == one for g in new),
               "concurrent first calls: the counts or the graphs' records are not their own")
         walls = {"eager": [], "graph": []}
@@ -1432,12 +1543,12 @@ def phase_graph(dev: dict) -> tuple:
             time_grid=sway_time_grid(st.steps, st.sway_sampling_coef, st.t_start))
         (wave, _, _), wall, got = count(
             "eager request", lambda: tts.infer(ref_path, REF_TEXT, GEN_TEXT, seed=0, **quiet),
-            FLAGSHIP_KERNELS, depth * 32)
+            FLAGSHIP_KERNELS, depth * 32, 32)
         report("B 1 request, sampler eager", wave, wall, got)
         del tts.synth.run_sampler
         (wave, _, _), wall, got = count(
             "graphed request", lambda: tts.infer(ref_path, REF_TEXT, GEN_TEXT, seed=0, **quiet),
-            FLAGSHIP_KERNELS, depth * 32)
+            FLAGSHIP_KERNELS, depth * 32, 32)
         report("B 1 request, graph replay", wave, wall, got)
 
         # serving modes on the bf16 model
@@ -1450,12 +1561,12 @@ def phase_graph(dev: dict) -> tuple:
               f"refresh steps, so {refresh} x {depth} launches a kernel", flush=True)
         (_, _, spec_exact), wall, got = count(
             "cutoff, no cache", lambda: tts.infer(ref_path, REF_TEXT, GEN_TEXT, **serving),
-            FLAGSHIP_KERNELS, depth * 32)
+            FLAGSHIP_KERNELS, depth * 32, 32)
         for i in range(2):  # the capture, then a replay
             (wave, _, spec_cache), wall, got = count(
                 "block cache", lambda: tts.infer(ref_path, REF_TEXT, GEN_TEXT,
                                                  block_cache=SERVING_BLOCK_CACHE, **serving),
-                FLAGSHIP_KERNELS, depth * refresh)
+                FLAGSHIP_KERNELS, depth * refresh, 32)
             report(f"block cache request {i} ({'capture' if i == 0 else 'replay'})", wave, wall,
                    got)
         print(f"[graph] block cache mel against the uncached mel (same noise, cutoff): rel-L2 "
@@ -1467,7 +1578,7 @@ def phase_graph(dev: dict) -> tuple:
             (wave, _, _), wall, got = count(
                 "midpoint", lambda: tts.synth.synthesize_chunks(wav, sr, rtext, [GEN_TEXT],
                                                                 cfg=mid, seed=0),
-                FLAGSHIP_KERNELS, depth * 2 * 16)
+                FLAGSHIP_KERNELS, depth * 2 * 16, 2 * 16)
             report(f"midpoint NFE 16 request {i}", wave, wall, got)
         del tts
         gc.collect()
@@ -1480,7 +1591,7 @@ def phase_graph(dev: dict) -> tuple:
             for i in range(2):
                 (wave, _, qspec), wall, got = count(
                     mode, lambda: qtts.infer(ref_path, REF_TEXT, GEN_TEXT, seed=0, **quiet),
-                    kernels, depth * 32)
+                    kernels, depth * 32, 32)
                 report(f"{mode} request {i}", wave, wall, got)
             err = rel_l2(torch.from_numpy(qspec), torch.from_numpy(spec))
             lo, hi = INT8_REL_L2
@@ -1602,7 +1713,7 @@ def phase_serve(dev: dict, eager_b1: dict) -> dict:
                   "serve_http's defaults differ from the JAX server's")
             depth = len(engine.synth.dit_model.transformer_blocks)
             _, prefix, tail = serving_refresh_steps(serving_settings(engine.synth))
-            per_batch = expected_launches(("vmem_attention_nhd",), (prefix + tail) * depth)
+            per_batch = expected_launches(("vmem_attention_nhd",), (prefix + tail) * depth, 32)
             payload = dict(ref_path=ref_path, ref_text=REF_TEXT, text=GEN_TEXT)
             for wave_no in (1, 2):
                 results = [None] * 8
@@ -1810,7 +1921,7 @@ def phase_prosody(dev: dict) -> dict:
         print(f"[prosody] B 1 request, prosody graph replay (NFE 32, CFG 2): {audio:.3f} "
               f"audio-s in {wall:.3f} s = {audio / wall:.2f} audio-s/s on {dev['card']}; "
               f"launches {got}", flush=True)
-        check(got == expected_launches(FLAGSHIP_KERNELS, depth * 32) and len(tts.synth._graphs)
+        check(got == expected_launches(FLAGSHIP_KERNELS, depth * 32, 32) and len(tts.synth._graphs)
               == 1, f"prosody request: launches {got}, not one replay of the prosody graph")
         check(wave.size > 0 and bool(np.isfinite(wave).all()), "prosody wave empty or not finite")
         s = seen["settings"]
@@ -1833,7 +1944,7 @@ def phase_prosody(dev: dict) -> dict:
         got = read_counters()
         for k in totals:
             totals[k] += got[k]
-        check(got == expected_launches(FLAGSHIP_KERNELS, depth * 32),
+        check(got == expected_launches(FLAGSHIP_KERNELS, depth * 32, 32),
               f"unconditioned request: launches {got}")
         diff = rel_l2(torch.from_numpy(spec_on), torch.from_numpy(spec_off)) \
             if spec_on.shape == spec_off.shape else float("inf")
@@ -2160,7 +2271,8 @@ def _uvr5_clis(dev: dict, d: Path, pt: Path) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counters()
-    want = expected_launches(FLAGSHIP_KERNELS, load_model_config("multilingual").arch.depth * 32)
+    want = expected_launches(FLAGSHIP_KERNELS, load_model_config("multilingual").arch.depth * 32,
+                             32)
     check(rc == 0 and (d / "ref_vocal.wav").is_file(),
           f"tts_multilingual --denoise returned {rc} or wrote no ref_vocal.wav")
     vocal, vsr = read_audio(str(d / "ref_vocal.wav"))
@@ -2581,7 +2693,7 @@ def phase_train(dev: dict) -> dict:
                 return real(*args, cfg=cfg, **kw)
 
             tts.synth.synthesize_chunks = spy
-            want = expected_launches(FLAGSHIP_KERNELS, depth * k)
+            want = expected_launches(FLAGSHIP_KERNELS, depth * k, k)
             outs = []
             for i, route in enumerate(("eager (first of its bucket)", "graph replay")):
                 reset_counters()
@@ -2674,12 +2786,12 @@ def phase_splash(dev: dict) -> dict:
         for k in totals:
             totals[k] += launches[k]
 
-    def counted(label, fn, kernels, per_kernel):
+    def counted(label, fn, kernels, blocks, forwards):
         """fn() with the counts set to 0 just before and read just after."""
         reset_counters()
         out, wall = _timed(fn)
         got = read_counters()
-        want = expected_launches(kernels, per_kernel)
+        want = expected_launches(kernels, blocks, forwards)
         print(f"[splash] {label}: {wall:.3f} s wall on {dev['card']}; launches {got}",
               flush=True)
         check(got == want, f"{label}: launches {got}, expected {want}")
@@ -2732,7 +2844,7 @@ def phase_splash(dev: dict) -> dict:
             for seed in (7, 8) if backend != "splash" else (7,):  # 8: a replay of 7's graph
                 mel = counted(f"flagship attn_backend={backend} request (seed {seed})",
                               lambda: tts.infer(ref_path, REF_TEXT, GEN_TEXT, seed=seed,
-                                                **quiet)[2], kernels, depth * 32)
+                                                **quiet)[2], kernels, depth * 32, 32)
                 mels.setdefault(backend, mel)
             tts.synth._dispatch_chunks = dispatch
             check(bool(np.isfinite(mels[backend]).all()), f"{backend}: mel not finite")
@@ -2770,7 +2882,7 @@ def phase_splash(dev: dict) -> dict:
                          "--attn_backend", "splash", "--frontend", "none",
                          "--vocab_file", str(vocab), "--ref_audio", ref_path, "--ref_text",
                          REF_TEXT, "--text", GEN_TEXT, "--output_wave", str(out_wav),
-                         "--nfe_step", "16", "--seed", "0"]), SPLASH_KERNELS, depth * 16)
+                         "--nfe_step", "16", "--seed", "0"]), SPLASH_KERNELS, depth * 16, 16)
         w, wsr = read_audio(str(out_wav))
         check(rc == 0 and wsr == 24000 and w.size > 0 and bool(np.isfinite(w).all()),
               f"tts_multilingual --attn_backend splash: rc {rc}, wav {w.shape} at {wsr} Hz")
@@ -2863,7 +2975,7 @@ def phase_asr(dev: dict) -> dict:
         for i, path in enumerate(refs):
             write_wav(path, _reference_wave(16000, 3.0, seed=5 + i), 16000)
         tts = TTS(model="multilingual", vocab_file=str(vocab), frontend=None)
-        want = expected_launches(FLAGSHIP_KERNELS, tts.config.arch.depth * 32)
+        want = expected_launches(FLAGSHIP_KERNELS, tts.config.arch.depth * 32, 32)
         installed = importlib.util.find_spec("transformers") is not None
         if installed:
             import transformers
@@ -2935,7 +3047,7 @@ def _mesh_requests(tts, label: str, kernels, dev: dict, ref_path: str) -> tuple:
     import numpy as np
     import torch
 
-    want = expected_launches(kernels, tts.config.arch.depth * 32)
+    want = expected_launches(kernels, tts.config.arch.depth * 32, 32)
     synth, sampler_call = tts.synth, []
     run_sampler = synth.run_sampler
 
@@ -3042,7 +3154,7 @@ def phase_mesh(dev: dict) -> dict:
         # inputs (the same noise), against the unmeshed sampler's mel
         synth = ttss["unmeshed"].synth
         seq = SequenceParallelSampler(synth.dit_model, settings, make_seq_mesh(seq_parallel=1))
-        want = expected_launches(("ffn_block",), ttss["unmeshed"].config.arch.depth * 32)
+        want = expected_launches(("ffn_block",), ttss["unmeshed"].config.arch.depth * 32, 32)
         reset_counters()
         walls = {"seq": [], "unmeshed": []}
         for i in range(3):
@@ -3092,7 +3204,7 @@ def phase_mesh(dev: dict) -> dict:
             print(f"[mesh] {label} B 8 synthesize_requests (graph replay): "
                   f"{sum(w.size for w, _, _ in out) / 24000:.3f} audio-s in {b8[label][1]:.3f} s "
                   f"on {dev['card']}; launches {b8[label][2]}", flush=True)
-        want8 = expected_launches(FLAGSHIP_KERNELS, ttss["unmeshed"].config.arch.depth * 32)
+        want8 = expected_launches(FLAGSHIP_KERNELS, ttss["unmeshed"].config.arch.depth * 32, 32)
         check(b8["data mesh"][2] == want8, f"data mesh B 8: launches {b8['data mesh'][2]}")
         check(all(np.array_equal(a[2], b[2]) and np.array_equal(a[0], b[0])
                   for a, b in zip(b8["data mesh"][0], b8["unmeshed"][0])),
@@ -3329,7 +3441,7 @@ def phase_train_mesh(dev: dict, d: Path, vocab: Path, ref_path: str) -> dict:
     torch.cuda.empty_cache()
     tts = TTS(model="multilingual", ckpt_file=str(d / "dd_mesh" / "stage_8"),
               vocab_file=str(vocab), frontend=None)
-    want = expected_launches(FLAGSHIP_KERNELS, cfg.arch.depth * 8)
+    want = expected_launches(FLAGSHIP_KERNELS, cfg.arch.depth * 8, 8)
     totals = dict.fromkeys(kernel_counters(), 0)
     for i, route in enumerate(("eager (first of its bucket)", "graph replay")):
         reset_counters()
@@ -3384,7 +3496,7 @@ def _mesh_serve(dev: dict, vocab: Path, ref_path: str) -> dict:
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         depth = len(engine.synth.synth.dit_model.transformer_blocks)
         _, prefix, tail = serving_refresh_steps(serving_settings(engine.synth.synth))
-        per_batch = expected_launches(("vmem_attention_nhd",), (prefix + tail) * depth)
+        per_batch = expected_launches(("vmem_attention_nhd",), (prefix + tail) * depth, 32)
         results = [None] * 8
         start = threading.Barrier(9)
 
@@ -3471,14 +3583,20 @@ def _mesh_denoise(dev: dict, d: Path) -> None:
     check(same, "denoise --data_parallel differs from the plain run")
 
 
+def sampler_forwards(settings) -> int:
+    """Model forwards one sampler call runs: one a step, two a midpoint
+    step. The block cache skips blocks, not the input embedding, so its
+    cached steps are forwards too."""
+    return settings.steps * (2 if settings.method == "midpoint" else 1)
+
+
 def sampler_blocks(settings, depth: int) -> int:
     """Blocks one sampler call runs (each block launches K1, K3 and K2 once
-    on the flagship path), from the settings' schedule: depth a step, less
-    the cached range on the block cache's cached steps, twice a midpoint
-    step."""
+    on the flagship path), from the settings' schedule: depth a forward,
+    less the cached range on the block cache's cached steps."""
     steps = settings.steps
     if settings.block_cache_range is None:
-        return depth * steps * (2 if settings.method == "midpoint" else 1)
+        return depth * sampler_forwards(settings)
     _, pre, tail = serving_refresh_steps(settings, steps)
     lo, hi = settings.block_cache_range
     return depth * (pre + tail) + (depth - (hi - lo)) * (steps - pre - tail)
@@ -3532,9 +3650,6 @@ def phase_probes(dev: dict) -> dict:
         torch.cuda.empty_cache()
         return out
 
-    def each(kernels, n):
-        return {k: n for k in kernels}
-
     recs = run("kernel_check N 1024, B 1 and 8",
                lambda: kernel_check.check_kernels([1024], [1, 8], device="cuda", verbose=False))
     print(json.dumps({"kernel_check": "ok", "device": dev["kind"], "records": recs}), flush=True)
@@ -3542,7 +3657,7 @@ def phase_probes(dev: dict) -> dict:
     prof = run("profile_sampler B 1 (capture, a timed replay, a profiled replay)",
                lambda: profile_sampler.profile(profile_sampler.build_parser().parse_args(
                    ["--batch", "1", "--nfe", "32", "--top", "8"])),
-               each(FLAGSHIP_KERNELS, 3 * depth * 32))
+               expected_launches(FLAGSHIP_KERNELS, 3 * depth * 32, 3 * 32))
     for ms, n, name in prof.pop("top"):
         print(f"[probes] profile_sampler {ms:9.3f} ms x{n:6d}  {name[:90]}")
     print(json.dumps(prof), flush=True)
@@ -3570,21 +3685,28 @@ def phase_probes(dev: dict) -> dict:
 
     cut = cutoff_probe.build_argparser().parse_args(["--cutoffs", "0.25,1.0"])
     run("cutoff_probe (full CFG, 2 cutoffs; eager)", lambda: cutoff_probe.run_probe(cut),
-        each(FLAGSHIP_KERNELS, 3 * depth * cut.nfe))
+        expected_launches(FLAGSHIP_KERNELS, 3 * depth * cut.nfe, 3 * cut.nfe))
 
     bc = blockcache_probe.build_argparser().parse_args(
         ["--specs", "0-22:2+t2,4-20:3", "--batch", "2", "--reps", "2"])
-    bc_blocks = sum(sampler_blocks(blockcache_probe.cache_settings(bc, spec), depth)
-                    for spec in (None, "0-22:2+t2", "4-20:3"))
+    bc_settings = [blockcache_probe.cache_settings(bc, spec)
+                   for spec in (None, "0-22:2+t2", "4-20:3")]
+    bc_blocks = sum(sampler_blocks(st, depth) for st in bc_settings)
     run("blockcache_probe (none + 2 specs; graphs: eager run, capture, 2 replays)",
-        lambda: blockcache_probe.run_probe(bc), each(FLAGSHIP_KERNELS, 3 * bc_blocks))
+        lambda: blockcache_probe.run_probe(bc),
+        expected_launches(FLAGSHIP_KERNELS, 3 * bc_blocks,
+                          3 * sum(sampler_forwards(st) for st in bc_settings)))
 
     qa = quant_probe.build_argparser().parse_args(
         ["--geometries", "16x64", "--speed", "--reps", "2"])
-    q_blocks = sum(sampler_blocks(s, depth) for s in quant_probe.mode_settings(qa).values())
+    q_settings = quant_probe.mode_settings(qa).values()
+    q_blocks = sum(sampler_blocks(s, depth) for s in q_settings)
+    q_forwards = sum(sampler_forwards(s) for s in q_settings)
+    # bf16 (K1-K3) and int8 (K3 only) samplers, each run 3 times
     recs = run("quant_probe int8 against bf16, exact and serving (graphs)",
                lambda: quant_probe.run(qa),
-               {**each(FLAGSHIP_KERNELS, 3 * q_blocks), "vmem_attention_nhd": 6 * q_blocks})
+               {**expected_launches(FLAGSHIP_KERNELS, 3 * q_blocks, 6 * q_forwards),
+                "vmem_attention_nhd": 6 * q_blocks})
     for r in recs:
         lo, hi = INT8_REL_L2
         print(f"[probes] quant_probe {r['mode']}: int8 rel-L2 {r['rel_l2']:.3e} "
@@ -3603,16 +3725,17 @@ def phase_probes(dev: dict) -> dict:
         ["--stages", "8", "--steps", "2", "--synthetic", "16", "--reps", "2"])
     # the teacher's graph (3 runs of NFE 32), the student eager twice, its graph 3 runs
     run("distill_probe --stages 8 --steps 2", lambda: distill_probe.run(da),
-        each(FLAGSHIP_KERNELS, 3 * depth * 32 + 5 * depth * 8))
+        expected_launches(FLAGSHIP_KERNELS, 3 * depth * 32 + 5 * depth * 8, 3 * 32 + 5 * 8))
 
     sa = student_stack_probe.build_argparser().parse_args(
         ["--steps", "8", "--specs", "0-22:2+t2", "--batch", "2", "--reps", "2"])
     sub = blockcache_probe.build_argparser().parse_args(
         ["--nfe", "8", "--cfg", "0", "--depth", str(sa.depth)])
-    s_blocks = sum(sampler_blocks(blockcache_probe.cache_settings(sub, spec), depth)
-                   for spec in (None, "0-22:2+t2"))
+    s_settings = [blockcache_probe.cache_settings(sub, spec) for spec in (None, "0-22:2+t2")]
+    s_blocks = sum(sampler_blocks(st, depth) for st in s_settings)
     run("student_stack_probe 8 x 128, NFE 8, one spec", lambda: student_stack_probe.run(sa),
-        each(FLAGSHIP_KERNELS, 3 * s_blocks))
+        expected_launches(FLAGSHIP_KERNELS, 3 * s_blocks,
+                          3 * sum(sampler_forwards(st) for st in s_settings)))
     print(f"[probes] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return totals
 
@@ -3655,14 +3778,20 @@ def _reprobe_launches(steps: dict, depth: int) -> dict:
     cut = cutoff_probe.build_argparser().parse_args(steps["reprobe_cutoff"].argv)
     n_cut = 1 + len([c for c in cut.cutoffs.split(",") if c])
     bc = blockcache_probe.build_argparser().parse_args(steps["reprobe_blockcache"].argv)
-    bc_blocks = sum(sampler_blocks(blockcache_probe.cache_settings(bc, spec), depth)
-                    for spec in [None] + [s for s in bc.specs.split(",") if s])
+    bc_settings = [blockcache_probe.cache_settings(bc, spec)
+                   for spec in [None] + [s for s in bc.specs.split(",") if s]]
+    bc_blocks = sum(sampler_blocks(st, depth) for st in bc_settings)
+    bc_forwards = sum(sampler_forwards(st) for st in bc_settings)
     qa = quant_probe.build_argparser().parse_args(steps["reprobe_quant"].argv)
-    q_blocks = len(quant_probe.geometries(qa)) * sum(
-        sampler_blocks(st, depth) for st in quant_probe.mode_settings(qa).values())
-    return {"reprobe_cutoff": expected_launches(FLAGSHIP_KERNELS, n_cut * depth * cut.nfe),
-            "reprobe_blockcache": expected_launches(FLAGSHIP_KERNELS, (1 + bc.reps) * bc_blocks),
-            "reprobe_quant": {**expected_launches(FLAGSHIP_KERNELS, q_blocks),
+    q_settings = quant_probe.mode_settings(qa).values()
+    n_geo = len(quant_probe.geometries(qa))
+    q_blocks = n_geo * sum(sampler_blocks(st, depth) for st in q_settings)
+    q_forwards = n_geo * sum(sampler_forwards(st) for st in q_settings)
+    return {"reprobe_cutoff": expected_launches(FLAGSHIP_KERNELS, n_cut * depth * cut.nfe,
+                                                n_cut * cut.nfe),
+            "reprobe_blockcache": expected_launches(FLAGSHIP_KERNELS, (1 + bc.reps) * bc_blocks,
+                                                    (1 + bc.reps) * bc_forwards),
+            "reprobe_quant": {**expected_launches(FLAGSHIP_KERNELS, q_blocks, 2 * q_forwards),
                               "vmem_attention_nhd": 2 * q_blocks}}
 
 
@@ -3738,7 +3867,7 @@ def phase_assets(dev: dict) -> dict:
                 "--skip", "parity_capture,parity_compare,phone_goldens", "--out", str(out)]
         steps = {st.name: st for st in validate_assets.build_steps(
             validate_assets.build_parser().parse_args(argv))}
-        want = {"smoke_infer": expected_launches(FLAGSHIP_KERNELS, a.depth * 32),
+        want = {"smoke_infer": expected_launches(FLAGSHIP_KERNELS, a.depth * 32, 32),
                 **_reprobe_launches(steps, a.depth)}
         reset_counters()
         t0 = time.perf_counter()
@@ -3827,7 +3956,8 @@ def phase_assets(dev: dict) -> dict:
                   f"{blocks} each)", flush=True)
             check(tts.device.type == "cuda" and out_sr == 24000 and audio.dtype == np.int16
                   and np.abs(audio).max() > 0 and seed == "3", "infer_fn output")
-            check(got == expected_launches(FLAGSHIP_KERNELS, blocks), f"infer_fn launches {got}")
+            check(got == expected_launches(FLAGSHIP_KERNELS, blocks, sampler_forwards(settings)),
+                  f"infer_fn launches {got}")
             add(got)
         inference_gradio._model_cache.clear()
         del tts
@@ -3862,7 +3992,7 @@ def phase_assets(dev: dict) -> dict:
                   "native scheduler", flush=True)
             depth = len(engine.synth.dit_model.transformer_blocks)
             _, prefix, tail = serving_refresh_steps(serving_settings(engine.synth))
-            per_batch = expected_launches(("vmem_attention_nhd",), (prefix + tail) * depth)
+            per_batch = expected_launches(("vmem_attention_nhd",), (prefix + tail) * depth, 32)
             ref_b64 = base64.b64encode(Path(ref_path).read_bytes()).decode()
             results = [None] * 8
             start = threading.Barrier(9)
@@ -3930,7 +4060,8 @@ def main() -> int:
         return 1
     dev = phase_card()
     phase_build()
-    records = {**phase_kernels(), **phase_split_attention(), **phase_splash_attention()}
+    records = {**phase_kernels(), **phase_split_attention(), **phase_splash_attention(),
+               **phase_conv()}
     phase_dit()
     launches = phase_slice(dev)
     graphed, profiles = phase_graph(dev)
@@ -3941,7 +4072,7 @@ def main() -> int:
         launches = {k: launches[k] + more[k] for k in launches}
     kernels = [records[k] for k in ("qkv_block", "vmem_attention_nhd", "ffn_block",
                                      "vmem_attention_nhd_pack", "vmem_attention",
-                                     "splash_attention")]
+                                     "splash_attention", CONV)]
     for rec in kernels:
         rec["launches"] = launches[rec["name"]]
         check(rec["launches"] > 0, f"{rec['name']} was not launched on the slice's paths")

@@ -100,9 +100,9 @@ class InputEmbedding(nn.Module):
         self.proj = nn.Linear(mel_dim * 2 + text_dim, out_dim)
         self.conv_pos_embed = ConvPositionEmbedding(out_dim)
 
-    def forward(self, x, cond, text_embed, seq_group=None):
+    def forward(self, x, cond, text_embed, seq_group=None, train: bool = False):
         h = dense(torch.cat([x, cond, text_embed], dim=-1), self.proj)
-        return self.conv_pos_embed(h, seq_group) + h
+        return self.conv_pos_embed(h, seq_group, train) + h
 
 
 class DiT(nn.Module):
@@ -149,10 +149,13 @@ class DiT(nn.Module):
                 if pt.shape[1] < seq_len else pt[:, :seq_len])
 
     def embed_inputs(self, x, cond, text_ids, time, drop_text: bool = False, text_embed=None,
-                     prosody_text=None, drop_audio_cond: bool = False, seq_group=None):
+                     prosody_text=None, drop_audio_cond: bool = False, seq_group=None,
+                     train: bool = False):
         """Everything before the block stack: returns ``(h, t_emb, angles)``;
         ``h`` is also the long skip's residual. ``seq_group``: the inputs
-        are this process's shard of the sequence (``seq_sharded``)."""
+        are this process's shard of the sequence (``seq_sharded``).
+        ``train``: the training route's differentiable conv position
+        embedding in place of its kernel."""
         B, N, _ = x.shape
         if time.ndim == 0:
             time = time.expand(B)
@@ -167,7 +170,7 @@ class DiT(nn.Module):
         if drop_audio_cond:
             cond = torch.zeros_like(cond)
         h = self.input_embed(x.to(self.compute_dtype), cond.to(self.compute_dtype), text_embed,
-                             seq_group)
+                             seq_group, train)
         if seq_group is None:
             return h, t_emb, rope_angles(N, self.arch.dim_head, device=x.device)
         # the rope rows of this shard's global positions
@@ -222,11 +225,11 @@ class DiT(nn.Module):
         ``deterministic=False`` (dropout live, its draws from ``generator``)
         or ``autograd=True`` (no dropout) take the training route; the
         default is the kernels."""
+        routed = autograd or not deterministic
         h, t_emb, angles = self.embed_inputs(x, cond, text_ids, time, drop_text=drop_text,
                                              text_embed=text_embed, prosody_text=prosody_text,
-                                             drop_audio_cond=drop_audio_cond)
-        train = (self.train_routes(deterministic, generator)
-                 if autograd or not deterministic else None)
+                                             drop_audio_cond=drop_audio_cond, train=routed)
+        train = self.train_routes(deterministic, generator) if routed else None
         out = self.run_blocks(h, t_emb, mask, angles, 0, len(self.transformer_blocks), train)
         return self.head(out, t_emb, residual=h)
 

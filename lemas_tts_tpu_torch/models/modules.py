@@ -63,6 +63,7 @@ from torch import nn
 
 from lemas_tts_tpu_torch.ops.attention import (attention, check_backend, nhd_supported,
                                                 vmem_attention_nhd)
+from lemas_tts_tpu_torch.ops.conv import conv_taps, conv_taps_mish
 from lemas_tts_tpu_torch.ops.ffn import (ffn_block, ffn_block_supported, qkv_block,
                                          qkv_block_supported)
 from lemas_tts_tpu_torch.ops.quant import QuantLinear, int8_dense_shared
@@ -189,9 +190,13 @@ class TimestepEmbedding(nn.Module):
 
 
 class ConvPositionEmbedding(nn.Module):
-    """Two grouped k=31 convs with Mish. The JAX package lowers them as
-    shifted taps on the TPU; here each is one grouped ``conv1d``, padded
-    ``(K-1)//2`` on the left and ``K//2`` on the right (flax SAME).
+    """Two grouped k=31 convs with Mish, padded ``(K-1)//2`` on the left and
+    ``K//2`` on the right (flax SAME). Inference runs each conv with its bias
+    and Mish as one ``conv_taps_mish`` (``ops/conv.py``: the JAX package's
+    shifted-tap form; on CUDA one kernel launch), on taps made from the
+    weight at each call. The training route (``train=True``) runs the
+    differentiable chain, a grouped ``conv1d`` then ``F.mish``: the kernel
+    defines no backward.
 
     With a ``seq_group`` (sequence-parallel sampling, ``parallel/sequence.py``)
     x is this process's shard of the sequence: one halo of ``2·(K//2)``
@@ -206,23 +211,31 @@ class ConvPositionEmbedding(nn.Module):
             nn.Conv1d(dim, dim, kernel_size, groups=groups), nn.Mish(),
             nn.Conv1d(dim, dim, kernel_size, groups=groups), nn.Mish())
 
-    def forward(self, x: torch.Tensor, seq_group=None) -> torch.Tensor:
+    def _kernel(self, x: torch.Tensor, i: int, padding) -> torch.Tensor:
+        c = self.conv1d[i]
+        return conv_taps_mish(x, conv_taps(c.weight, c.groups, x.dtype), c.bias.to(x.dtype),
+                              padding)
+
+    def _chain(self, x: torch.Tensor, i: int, padding) -> torch.Tensor:
+        return F.mish(conv1d(x, self.conv1d[i], padding))
+
+    def forward(self, x: torch.Tensor, seq_group=None, train: bool = False) -> torch.Tensor:
+        conv_mish = self._chain if train else self._kernel
         k = self.conv1d[0].kernel_size[0]
         if seq_group is None:
             pad = ((k - 1) // 2, k // 2)
-            h = F.mish(conv1d(x, self.conv1d[0], pad))
-            return F.mish(conv1d(h, self.conv1d[2], pad))
+            return conv_mish(conv_mish(x, 0, pad), 2, pad)
         if k % 2 != 1:
             raise ValueError(f"the sequence-parallel halo needs an odd kernel, not {k}")
         half, nl = k // 2, x.shape[1]
-        h = F.mish(conv1d(halo_exchange(x, 2 * half, seq_group), self.conv1d[0], (0, 0)))
+        h = conv_mish(halo_exchange(x, 2 * half, seq_group), 0, (0, 0))
         # rows of conv1's output whose centre lies outside the global sequence:
         # the global chain's zero padding of conv2 has 0 there, not mish(bias)
         centers = (torch.arange(h.shape[1], device=x.device) - half
                    + dist.get_rank(seq_group) * nl)
         inside = (centers >= 0) & (centers < nl * dist.get_world_size(seq_group))
         h = torch.where(inside[None, :, None], h, 0.0)
-        return F.mish(conv1d(h, self.conv1d[2], (0, 0)))
+        return conv_mish(h, 2, (0, 0))
 
 
 class GRN(nn.Module):
@@ -467,7 +480,7 @@ class DiTBlock(nn.Module):
         if self.attn.tp is not None:
             raise ValueError("a tensor-parallel block runs only the training route")
         n, cdt = x.shape[1], x.dtype
-        x = x.contiguous()  # the conv position embedding leaves a transposed layout
+        x = x.contiguous()  # the kernels read x through its pointer
         if angles is not None and seq_group is None and self.fused_attn_ok(n):
             a = self.attn
             q, k, v = qkv_block(

@@ -37,6 +37,7 @@ ENTRY_POINTS = {
     "attention_nhd": {"lemas_attention_nhd": _NHD, "lemas_attention_nhd_pack": _NHD},
     "attention_bhnd": {"lemas_attention_bhnd": [I, I, I] + [P] * 5 + [I] * 3 + [F, P]},
     "attention_splash": {"lemas_attention_splash": [I, I, I] + [P] * 5 + [I] * 3 + [F, P]},
+    "conv_taps": {"lemas_conv_taps_mish": [I, I] + [P] * 4 + [I] * 6 + [P]},
 }
 
 _lock = threading.Lock()

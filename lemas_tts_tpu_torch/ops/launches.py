@@ -18,12 +18,13 @@ _local = threading.local()
 
 def counters() -> dict:
     """Every kernel wrapper, by kernel name."""
-    from lemas_tts_tpu_torch.ops import attention, ffn
+    from lemas_tts_tpu_torch.ops import attention, conv, ffn
 
     return {"qkv_block": ffn.qkv_block, "vmem_attention_nhd": attention.vmem_attention_nhd,
             "vmem_attention_nhd_pack": attention.vmem_attention_nhd_pack,
             "vmem_attention": attention.vmem_attention,
-            "splash_attention": attention.splash_attention, "ffn_block": ffn.ffn_block}
+            "splash_attention": attention.splash_attention, "ffn_block": ffn.ffn_block,
+            "conv_taps_mish": conv.conv_taps_mish}
 
 
 def count(wrapper) -> None:

@@ -176,7 +176,7 @@ class PipelineRun:
         dit, pipe = self.dit, self.pipe
         h, t_emb, angles = dit.embed_inputs(x, cond, text_ids, time, drop_text=drop_text,
                                             prosody_text=prosody_text,
-                                            drop_audio_cond=drop_audio_cond)
+                                            drop_audio_cond=drop_audio_cond, train=True)
         # every stage but the last cuts the embeddings off its blocks' graph:
         # their gradient is complete only after every microbatch's backward
         self.h, self.t_emb = h, t_emb
