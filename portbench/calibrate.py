@@ -10,11 +10,13 @@ it:
 - ``program``: the program as the cell runs it (the lower reading);
 - ``program-int8``: the program with its own W8A8 int8 path on, the
   control of a bfloat16 cell;
-- ``reference-fp8``: the reference with every product of the DiT and of the
-  vocoder in float8 e4m3 put in the program's place, the control of the
+- ``reference-fp8``: the reference with every product of the backbone and of
+  the vocoder in float8 e4m3 put in the program's place (the families'
+  ``quantize_all``), the control of the
   stages that the int8 path leaves in bfloat16 (the vocoder);
 - ``reference-int4``: the reference with W4A4 block products put in the
-  program's place, the control of a W8A8 cell (int4 for int8).
+  program's place (the backbone family's ``quantize_blocks``), the control of
+  a W8A8 cell (int4 for int8).
 
 ``program`` runs on every seed of ``--seeds``, the other variants on
 ``--control-seeds``. Witnesses of where a wave gap comes from, printed with
@@ -62,16 +64,15 @@ def sample(pool: List[gen.Request], k: int, seed: int) -> List[gen.Request]:
     return [order[0]] + [rest[int(i)] for i in take]
 
 
-def reload(sysm: system.System, config: dict, seed: int) -> None:
+def reload(sysm: system.System, cell, seed: int) -> None:
     """The seed's weights copied into the built system, quantizing where the
     model holds W8A8 products."""
     from lemas_tts_tpu_torch.ops.quant import QuantLinear, quantize_weight
 
-    w = {"dit": weights.make(system.dit_shapes(config), gen.mix(seed, "dit"), sysm.device),
-         "vocoder": weights.make(system.vocoder_shapes(config), gen.mix(seed, "vocoder"),
-                                 sysm.device)}
+    w = system.make_weights(cell, seed, sysm.device)
     with torch.no_grad():
-        for key, model in (("dit", sysm.synth.dit_model), ("vocoder", sysm.synth.vocoder_model)):
+        for key, model in (("backbone", sysm.synth.dit_model),
+                           ("vocoder", sysm.synth.vocoder_model)):
             mods = dict(model.named_modules())
             for name, t in w[key].items():
                 owner, _, attr = name.rpartition(".")
@@ -133,8 +134,7 @@ def serve(cell, variant, systems, reqs, device) -> list:
     """The sample's outputs ``(wave, sr, mel)`` under ``variant``."""
     if variant.startswith("reference-"):
         fmt = {"reference-int4": 4, "reference-fp8": "fp8"}[variant]
-        control = check.reference_model(cell.config, systems["program"].host_weights, device,
-                                        fmt)
+        control = check.reference_model(cell, systems["program"].host_weights, device, fmt)
         s, chunked = check.sampler(cell.traffic), cell.traffic["entry"] == "single"
         with check.exact_float32():
             return [ref.synthesize(control, s, r.ref_wav, r.ref_sr, r.ref_text, r.chunks,
@@ -151,13 +151,13 @@ def readings(cell, cfg_file: Path, systems: dict, seed: int, variants: List[str]
     builds = {"program": cell.traffic, "program-int8": dict(cell.traffic, quant="int8")}
     for name in ["program"] + [v for v in variants if v == "program-int8"]:
         if name not in systems:
-            systems[name] = system.build(cell.config, builds[name], cfg_file, seed, device)
+            systems[name] = system.build(cell, builds[name], cfg_file, seed, device)
             system.warm(systems[name], pool, builds[name])
         else:
-            reload(systems[name], cell.config, seed)
+            reload(systems[name], cell, seed)
     reqs = sample(pool, int(cell.traffic["check"]["requests"]), seed)
     bits = {"int8": 8}.get(cell.traffic.get("quant"))
-    model = check.reference_model(cell.config, systems["program"].host_weights, device, bits)
+    model = check.reference_model(cell, systems["program"].host_weights, device, bits)
     refs = check.reference(reqs, model, cell.traffic, device)
     out = {}
     for variant in variants:

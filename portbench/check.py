@@ -8,7 +8,7 @@ the reference makes the request again from its inputs and the benchmark's
 weights. The numbers, each the widest over the sample:
 
 - ``mel_rel_l2``: the served mel against the reference's (reference prep,
-  text, durations, noise, every sampler step and the DiT);
+  text, durations, noise, every sampler step and the backbone);
 - ``wave_rel_l2``: the served wave against the reference's vocoder, RMS
   restore, cross-fade and clip applied to the served mel, so that it holds
   the stages after the mel on their own (a mel gap of under 1 % reads as
@@ -53,13 +53,13 @@ def pick(records, k: int, seed: int) -> list:
     return [longest] + [rest[int(i)] for i in idx]
 
 
-def reference_model(config: dict, host_weights: Dict[str, Dict[str, torch.Tensor]], device,
+def reference_model(cell, host_weights: Dict[str, Dict[str, torch.Tensor]], device,
                     quant=None) -> ref.Model:
-    """The reference on ``device`` with the benchmark's weights in float32
-    (``quant``: as ``reference.request.Model`` takes it)."""
-    m = config["model"]
-    return ref.Model(dict(m["arch"]), m["mel_spec"], config["vocoder"]["num_layers"],
-                     {k: v.to(device).float() for k, v in host_weights["dit"].items()},
+    """The reference of ``cell``'s configuration, by its families, on
+    ``device`` with the benchmark's weights in float32 (``quant``: as
+    ``reference.request.Model`` takes it)."""
+    return ref.Model(cell.config, cell.backbone, cell.vocoder,
+                     {k: v.to(device).float() for k, v in host_weights["backbone"].items()},
                      {k: v.to(device).float() for k, v in host_weights["vocoder"].items()},
                      quant)
 

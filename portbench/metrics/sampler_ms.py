@@ -7,7 +7,7 @@ the profiler dropped (``readings.MIN_CALLS_FOUND``); else None."""
 import sys
 
 from portbench import roofline, spans
-from portbench.readings import MIN_CALLS_FOUND
+from portbench.readings import MIN_CALLS_FOUND, model_of
 
 KERNELS = ("K1", "K2", "K3")
 
@@ -16,10 +16,11 @@ def read(run):
     per_call = spans.stage_ops(run, "synth.sample")
     if per_call is None:
         return None
+    backbone, config = model_of(run)
     found = {k: [] for k in KERNELS}
     for call, ops in per_call:
-        want = roofline.batch_bounds(run.arch, run.traffic["sampler"], run.traffic.get("quant"),
-                                     call.n, call.durations)
+        want = roofline.batch_bounds(backbone, config, run.traffic["sampler"],
+                                     run.traffic.get("quant"), call.n, call.durations)
         for k in KERNELS:
             if k not in want:
                 continue

@@ -2,7 +2,8 @@
 
 ``param_shapes`` declares the parameters by name (the published checkpoint
 layout) and shape; the functions below evaluate the network from a dict of
-float32 tensors with those names. ``quantize_blocks`` (int8 or int4)
+float32 tensors with those names, ``velocity`` one sampler step's whole
+forward under the block-range cache. ``quantize_blocks`` (int8 or int4)
 emulates symmetric W-A quantization of the block products (q, k, v, out and
 both feed-forward products): weights per output channel, activations per
 token, both scaled by absmax (to 127 or 7), the product of the quantized
@@ -238,3 +239,27 @@ def head(W: Weights, h, t_emb) -> torch.Tensor:
     mod = linear(F.silu(t_emb), W["norm_out.linear.weight"], W["norm_out.linear.bias"])
     scale, shift = (c[:, None] for c in mod.chunk(2, dim=-1))
     return linear(_ln(h) * (1 + scale) + shift, W["proj_out.weight"], W["proj_out.bias"])
+
+
+def velocity(W: Weights, arch: dict, x, cond, text_emb, t, mask, lo_hi, refresh: bool, cache):
+    """``(velocity [B, N, mel], cache)`` of one sampler step. With a block
+    range ``lo_hi``, a ``refresh`` step stores the range's residual in the
+    cache and the other steps add it in place of the range's blocks."""
+    depth = arch["depth"]
+    t_emb = time_embedding(W, t.expand(x.shape[0]))
+    h0 = input_embedding(W, x, cond, text_emb)
+    lo, hi = lo_hi if lo_hi is not None else (0, depth)
+    h = h0
+    for i in range(lo):
+        h = block(W, arch, i, h, t_emb, mask)
+    if lo_hi is None or refresh:
+        h_mid = h
+        for i in range(lo, hi):
+            h_mid = block(W, arch, i, h_mid, t_emb, mask)
+        cache = h_mid - h
+        h = h_mid
+    else:
+        h = h + cache
+    for i in range(hi, depth):
+        h = block(W, arch, i, h, t_emb, mask)
+    return head(W, h, t_emb), cache

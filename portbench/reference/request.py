@@ -17,7 +17,7 @@ engine's ``synthesize_requests`` row (one text) and ``synthesize_chunks``
    clamp kept), and the block-range cache: on a refresh step the range's
    residual is stored, on the other steps it is added; the cache refreshes
    where the batch width halves. Kept frames are pasted back.
-5. The generated frames (from the last reference frame on) through Vocos,
+5. The generated frames (from the last reference frame on) through the vocoder,
    the RMS restored, the wave clipped to +-0.999; chunks are cross-faded.
 """
 
@@ -25,12 +25,13 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import List, Optional
+from types import ModuleType
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from portbench.reference import audio, dit, vocos
+from portbench.reference import audio
 
 DURATION_BUCKETS = (256, 512, 768, 1024, 1536, 2048, 3072, 4096)
 MAX_FRAMES = 4096
@@ -82,25 +83,43 @@ class Sampler:
 
 @dataclass
 class Model:
-    """What the reference needs of a configuration: the DiT's ``arch`` dict,
-    the mel settings, the vocoder depth, and the float32 weights (``quant``:
-    8 or 4, the block products in int8 or int4; ``"fp8"``, every product of
-    the DiT and the vocoder's linear layers in float8 e4m3; None, float32
-    throughout)."""
+    """What the reference needs of a configuration: the configuration, the
+    reference halves of its backbone and vocoder families (the modules that
+    ``portbench/spec.py`` finds by name: ``text_embedding``, ``velocity``,
+    ``decode`` and the quantization hooks), and their float32 weights
+    (``quant``: 8 or 4, the backbone's block products in int8 or int4, its
+    ``quantize_blocks``; ``"fp8"``, every product of the backbone and the
+    vocoder's linear layers in float8 e4m3, their ``quantize_all``; None,
+    float32 throughout)."""
 
-    arch: dict
-    mel: dict
-    vocoder_layers: int
-    dit_w: dit.Weights
-    voc_w: dit.Weights
+    config: dict
+    backbone: ModuleType
+    vocoder: ModuleType
+    backbone_w: Dict[str, torch.Tensor]
+    vocoder_w: Dict[str, torch.Tensor]
     quant: Optional[object] = None
 
     def __post_init__(self):
         if self.quant == "fp8":
-            self.dit_w = dit.quantize_all(self.dit_w, "fp8")
-            self.voc_w = dit.quantize_all(self.voc_w, "fp8")
+            self.backbone_w = _hook(self.backbone, "quantize_all")(self.backbone_w, self.config,
+                                                                   "fp8")
+            self.vocoder_w = _hook(self.vocoder, "quantize_all")(self.vocoder_w, self.config,
+                                                                 "fp8")
         elif self.quant:
-            self.dit_w = dit.quantize_blocks(self.dit_w, self.arch["depth"], self.quant)
+            self.backbone_w = _hook(self.backbone, "quantize_blocks")(self.backbone_w,
+                                                                      self.config, self.quant)
+
+    @property
+    def mel(self) -> dict:
+        return self.config["model"]["mel_spec"]
+
+
+def _hook(family: ModuleType, name: str):
+    fn = getattr(family, name, None)
+    if fn is None:
+        raise ValueError(f"the family {family.__name__} has no {name}: it cannot make this "
+                         "control")
+    return fn
 
 
 def prepare(ref_wav: np.ndarray, ref_sr: int, mel: dict, target_rms: float) -> dict:
@@ -125,28 +144,6 @@ def duration(ref_len: int, cond_frames: int, ref_text: str, gen: str, speed: flo
     return min(max(max(n_ids, cond_frames) + 1, est), MAX_FRAMES)
 
 
-def _velocity_rows(m: Model, x, cond, te, t, mask, lo_hi, refresh, cache):
-    W = m.dit_w
-    depth = m.arch["depth"]
-    t_emb = dit.time_embedding(W, t.expand(x.shape[0]))
-    h0 = dit.input_embedding(W, x, cond, te)
-    lo, hi = lo_hi if lo_hi is not None else (0, depth)
-    h = h0
-    for i in range(lo):
-        h = dit.block(W, m.arch, i, h, t_emb, mask)
-    if lo_hi is None or refresh:
-        h_mid = h
-        for i in range(lo, hi):
-            h_mid = dit.block(W, m.arch, i, h_mid, t_emb, mask)
-        cache = h_mid - h
-        h = h_mid
-    else:
-        h = h + cache
-    for i in range(hi, depth):
-        h = dit.block(W, m.arch, i, h, t_emb, mask)
-    return dit.head(W, h, t_emb), cache
-
-
 @torch.no_grad()
 def sample(m: Model, s: Sampler, cond: torch.Tensor, n_cond: int, ids: torch.Tensor,
            dur: int, n: int, noise: torch.Tensor) -> torch.Tensor:
@@ -161,8 +158,9 @@ def sample(m: Model, s: Sampler, cond: torch.Tensor, n_cond: int, ids: torch.Ten
     c[0, :n_cond] = cond[:n_cond]
     y = torch.where(mask[..., None], noise[None], 0.0)
     use_cfg = s.cfg_strength >= 1e-5
-    te_c = dit.text_embedding(m.dit_w, m.arch, ids[None], n, False)
-    te_u = dit.text_embedding(m.dit_w, m.arch, ids[None], n, True) if use_cfg else None
+    bb, W = m.backbone, m.backbone_w
+    te_c = bb.text_embedding(W, m.config, ids[None], n, False)
+    te_u = bb.text_embedding(W, m.config, ids[None], n, True) if use_cfg else None
     grid = time_grid(s.nfe_steps, s.sway_sampling_coef)
     steps = len(grid) - 1
     k = steps if use_cfg else 0
@@ -178,13 +176,13 @@ def sample(m: Model, s: Sampler, cond: torch.Tensor, n_cond: int, ids: torch.Ten
     for i in range(steps):
         t, dt = g[i], g[i + 1] - g[i]
         if use_cfg and i < k:
-            out, cache = _velocity_rows(m, torch.cat([y, y]), torch.cat([c, torch.zeros_like(c)]),
-                                        torch.cat([te_c, te_u]), t, torch.cat([mask, mask]),
-                                        lo_hi, bool(flags[i]), cache)
+            out, cache = bb.velocity(W, m.config, torch.cat([y, y]),
+                                     torch.cat([c, torch.zeros_like(c)]), torch.cat([te_c, te_u]),
+                                     t, torch.cat([mask, mask]), lo_hi, bool(flags[i]), cache)
             v = out[:1] + (out[:1] - out[1:]) * (s.cfg_strength * torch.square(1.0 - t))
             v = torch.clamp(v, -20.0, 20.0)
         else:
-            v, cache = _velocity_rows(m, y, c, te_c, t, mask, lo_hi, bool(flags[i]), cache)
+            v, cache = bb.velocity(W, m.config, y, c, te_c, t, mask, lo_hi, bool(flags[i]), cache)
             if use_cfg:
                 v = torch.clamp(v, -20.0, 20.0)
         y = y + dt * v
@@ -219,15 +217,14 @@ def generate(m: Model, s: Sampler, ref_wav: np.ndarray, ref_sr: int, ref_text: s
 @torch.no_grad()
 def vocode(m: Model, s: Sampler, mels: List[np.ndarray], rms: float, device,
            chunked: bool) -> np.ndarray:
-    """The wave of a request's chunk mels: each through Vocos, the RMS
+    """The wave of a request's chunk mels: each through the vocoder, the RMS
     restored, the chunks cross-faded, clipped to +-0.999."""
-    mel = m.mel
     waves = []
     for sl in mels:
         x = torch.from_numpy(np.ascontiguousarray(sl, np.float32)).to(device)
-        w = vocos.decode(m.voc_w, x, m.vocoder_layers, mel["n_fft"], mel["hop_length"])
+        w = m.vocoder.decode(m.vocoder_w, m.config, x)
         waves.append(w.double().cpu().numpy())
-    return finish(s, waves, rms, mel["target_sample_rate"], chunked)
+    return finish(s, waves, rms, m.mel["target_sample_rate"], chunked)
 
 
 def finish(s: Sampler, waves: List[np.ndarray], rms: float, sr: int,

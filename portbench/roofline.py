@@ -1,5 +1,11 @@
 """Rooflines of the port's hand-written kernels: which kernels a sampler call
 runs, their operations and bytes per call, and their symbols in a trace.
+K1-K6 are here; another kernel is a file of its own,
+``portbench/kernels/<name>.py``, found by name (``spec.Bench.kernel``), with
+``SYMBOL`` (its launches in a trace), ``CALL_MARK`` (the launch that marks
+one call, None where every launch is one), ``PER`` (``"block"`` or
+``"forward"``: what ``calls(config, quant)`` counts its calls in) and
+``cost(config, rows, n, valid_keys)`` (its bytes and operations per call).
 
 The arithmetic is a frozen copy of the "Bound" column of ``PERF.md`` §6 at
 commit a2fd43e (``chip_smoke.py:phase_kernels`` and
@@ -9,17 +15,14 @@ the keys its mask leaves (4 · heads · dim_head · N · valid keys). At rows 2,
 N 1024, 16 × 64 heads, bf16 that gives K1 0.0130, K2 0.0174, K3 0.0080 (valid
 keys 1024 and 859) and K5 0.0085 ms (1024 - 37 and 1024), the table's values.
 
-Which kernels run is the block's routing (``models/modules.py`` at a2fd43e):
-under the ``vmem`` backend a block with rope on every head, no qk norm and
-d64 heads in pairs (or d128) runs K1 + K3 for attention, else the split-head
-chain with K5; the feed-forward side is K2; W8A8 int8 takes the q/k/v, out
-and feed-forward products to ``torch._int_mm``, which leaves K1 and K2 and
-keeps K3 or K5.
+Which of K1-K6 one block evaluation runs is its backbone family's
+``block_kernels`` (``portbench/backbones/``).
 """
 
 from __future__ import annotations
 
 import re
+from types import ModuleType
 from typing import Dict, List, Optional
 
 from portbench.flops import HBM_BYTES_PER_S, PEAKS, schedule
@@ -49,23 +52,17 @@ def kernel_of(name: str) -> Optional[str]:
     return None
 
 
-def is_call(kernel: str, name: str) -> bool:
-    mark = CALL_MARK.get(kernel)
+def is_launch(kernel: str, name: str, found: Optional[ModuleType] = None) -> bool:
+    """Whether the trace's ``name`` is a launch of ``kernel``; ``found``, the
+    kernel's file for a kernel that is not one of K1-K6."""
+    if found is not None:
+        return found.SYMBOL.search(name) is not None
+    return kernel_of(name) == kernel
+
+
+def is_call(kernel: str, name: str, found: Optional[ModuleType] = None) -> bool:
+    mark = found.CALL_MARK if found is not None else CALL_MARK.get(kernel)
     return mark.search(name) is not None if mark else True
-
-
-def block_kernels(arch: dict, quant: Optional[str]) -> List[str]:
-    """The hand-written kernels one block evaluation launches, once each."""
-    heads, dh = arch["heads"], arch["dim_head"]
-    flat = (arch.get("qk_norm") is None and arch.get("pe_attn_head") is None
-            and ((dh == 64 and heads % 2 == 0) or dh == 128))
-    out = []
-    if quant is None:
-        out += ["K1", "K3"] if flat else ["K5"]
-        out.append("K2")
-    else:
-        out.append("K3" if flat else "K5")
-    return out
 
 
 def bound_s(nbytes: float, flops: float) -> float:
@@ -95,16 +92,26 @@ def call_bound(kernel: str, arch: dict, rows: int, n: int, valid_keys: float) ->
     raise ValueError(kernel)
 
 
-def batch_bounds(arch: dict, sampler: dict, quant: Optional[str], n: int,
-                 durations: List[int]) -> Dict[str, list]:
+def batch_bounds(backbone: ModuleType, config: dict, sampler: dict, quant: Optional[str],
+                 n: int, durations: List[int],
+                 files: Optional[Dict[str, ModuleType]] = None) -> Dict[str, list]:
     """``{kernel: [calls, seconds at the roofline]}`` of one sampler call
-    whose padded batch rows have ``durations`` (frames) in an ``n`` bucket."""
+    whose padded batch rows have ``durations`` (frames) in an ``n`` bucket:
+    the backbone family's block kernels, and those of ``files`` (kernel
+    files by name) that its configuration runs."""
+    arch = config["model"]["arch"]
     out: Dict[str, list] = {}
     valid = float(sum(min(d, n) for d in durations))
-    for width, blocks in schedule(sampler, arch["depth"]):
+    for width, blocks in schedule(sampler, backbone.depth(config)):
         rows = width * len(durations)
-        for k in block_kernels(arch, quant):
+        for k in backbone.block_kernels(config, quant):
             c = out.setdefault(k, [0, 0.0])
             c[0] += blocks
             c[1] += blocks * call_bound(k, arch, rows, n, width * valid)
+        for k, f in (files or {}).items():
+            calls = f.calls(config, quant) * (blocks if f.PER == "block" else 1)
+            if calls:
+                c = out.setdefault(k, [0, 0.0])
+                c[0] += calls
+                c[1] += calls * bound_s(*f.cost(config, rows, n, width * valid))
     return out

@@ -13,7 +13,8 @@ standard output is the result; the last lines of standard error are the
 numbers that decide ``correct``, each with its limit.
 
 Exits 2 without a result when there is no CUDA device, fewer than the cell
-asks for, or no port in the checkout; exits 3 without a result when the
+asks for, no port in the checkout, or no file for the backbone, the vocoder
+or a kernel that the cell names; exits 3 without a result when the
 process holds JAX or the JAX package once the window has closed.
 """
 
@@ -75,7 +76,7 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
     t_build = time.perf_counter()
     system.build_kernels(dev)
     t_build = time.perf_counter() - t_build
-    sysm = system.build(cell.config, cell.traffic, root / cfg_entry["file"], seed, dev)
+    sysm = system.build(cell, cell.traffic, root / cfg_entry["file"], seed, dev)
     system.warm(sysm, pool, cell.traffic)
     setup_s = time.perf_counter() - t0
     print(f"[portbench] {workload} seed {seed}: kernels built in {t_build:.1f} s, "
@@ -93,9 +94,8 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
     mem = torch.cuda.max_memory_allocated(dev) if cuda else 0
 
     run = SimpleNamespace(window=window, cell=cell, pool=pool, profile=profile,
-                          traffic=cell.traffic, config=cell.config,
-                          arch=cell.config["model"]["arch"],
-                          mel_dim=cell.config["model"]["mel_spec"]["n_mel_channels"])
+                          traffic=cell.traffic, config=cell.config, backbone=cell.backbone,
+                          kernel=bench.kernel)
     units = {m["name"]: m["unit"] for m in cell.end_to_end + cell.per_layer}
     metrics = {}
     if not trace:
@@ -114,7 +114,7 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
     failed = sum(1 for r in window.records if not r.ok)
     picks = check.pick(window.records, int(cell.traffic["check"]["requests"]), seed)
     bits = {"int8": 8}.get(cell.traffic.get("quant"))
-    model = check.reference_model(cell.config, host_weights, dev, bits)
+    model = check.reference_model(cell, host_weights, dev, bits)
     numbers = check.compare(picks, pool, model, cell.traffic, dev)
     if not picks:  # nothing finished: every gap fails
         numbers = {k: float("inf") for k in cell.limits}
@@ -153,7 +153,11 @@ def main(argv=None) -> int:
 
     from portbench.spec import Bench
 
-    chips = Bench(root).cell(args.workload).chips
+    try:
+        chips = Bench(root).cell(args.workload).chips
+    except LookupError as e:  # no such cell, or a family or kernel without its file
+        print(f"[portbench] {e}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
         print(f"[portbench] the cell needs {chips} CUDA device(s); "
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0} available",

@@ -1,10 +1,12 @@
-"""The system under test: the port's DiT, Vocos and ``Synthesizer`` built
-from a configuration file, loaded with the benchmark's seeded weights, and
-warmed on the shapes its traffic uses. Built through the port's own classes
-(as ``TTS.__init__`` does, without its host-side init): the model in float32
-on the device, the weights loaded like a checkpoint, W8A8 applied to the
-float weights when the mix asks for it, then the matrices cast to the
-configuration's type."""
+"""The system under test: the port's backbone, vocoder and ``Synthesizer``
+built from a configuration file, loaded with the benchmark's seeded weights,
+and warmed on the shapes its traffic uses. Built through the port's own
+classes (as ``TTS.__init__`` does, without its host-side init): the
+backbone and vocoder families (``portbench/backbones/``, ``vocoders/``, found
+by the configuration's names) make the models in float32 on the device, the
+weights are loaded like a checkpoint, W8A8 is applied to the float weights
+when the mix asks for it, then the matrices are cast to the configuration's
+type."""
 
 from __future__ import annotations
 
@@ -16,21 +18,22 @@ import torch
 
 from portbench import traffic as gen
 from portbench import weights
-from portbench.reference import dit as ref_dit
-from portbench.reference import vocos as ref_vocos
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# the tag of each part's draw from the seed (the backbone's is "dit" for every
+# family, so that the DiT's weights stay what they were)
+SEED_TAGS = {"backbone": "dit", "vocoder": "vocoder"}
 
 
-def dit_shapes(config: dict) -> Dict[str, tuple]:
-    m = config["model"]
-    return ref_dit.param_shapes(m["arch"], m["mel_spec"]["n_mel_channels"], config["vocab_size"])
-
-
-def vocoder_shapes(config: dict) -> Dict[str, tuple]:
-    v, mel = config["vocoder"], config["model"]["mel_spec"]
-    return ref_vocos.param_shapes(mel["n_mel_channels"], v["dim"], v["intermediate_dim"],
-                                  v["num_layers"], mel["n_fft"])
+def make_weights(cell, seed: int, device) -> Dict[str, Dict[str, torch.Tensor]]:
+    """``{"backbone": ..., "vocoder": ...}``: each part's weights drawn from
+    the seed (``weights.make``) by its family's shapes and rule."""
+    out = {}
+    for part, tag in SEED_TAGS.items():
+        fam = getattr(cell, part)
+        out[part] = weights.make(fam.param_shapes(cell.config), gen.mix(seed, tag), device,
+                                 fam.weight_rule)
+    return out
 
 
 def sampler_config(traffic: dict):
@@ -44,7 +47,7 @@ class System:
     synth: object
     cfg: object  # the port's SamplerConfig of the mix
     device: torch.device
-    host_weights: Dict[str, Dict[str, torch.Tensor]]  # the benchmark's copy, bf16 on the host
+    host_weights: Dict[str, Dict[str, torch.Tensor]]  # backbone, vocoder: bf16 on the host
 
 
 def _load(module: torch.nn.Module, w: Dict[str, torch.Tensor]) -> None:
@@ -58,34 +61,30 @@ def _load(module: torch.nn.Module, w: Dict[str, torch.Tensor]) -> None:
         p.data.copy_(w[name])
 
 
-def build(config: dict, traffic: dict, config_path: Path, seed: int, device) -> System:
+def build(cell, traffic: dict, config_path: Path, seed: int, device) -> System:
+    """The system of ``cell``'s configuration under ``traffic`` (the cell's
+    own mix, or another with its ``quant``)."""
     from lemas_tts_tpu_torch.config import load_model_config
     from lemas_tts_tpu_torch.infer.pipeline import Synthesizer
-    from lemas_tts_tpu_torch.models.dit import DiT, cast_matrices
-    from lemas_tts_tpu_torch.models.vocos import Vocos
+    from lemas_tts_tpu_torch.models.dit import cast_matrices
     from lemas_tts_tpu_torch.ops.quant import MODES, quantize_dense_tree
     from lemas_tts_tpu_torch.utils.vocab import get_tokenizer
 
     device = torch.device(device)
-    cdt = DTYPES[config["precision"]]
+    cdt = DTYPES[cell.config["precision"]]
     mc = load_model_config(config_path)
-    mel, v = mc.mel_spec, config["vocoder"]
     with torch.device(device):
-        dit = DiT(mc.arch, mel_dim=mel.n_mel_channels, text_num_embeds=config["vocab_size"],
-                  compute_dtype=cdt, attn_backend="vmem")
-        vocoder = Vocos(input_channels=mel.n_mel_channels, dim=v["dim"],
-                        intermediate_dim=v["intermediate_dim"], num_layers=v["num_layers"],
-                        n_fft=mel.n_fft, hop_length=mel.hop_length, compute_dtype=cdt)
-    w = {"dit": weights.make(dit_shapes(config), gen.mix(seed, "dit"), device),
-         "vocoder": weights.make(vocoder_shapes(config), gen.mix(seed, "vocoder"), device)}
+        backbone = cell.backbone.build(cell.config, config_path, cdt)
+        vocoder = cell.vocoder.build(cell.config, config_path, cdt)
+    w = make_weights(cell, seed, device)
     with torch.no_grad():
-        _load(dit, w["dit"])
+        _load(backbone, w["backbone"])
         _load(vocoder, w["vocoder"])
     if traffic.get("quant"):
-        quantize_dense_tree(dit, MODES[traffic["quant"]])
-    for m in (dit, vocoder):
+        quantize_dense_tree(backbone, MODES[traffic["quant"]])
+    for m in (backbone, vocoder):
         cast_matrices(m, cdt).to(device).eval()
-    synth = Synthesizer(dit, vocoder, get_tokenizer("", "byte"), mel, device=device)
+    synth = Synthesizer(backbone, vocoder, get_tokenizer("", "byte"), mc.mel_spec, device=device)
     host = {k: {n: t.cpu() for n, t in d.items()} for k, d in w.items()}
     return System(synth, sampler_config(traffic), device, host)
 

@@ -38,14 +38,17 @@ def _traced(ops):
     from types import SimpleNamespace
 
     from portbench.drive import Span
+    from portbench.spec import Bench
     from portbench.tests.tiny import REPO
     from portbench.trace import Profile
 
+    bench = Bench(REPO)
     cfg = json.loads((REPO / "portbench/configs/multilingual.json").read_text())
     traffic = json.loads((REPO / "portbench/traffic/serve-c8-bf16.json").read_text())
     spans = [Span(0.0, 1.0, 4, 1024, [900] * 4)]
     return SimpleNamespace(window=SimpleNamespace(slice=SimpleNamespace(spans=spans)),
-                           profile=Profile(1.0, ops), arch=cfg["model"]["arch"],
+                           profile=Profile(1.0, ops), config=cfg,
+                           backbone=bench.family("backbone", "DiT"), kernel=bench.kernel,
                            traffic=traffic)
 
 
@@ -56,7 +59,8 @@ def test_roofline_share_over_the_calls_the_batches_make():
     from portbench import roofline
     from portbench.readings import roofline_share
 
-    bound = roofline.batch_bounds(_traced([]).arch, _traced([]).traffic["sampler"], None, 1024,
+    run = _traced([])
+    bound = roofline.batch_bounds(run.backbone, run.config, run.traffic["sampler"], None, 1024,
                                   [900] * 4)["K3"]
     per = bound[1] / bound[0] * 1e6  # us at the roofline a call
     ops = [(K3, 10.0 * i * per, 2.0 * per) for i in range(bound[0])]

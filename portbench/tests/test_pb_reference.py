@@ -9,47 +9,48 @@ import torch
 
 from portbench import check, system
 from portbench import traffic as gen
+from portbench.spec import Bench
 from portbench.tests import tiny
 
 
 @pytest.fixture(scope="module")
 def built(tmp_path_factory):
     root = tiny.make_root(tmp_path_factory.mktemp("ref"))
-    cfg = tiny.tiny_config()
+    cell = Bench(root).cell(tiny.CELL)
     path = root / "portbench/configs/tiny.json"
     out = {}
     for entry in ("serve", "single"):
         t = tiny.tiny_traffic(entry)
-        sysm = system.build(cfg, t, path, 31, "cpu")
+        sysm = system.build(cell, t, path, 31, "cpu")
         out[entry] = (sysm, t, gen.pool(t, 31))
-    return cfg, out
+    return cell, out
 
 
-def _gaps(cfg, sysm, t, pool, outs, reqs):
-    model = check.reference_model(cfg, sysm.host_weights, "cpu")
+def _gaps(cell, sysm, t, pool, outs, reqs):
+    model = check.reference_model(cell, sysm.host_weights, "cpu")
     recs = [type("R", (), {"index": r.index, "out": o})() for r, o in zip(reqs, outs)]
     return check.compare(recs, pool, model, t, "cpu")
 
 
 def test_serving_rows_agree(built):
-    cfg, out = built
+    cell, out = built
     sysm, t, pool = out["serve"]
     reqs = [r for r in pool if r.bucket == 512][:2]
     outs = sysm.synth.synthesize_requests(
         [dict(ref_wav=r.ref_wav, ref_sr=r.ref_sr, ref_units=r.ref_text, gen_units=r.chunks[0],
               seed=r.seed) for r in reqs], cfg=sysm.cfg)
-    g = _gaps(cfg, sysm, t, pool, outs, reqs)
+    g = _gaps(cell, sysm, t, pool, outs, reqs)
     assert g["frames_off"] == 0
     assert g["mel_rel_l2"] < 2e-5 and g["wave_rel_l2"] < 2e-5, g
 
 
 def test_single_stream_request_agrees(built):
-    cfg, out = built
+    cell, out = built
     sysm, t, pool = out["single"]
     r = next(r for r in pool if len(r.chunks) == 2)
     outs = [sysm.synth.synthesize_chunks(r.ref_wav, r.ref_sr, r.ref_text, r.chunks,
                                          cfg=sysm.cfg, seed=r.seed)]
-    g = _gaps(cfg, sysm, t, pool, outs, [r])
+    g = _gaps(cell, sysm, t, pool, outs, [r])
     assert g["frames_off"] == 0
     assert g["mel_rel_l2"] < 2e-5 and g["wave_rel_l2"] < 2e-5, g
 

@@ -6,11 +6,14 @@ import json
 import pytest
 
 from portbench import flops, roofline
+from portbench.spec import Bench
 from portbench.tests.tiny import REPO
 
+DIT = Bench(REPO).family("backbone", "DiT")
 
-def _arch(config):
-    return json.loads((REPO / f"portbench/configs/{config}.json").read_text())["model"]["arch"]
+
+def _config(config):
+    return json.loads((REPO / f"portbench/configs/{config}.json").read_text())
 
 
 def _sampler(mix):
@@ -32,9 +35,9 @@ def test_flops_equal_the_ports_count(config, mix, batch, n):
                                cfg_cutoff=s["cfg_cutoff"],
                                **block_cache_fields(s["block_cache"], arch.depth))
     want = sampler_call_flops(arch, settings, batch, n, 100)
-    got = flops.sampler_call_flops(_arch(config), s, batch, n, 100)
+    got = DIT.sampler_call_flops(_config(config), s, batch, n)
     assert got["bf16"] + got["int8"] == pytest.approx(want, rel=1e-12)
-    q = flops.sampler_call_flops(_arch(config), s, batch, n, 100, quant="int8")
+    q = DIT.sampler_call_flops(_config(config), s, batch, n, quant="int8")
     assert q["bf16"] + q["int8"] == pytest.approx(want, rel=1e-12) and q["int8"] > q["bf16"]
 
 
@@ -67,16 +70,16 @@ def test_kernel_symbols(name, kernel):
 
 
 def test_routing_per_config():
-    assert roofline.block_kernels(_arch("multilingual"), None) == ["K1", "K3", "K2"]
-    assert roofline.block_kernels(_arch("multilingual"), "int8") == ["K3"]
-    assert roofline.block_kernels(_arch("f5tts_base"), None) == ["K5", "K2"]
+    assert DIT.block_kernels(_config("multilingual"), None) == ["K1", "K3", "K2"]
+    assert DIT.block_kernels(_config("multilingual"), "int8") == ["K3"]
+    assert DIT.block_kernels(_config("f5tts_base"), None) == ["K5", "K2"]
 
 
 def test_launches_per_batch_of_the_served_schedule():
     """396 block evaluations a sampler call at the serving defaults, 704
     at the library's: PERF.md §6's counts."""
-    arch = _arch("multilingual")
     assert sum(b for _, b in flops.schedule(_sampler("serve-c8-bf16"), 22)) == 396
     assert sum(b for _, b in flops.schedule(_sampler("single"), 22)) == 704
-    calls = roofline.batch_bounds(arch, _sampler("serve-c8-bf16"), None, 1024, [900] * 4)
+    calls = roofline.batch_bounds(DIT, _config("multilingual"), _sampler("serve-c8-bf16"), None,
+                                  1024, [900] * 4)
     assert {k: v[0] for k, v in calls.items()} == {"K1": 396, "K2": 396, "K3": 396}

@@ -9,6 +9,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[2]
 CELL = "tiny.tiny-mix"
+COPIED = ("metrics", "backbones", "vocoders", "kernels")  # the harness's files found by name
 
 
 def tiny_config() -> dict:
@@ -35,7 +36,9 @@ def make_root(root: Path, entry: str = "serve", quant=None, limits=None) -> Path
     b = root / "portbench"
     for d in ("configs", "traffic", "limits"):
         (b / d).mkdir(parents=True, exist_ok=True)
-    shutil.copytree(REPO / "portbench/metrics", b / "metrics", dirs_exist_ok=True)
+    for d in COPIED:
+        shutil.copytree(REPO / "portbench" / d, b / d, dirs_exist_ok=True,
+                        ignore=shutil.ignore_patterns("__pycache__"))
     (b / "configs/tiny.json").write_text(json.dumps(tiny_config()))
     (b / "traffic/tiny-mix.json").write_text(json.dumps(tiny_traffic(entry, quant)))
     doc = json.loads((REPO / "BENCHMARK.json").read_text())
