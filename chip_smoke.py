@@ -8,10 +8,13 @@ Phases, in order (any failure raises; the exit code is then non-zero):
      (attention_bhnd), K2 (ffn_block), K3/K4 (attention_nhd), K6
      (attention_splash) and conv position embedding (conv_taps) libraries
      must each hold wgmma (HGMMA) and TMA-load
-     (UTMALDG) instructions in their SASS, K6 also the 128-wide wgmma and
-     setmaxnreg (USETMAXREG), and K6's bf16 kernel must not spill;
+     (UTMALDG) instructions in their SASS, K5 and K6 also the 128-wide wgmma
+     and setmaxnreg (USETMAXREG), and K5's and K6's bf16 kernels must not
+     spill;
   3. kernels: each kernel (K1-K6) against its plain PyTorch version on the
-     card, at the shapes of the paths below (K5 also at N 1000 and 1025, K1
+     card, at the shapes of the paths below (K5 also at N 1000, 1025 and
+     1537, with the UNetT's mask at N 1025 and 1537, its counter of skipped
+     key tiles held to ``vmem_key_tiles``, N 1025 timed in turns with N 1024; K1
      also at rows 3, N 1088, where 128-row tiles straddle batch rows; K1-K3
      at rows 1, a distilled student's, and K3 there also with 8 x 128 heads), with
      times, the bound and the library yardstick (sdpa for K3-K5, the cuBLAS
@@ -299,32 +302,36 @@ def phase_build() -> None:
                     facts.append(line.replace("ptxas info    :", "").strip())
     # the bf16 K1, K5, K2, K3/K4 and K6 must run on wgmma and TMA: count their
     # SASS instructions (0 would mean a fallback to mma.sync or to plain loads);
-    # K6's S = Q K^T must be the 128-wide form and its warpgroups must trade
-    # registers (setmaxnreg)
+    # K5's and K6's S = Q K^T must be the 128-wide form and their warpgroups
+    # must trade registers (setmaxnreg)
     cuobjdump = Path(_cuda.nvcc_path()).with_name("cuobjdump")
+    persistent = {"attention_bhnd": "attn_bhnd_sm90_kernel",
+                  "attention_splash": "splash_sm90_kernel"}  # library: bf16 kernel
     for name in ("qkv_block", "attention_bhnd", "ffn_block", "attention_nhd",
                  "attention_splash", "conv_taps"):
         sass = subprocess.run([str(cuobjdump), "-sass", str(_cuda.library_path(name))],
                               capture_output=True, text=True, timeout=300).stdout
         ops = ("HGMMA", "UTMALDG") + (("HGMMA.64x128x16", "USETMAXREG")
-                                      if name == "attention_splash" else ())
+                                      if name in persistent else ())
         counts = {op: sum(op in line for line in sass.splitlines()) for op in ops}
         print(f"[build] {name} SASS: {counts['HGMMA']} HGMMA (wgmma), "
               f"{counts['UTMALDG']} UTMALDG (TMA loads)"
               + (f", {counts['HGMMA.64x128x16']} of them 64x128x16, {counts['USETMAXREG']} "
-                 f"USETMAXREG" if name == "attention_splash" else ""), flush=True)
+                 f"USETMAXREG" if name in persistent else ""), flush=True)
         check(all(counts.values()), f"{name} lacks an instruction it must hold: {counts}")
-    # K6's bf16 kernel: ptxas' registers and spills (the consumers' 232 come
-    # from setmaxnreg at run time; ptxas reports the 168 a thread at launch)
-    log = (_cuda.BUILD / "attention_splash.ptxas.txt").read_text().split("Compiling entry")
-    for part in log:
-        if "splash_sm90_kernel" in part.split("\n", 1)[0]:
-            regs = next(line for line in part.splitlines() if "registers" in line)
-            spills = next(line for line in part.splitlines() if "spill" in line)
-            print(f"[build] attention_splash {part.split(chr(39))[1]}: "
-                  f"{regs.split(':', 1)[1].strip()}; {spills.strip()}", flush=True)
-            check(" 0 bytes spill stores, 0 bytes spill loads" in spills,
-                  f"K6's bf16 kernel spills: {spills.strip()}")
+    # K5's and K6's bf16 kernels: ptxas' registers and spills (the consumers'
+    # 232 come from setmaxnreg at run time; ptxas reports the 168 a thread at
+    # launch)
+    for name, kernel in persistent.items():
+        log = (_cuda.BUILD / f"{name}.ptxas.txt").read_text().split("Compiling entry")
+        for part in log:
+            if kernel in part.split("\n", 1)[0]:
+                regs = next(line for line in part.splitlines() if "registers" in line)
+                spills = next(line for line in part.splitlines() if "spill" in line)
+                print(f"[build] {name} {part.split(chr(39))[1]}: "
+                      f"{regs.split(':', 1)[1].strip()}; {spills.strip()}", flush=True)
+                check(" 0 bytes spill stores, 0 bytes spill loads" in spills,
+                      f"the bf16 kernel of {name} spills: {spills.strip()}")
 
 
 def _kernel_inputs(torch, rows, n, d, f, heads, dim_head, dtype, seed):
@@ -666,42 +673,62 @@ def _nhd_masked_row(torch, tag: str, args, n: int) -> None:
               f"K4 differs from K3 ({tag}) with a row all masked")
 
 
+# K5's cases: (N, heads, dim_head, mask). "partial": valid lengths [N - 37,
+# N]; "row": row 1 also all masked (the mean of v); "unett": the UNetT's
+# mask at N + 1, the time token and the middle of the bucket's frames kept
+# (896 of 1024, 1280 of 1536), the rest padded, both CFG rows alike.
+K5_CASES = [(1024, 16, 64, "partial"), (1280, 16, 64, "partial"), (1088, 16, 64, "partial"),
+            (1000, 16, 64, "partial"), (1025, 16, 64, "partial"), (1024, 8, 128, "partial"),
+            (1024, 16, 64, "row"), (1025, 16, 64, "row"), (1537, 16, 64, "partial"),
+            (1025, 16, 64, "unett"), (1537, 16, 64, "unett")]
+K5_UNETT_FRAMES = {1025: 896, 1537: 1280}
+
+
+def _k5_mask(torch, n: int, kind: str):
+    pos = torch.arange(n, device="cuda")
+    if kind == "unett":
+        return (pos < 1 + K5_UNETT_FRAMES[n])[None].expand(2, n).contiguous()
+    mask = pos[None, :] < torch.tensor([n - 37, n], device="cuda")[:, None]
+    if kind == "row":
+        mask[1] = False
+    return mask
+
+
 def phase_split_attention() -> dict:
-    """K5 against its plain version on the card, with sdpa as its yardstick:
-    the v0 path's shape (rows 2, 16 x 64, N 1024), the MMDiT's joint length
-    (1024 frames + 256 text), ragged N (1088; 1000 and 1025, off the 64-key
-    tiles and off the 16-byte rows a TMA map of the mask would need), d128
-    heads, and a batch row whose keys are all masked (which must give the mean
-    of v), at N 1024 and 1025. Returns the record of the v0 shape in bf16."""
+    """K5 against its plain version on the card (``K5_CASES``), with sdpa as
+    its yardstick: the v0 path's shape (rows 2, 16 x 64, N 1024), the
+    MMDiT's joint length (1024 frames + 256 text), ragged N (1088; 1000,
+    1025 and 1537, off the 128-key tiles and off the 16-byte rows a TMA map
+    of the mask would need), d128 heads, a batch row whose keys are all
+    masked (which must give the mean of v) at N 1024 and 1025, and the
+    UNetT's mask at N 1025 and 1537. In bf16 the kernel's counter gives the
+    share of key tiles it skipped, held to ``vmem_key_tiles``; K5 at N 1025
+    is timed in turns with N 1024. Returns the record of the v0 shape in
+    bf16."""
     import torch
     import torch.nn.functional as F
 
     from lemas_tts_tpu_torch.ops import attention
 
-    records = {}
-    shapes = [(1024, 16, 64, False), (1280, 16, 64, False), (1088, 16, 64, False),
-              (1000, 16, 64, False), (1025, 16, 64, False), (1024, 8, 128, False),
-              (1024, 16, 64, True), (1025, 16, 64, True)]
+    records, ragged = {}, {}
     for tag, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
         peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
-        for n, heads, dh, masked_row in shapes:
-            main_shape = tag == "bf16" and n == 1024 and dh == 64 and not masked_row
+        for n, heads, dh, kind in K5_CASES:
+            main_shape = tag == "bf16" and n == 1024 and dh == 64 and kind == "partial"
             rows = 2
             g = torch.Generator(device="cuda").manual_seed(n + dh)
             sets = []
-            for _ in range(3 if main_shape else 1):
+            for _ in range(3 if main_shape or (tag, n, kind) == ("bf16", 1025, "partial")
+                           else 1):
                 q, k, v = (torch.randn(rows, heads, n, dh, generator=g, device="cuda").to(dtype)
                            for _ in range(3))
-                valid = torch.tensor([n - 37, n], device="cuda")
-                mask = torch.arange(n, device="cuda")[None, :] < valid[:, None]
-                if masked_row:
-                    mask[1] = False
-                sets.append((q, k, v, mask))
+                sets.append((q, k, v, _k5_mask(torch, n, kind)))
             q, k, v, mask = sets[0]
-            got = attention.vmem_attention(*sets[0])
+            counts = torch.zeros(2, dtype=torch.int64, device="cuda") if tag == "bf16" else None
+            got = attention.vmem_attention(*sets[0], counts=counts)
             ref = attention.vmem_attention_plain(*sets[0])
             shape = f"rows {rows:2d} N {n:4d} heads {heads}x{dh}"
-            if masked_row:
+            if kind == "row":
                 mean_v = v[1].float().mean(dim=1, keepdim=True).expand(heads, n, dh)
                 row_err = rel_l2(got[1], mean_v)
                 print(f"[kernels] vmem_attention {tag} {shape}, row 1 all masked: rel-L2 "
@@ -709,6 +736,16 @@ def phase_split_attention() -> dict:
                       flush=True)
                 check(row_err <= TOL_REL_L2[tag], f"K5 {tag}: all-masked row is not mean(v)")
                 shape += ", row 1 all masked"
+            if kind == "unett":
+                shape += f", UNetT mask ({K5_UNETT_FRAMES[n]} frames)"
+            if counts is not None:
+                walked, total = counts.tolist()
+                want = attention.vmem_key_tiles(mask, n, heads, rows)
+                print(f"[kernels] vmem_attention {tag} {shape}: key tiles walked {walked} of "
+                      f"{total}, {100 * (1 - walked / total):.1f} % skipped "
+                      f"(vmem_key_tiles: {want[0]} of {want[1]})", flush=True)
+                check([walked, total] == list(want), f"K5 {shape}: tile counter {counts.tolist()}"
+                      f" is not vmem_key_tiles' {want}")
             esz = q.element_size()
             nbytes = 4 * rows * heads * n * dh * esz + rows * n
             flops = 4.0 * heads * dh * n * float(mask.sum())
@@ -720,8 +757,20 @@ def phase_split_attention() -> dict:
                       "lemas_tts_tpu_torch/csrc/attention_bhnd.cu",
                       "lemas_tts_tpu/ops/attention.py:162")],
                     tag, shape, peak, records if main_shape else None)
-            del sets, q, k, v, got, ref
+            if tag == "bf16" and dh == 64 and kind == "partial" and n in (1024, 1025):
+                ragged[n] = [lambda a=a: attention.vmem_attention(*a) for a in sets]
+            else:
+                del sets
+            del q, k, v, got, ref
             torch.cuda.empty_cache()
+    t = [device_ms(ragged[n], iters=60) for n in (1024, 1025, 1025, 1024)]
+    at_1024, at_1025 = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+    print(f"[kernels] vmem_attention bf16 rows  2 heads 16x64, valid [N - 37, N]: N 1025 "
+          f"{at_1025:.4f} ms, N 1024 {at_1024:.4f} ms in turns (1024, 1025, 1025, 1024: "
+          f"{', '.join(f'{x:.4f}' for x in t)}), N 1025 / N 1024 {at_1025 / at_1024:.3f}",
+          flush=True)
+    del ragged
+    torch.cuda.empty_cache()
     return records
 
 

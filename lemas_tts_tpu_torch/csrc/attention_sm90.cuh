@@ -2,8 +2,8 @@
 // K5 in attention_bhnd.cuh, K6 in attention_splash_sm90.cuh), on the
 // primitives of sm90.cuh: their TMA maps, in-place rope of a TMA-loaded tile,
 // the exp2, the running row state, and one warpgroup's online-softmax step
-// over a 64-key tile whose scores stay in registers (K3-K5; K6 has its own
-// over 128 keys).
+// over a 64-key tile whose scores stay in registers (K3 and K4; K5 and K6
+// have their own over 128 keys).
 //
 // Elements 8kk .. 8kk + 7 of a m64n64 score accumulator (layout in
 // sm90.cuh), packed in pairs to bf16, are the A fragment of keys
@@ -128,31 +128,16 @@ struct RowState {
   float m[2], l[2];
 };
 
-// Key byte of K3's, K4's and K5's tiles (written by the producer warp): kept,
-// padded (mask false) or at or beyond n.
-constexpr uint8_t kKeyPadded = 0, kKeyKept = 1, kKeyBeyond = 2;
-
-// Score offset of a key byte: 0 if kept, -1e30 if padded; with TAIL (K5's
-// ragged last tile) -inf for a key beyond n, so its p is 0 exactly.
-template <bool TAIL>
-__device__ __forceinline__ float key_bias(uint8_t k) {
-  if (TAIL) return k == kKeyKept ? 0.f : k == kKeyPadded ? attn::kMasked : neg_inf();
-  return k ? 0.f : attn::kMasked;
-}
-
-// One 64-key tile: s holds this thread's scores, factor the f32 multiplier
-// that takes a score into the log2 domain (log2 e where q is already scaled,
-// as in K3 and K4; 1/sqrt(D) log2 e for K5, whose scale follows the product);
-// keep the tile's 64 key bytes (nullptr: every key kept). A padded key scores
-// -1e30: fmaf(s, factor, -1e30) is exactly -1e30, as |s| is far below the ulp
-// of 1e30, so no element needs a branch. Without TAIL every key of a tile is
-// below n (K3 and K4 take N % 64 == 0). Updates the running max and sum,
-// rescales the ND output accumulators and leaves the unnormalised p, rounded
-// to bf16, in the A fragments p[kk] of the P V product.
-template <int ND, bool TAIL = false>
+// One 64-key tile of K3 or K4: s holds this thread's scores of q already
+// scaled by 1/sqrt(D); keep the tile's 64 key bytes (1 kept, 0 padded;
+// nullptr: every key kept). A padded key scores -1e30: fmaf(s, log2 e,
+// -1e30) is exactly -1e30, as |s| is far below the ulp of 1e30, so no
+// element needs a branch. Updates the running max and sum, rescales the ND
+// output accumulators and leaves the unnormalised p, rounded to bf16, in the
+// A fragments p[kk] of the P V product.
+template <int ND>
 __device__ __forceinline__ void softmax_step(RowState& st, float (&s)[32], float (&o)[ND][32],
-                                             uint32_t (&p)[4][4], const uint8_t* keep,
-                                             float factor = kLog2e) {
+                                             uint32_t (&p)[4][4], const uint8_t* keep) {
   const int t = threadIdx.x & 3;
   float mx[2] = {st.m[0], st.m[1]};
 #pragma unroll
@@ -160,14 +145,14 @@ __device__ __forceinline__ void softmax_step(RowState& st, float (&s)[32], float
     float2 bb = {0.f, 0.f};
     if (keep != nullptr) {
       const uchar2 kk = *reinterpret_cast<const uchar2*>(keep + 8 * j + 2 * t);
-      bb = {key_bias<TAIL>(kk.x), key_bias<TAIL>(kk.y)};
+      bb = {kk.x ? 0.f : attn::kMasked, kk.y ? 0.f : attn::kMasked};
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       float& x0 = s[4 * j + 2 * r];
       float& x1 = s[4 * j + 2 * r + 1];
-      x0 = fmaf(x0, factor, bb.x);
-      x1 = fmaf(x1, factor, bb.y);
+      x0 = fmaf(x0, kLog2e, bb.x);
+      x1 = fmaf(x1, kLog2e, bb.y);
       mx[r] = fmaxf(mx[r], fmaxf(x0, x1));
     }
   }

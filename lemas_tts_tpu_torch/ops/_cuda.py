@@ -35,7 +35,7 @@ ENTRY_POINTS = {
     "qkv_block": {"lemas_qkv_block": [I, I] + [P] * 13 + [I] * 5 + [P]},
     "ffn_block": {"lemas_ffn_block": [I, I] + [P] * 11 + [I] * 4 + [P]},
     "attention_nhd": {"lemas_attention_nhd": _NHD, "lemas_attention_nhd_pack": _NHD},
-    "attention_bhnd": {"lemas_attention_bhnd": [I, I, I] + [P] * 5 + [I] * 3 + [F, P]},
+    "attention_bhnd": {"lemas_attention_bhnd": [I, I, I] + [P] * 5 + [I] * 3 + [F, P, P]},
     "attention_splash": {"lemas_attention_splash": [I, I, I] + [P] * 5 + [I] * 3 + [F, P]},
     "conv_taps": {"lemas_conv_taps_mish": [I, I] + [P] * 4 + [I] * 6 + [P]},
 }

@@ -6,7 +6,10 @@ Counterpart of ``lemas_tts_tpu/ops/attention.py``:
   mask, ``1/sqrt(D)`` applied to the f32 scores after the product, the
   unnormalised p rounded to the compute dtype before the PV product and
   ``/ l`` last. CUDA tensors launch ``csrc/attention_bhnd.cu`` (d64, d128,
-  any N) or raise;
+  any N) or raise. Its bf16 kernel walks 128-key tiles and skips those
+  whose keys are all padded in a batch row with a kept key
+  (``vmem_walked_tiles``; ``vmem_key_tiles`` counts them as the kernel's
+  optional counter does);
 - ``splash_attention`` (K6): the JAX wrapper around JAX's own Pallas splash
   kernel, with segment ids taken from the mask, so a pad query attends the
   pad keys and an all-padded batch row attends every key. q is scaled by
@@ -50,6 +53,7 @@ from lemas_tts_tpu_torch.ops import _cuda, launches
 NEG_INF = -1e30  # score of a padded key
 M_FLOOR = -1e29  # K3's running-max floor in its chunked regime
 Q_TILE = 64  # the flat kernels take N in whole 64-row tiles of q and of keys
+KEY_TILE = 128  # K5's bf16 kernel: keys of a tile, query rows of an item
 
 
 def _f32_scale(d: int) -> float:
@@ -73,9 +77,35 @@ def vmem_attention_plain(q, k, v, mask=None):
     return torch.stack(outs)
 
 
-def _launch_bhnd(library: str, q, k, v, mask, scale: float):
+def vmem_walked_tiles(mask, n: int, batch: int = 1) -> torch.Tensor:
+    """``[B, ceil(n / 128)]`` bool: the 128-key tiles that K5's bf16 kernel
+    walks for every item (128 query rows of a head) of each batch row. A row
+    with a kept key walks the tiles that hold one; the keys of the others
+    are all padded and their p is exactly 0 against the row's real max, so
+    skipping them changes no value. A row with no kept key walks every tile
+    (it gets the mean of v). ``mask`` [B, n] bool or None (every key kept,
+    ``batch`` rows)."""
+    tiles = -(-n // KEY_TILE)
+    if mask is None:
+        return torch.ones(batch, tiles, dtype=torch.bool)
+    pad = torch.zeros(mask.shape[0], tiles * KEY_TILE - n, dtype=torch.bool, device=mask.device)
+    kept = torch.cat([mask, pad], dim=1).view(-1, tiles, KEY_TILE).any(dim=2)
+    return (kept | ~kept.any(dim=1, keepdim=True)).cpu()
+
+
+def vmem_key_tiles(mask, n: int, heads: int, batch: int = 1) -> tuple:
+    """``(walked, total)``: the key tiles that the items of one K5 call walk
+    and the key tiles of those items, as the bf16 kernel counts them (its
+    ``counts``); every head of a batch row has ``ceil(n / 128)`` items."""
+    walked = vmem_walked_tiles(mask, n, batch)
+    items = heads * walked.shape[1]  # items of a batch row
+    return int(walked.sum()) * items, walked.numel() * items
+
+
+def _launch_bhnd(library: str, q, k, v, mask, scale: float, *extra):
     """Check split-head q, k, v [B, H, N, D] and the mask on CUDA and launch
-    ``lemas_<library>`` (K5 or K6) on them; returns the output."""
+    ``lemas_<library>`` (K5 or K6) on them, ``extra`` pointers passed after
+    the scale; returns the output."""
     _cuda.require(q.device.type == "cuda", f"no kernel for device {q.device}")
     _cuda.require(q.dim() == 4, f"q must be [B, H, N, D], got {tuple(q.shape)}")
     B, H, N, D = q.shape
@@ -92,19 +122,28 @@ def _launch_bhnd(library: str, q, k, v, mask, scale: float):
     out = torch.empty_like(q)
     err = getattr(_cuda.library(library), f"lemas_{library}")(
         q.device.index, _cuda.dtype_code(q), D, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if mask is None else mask.data_ptr(), out.data_ptr(), B, N, H, scale,
+        None if mask is None else mask.data_ptr(), out.data_ptr(), B, N, H, scale, *extra,
         _cuda.stream_ptr(q.device))
     _cuda.check(err, library)
     return out
 
 
-def vmem_attention(q, k, v, mask=None):
+def vmem_attention(q, k, v, mask=None, counts=None):
     """q, k, v [B, H, N, D]; mask [B, N] bool (True = keep) or None.
-    Returns [B, H, N, D] in q's dtype."""
+    Returns [B, H, N, D] in q's dtype. ``counts``: None, or (bf16 on CUDA
+    only) an int64 [2] tensor on q's device to which the kernel adds
+    ``vmem_key_tiles``' two numbers."""
     if q.device.type == "cpu":
+        _cuda.require(counts is None, "the plain version counts no key tiles")
         return vmem_attention_plain(q, k, v, mask)
     _cuda.refuse_grad("vmem_attention (K5)", q, k, v)
-    out = _launch_bhnd("attention_bhnd", q, k, v, mask, _f32_scale(q.shape[-1]))
+    if counts is not None:
+        _cuda.require(q.dtype == torch.bfloat16 and counts.dtype == torch.int64
+                      and counts.is_contiguous() and tuple(counts.shape) == (2,)
+                      and counts.device == q.device,
+                      "counts must be contiguous int64 [2] on q's device, with bf16 q")
+    out = _launch_bhnd("attention_bhnd", q, k, v, mask, _f32_scale(q.shape[-1]),
+                       None if counts is None else counts.data_ptr())
     launches.count(vmem_attention)
     return out
 
